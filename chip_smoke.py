@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's flat engine path once on one CUDA card.
+
+    python3 chip_smoke.py [--seed 0]
+
+1. Environment: card name and power limit, torch and CUDA versions, nvcc,
+   Triton, and the seconds the kernels take to build from `vecgo_tpu_torch/csrc`.
+2. Kernel phase: `scan_topk` against its plain PyTorch version on the card at
+   the shapes the engine gives it (segment scan, memtable chunk, wide rows).
+3. Engine phase: Open -> insert_batch (1M clustered 128-d rows with metadata)
+   -> commit -> 50k more rows left in the memtable -> 1,000 deletes ->
+   search_arrays over 4096-query batches, unfiltered and at 1/10/80%
+   selectivity (QPS: the median of five windows of at least 1 s), plus one
+   search_arrays_stream pass; recall@10 against the
+   exact plain-PyTorch answer over the visible rows, deleted ids absent,
+   every live id readable by get, and the kernel's launch count.
+
+Any failed check raises (exit code != 0). On success the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits with code 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N = 1 << 20  # rows committed to the flat segment (sift-128-euclidean's scale)
+DIM = 128
+N_CLUSTERS = 1024
+BATCH = 4096
+K = 10
+RECALL_FLOOR = 0.999
+# Sync QPS: the median of QPS_WINDOWS windows of at least QPS_WINDOW_S each.
+QPS_WINDOWS = 5
+QPS_WINDOW_S = 1.0
+# Two fp32 sums of the same products in different orders differ by a few ulp
+# of the largest term: relative to |q|^2 + |x|^2, 2e-5 is ~170 ulp (fp32
+# eps 1.2e-7), above the sqrt(d)-scaled rounding of a d <= 768 dot product.
+REL_TOL = 2e-5
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def clustered(rng, n: int, centers: np.ndarray) -> np.ndarray:
+    """Rows around random cluster centres (bench.py's corpus generator)."""
+    x = centers[rng.integers(0, len(centers), size=n)]
+    return x + 0.35 * rng.standard_normal((n, centers.shape[1])).astype(np.float32)
+
+
+def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+
+    dev = torch.device("cuda")
+    centers = rng.standard_normal((N_CLUSTERS, d)).astype(np.float32)
+    x = torch.from_numpy(clustered(rng, n, centers)).to(dev)
+    q = torch.from_numpy(clustered(rng, b, centers)).to(dev)
+    if metric == "cos":
+        x = x / x.norm(dim=1, keepdim=True)
+        q = q / q.norm(dim=1, keepdim=True)
+    xn = (x * x).sum(1)
+    xs = x.to(dtype).contiguous()
+    mask = None
+    if mask_frac:
+        mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
+    args = (q, xs, xn, k, metric, mask)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    qn = (q * q).sum(1)
+    tol = REL_TOL * float(qn.max() + xn.max()) if metric == "l2" else REL_TOL * 4
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), f"{name}: +inf slots differ")
+    fin = torch.isfinite(d_r)
+    err = float((d_k - d_r).abs()[fin].max())
+    check(err <= tol, f"{name}: max |d_kernel - d_plain| = {err} > {tol}")
+    # Ids may differ only where the kernel picked a row whose exact score
+    # ties the plain version's within the tolerance.
+    bad = (i_k != i_r) & fin
+    if bad.any():
+        bq, bj = bad.nonzero(as_tuple=True)
+        rows = i_k[bq, bj].long()
+        qq = q[bq].to(dtype).double()
+        xx = xs[rows].double()
+        dot = (qq * xx).sum(1)
+        exact = {"l2": qn[bq].double() + xn[rows].double() - 2 * dot, "dot": -dot,
+                 "cos": 1 - dot}[metric]
+        gap = float((exact - d_r[bq, bj].double()).abs().max())
+        check(gap <= 2 * tol, f"{name}: {int(bad.sum())} ids differ beyond ties (gap {gap})")
+    if mask is not None:
+        check(bool(mask[i_k[fin].long()].all()), f"{name}: a masked row was returned")
+    ms = cuda_ms(lambda: scan_topk(*args), reps=5)
+    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(dtype)[6:]} {metric}"
+          f"{f' mask {mask_frac:.0%} out' if mask_frac else ''}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g} (tol {tol:.3g}), "
+          f"tie swaps {int(bad.sum())} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def sync_qps(db, queries, kw) -> float:
+    """QPS of back-to-back search_arrays calls over one window of QPS_WINDOW_S."""
+    t0 = time.perf_counter()
+    done = 0
+    while (elapsed := time.perf_counter() - t0) < QPS_WINDOW_S:
+        db.search_arrays(queries, k=K, **kw)
+        done += len(queries)
+    return done / elapsed
+
+
+def engine_phase(args, card):
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu.metadata import isin
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+
+    rng = np.random.default_rng(args.seed)
+    centers = rng.standard_normal((N_CLUSTERS, DIM)).astype(np.float32)
+    x1 = clustered(rng, N, centers)
+    x2 = clustered(rng, 50_000, centers)
+    u1 = rng.integers(0, 100, N)
+    u2 = rng.integers(0, 100, len(x2))
+    queries = [clustered(rng, BATCH, centers) for _ in range(4)]
+    metas1 = [{"u": int(v)} for v in u1]
+    metas2 = [{"u": int(v)} for v in u2]
+
+    scan_topk.launches = 0
+    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
+    t0 = time.perf_counter()
+    ids1 = np.asarray(db.insert_batch(x1, metas1), np.int64)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.commit()
+    commit_s = time.perf_counter() - t0
+    ids2 = np.asarray(db.insert_batch(x2, metas2), np.int64)
+    all_ids = np.concatenate([ids1, ids2])
+    deleted = rng.choice(all_ids, 1000, replace=False)
+    for i in deleted:
+        check(db.delete(int(i)), f"delete {i}")
+    print(f"engine ingest: {N} rows in {ingest_s:.3f} s = {N / ingest_s:.0f} rows/s; "
+          f"commit {commit_s:.3f} s [{card}]", flush=True)
+
+    dev = torch.device("cuda")
+    x_all = torch.from_numpy(np.concatenate([x1, x2])).to(dev)
+    xn_all = (x_all * x_all).sum(1)
+    u_all = np.concatenate([u1, u2])
+    live = ~np.isin(all_ids, deleted)
+    q0 = torch.from_numpy(queries[0]).to(dev)
+    results = {}
+    for name, sel in (("unfiltered", None), ("sel1", 1), ("sel10", 10), ("sel80", 80)):
+        kw = {} if sel is None else {"filter": isin("u", list(range(sel)))}
+        vis = live if sel is None else live & (u_all < sel)
+        _, gt_rows = scan_topk_reference(q0, x_all, xn_all, K, "l2",
+                                         torch.from_numpy(vis).to(dev))
+        gt = all_ids[gt_rows.cpu().numpy()]
+        got, dist = db.search_arrays(queries[0], k=K, **kw)
+        check(got.shape == (BATCH, K) and np.isfinite(dist).all(), f"{name}: result shape/finite")
+        check(not np.isin(got, deleted).any(), f"{name}: a deleted id was returned")
+        recall = np.mean([len(set(g) & set(t)) / K for g, t in zip(got, gt)])
+        windows = sorted(sync_qps(db, queries[0], kw) for _ in range(QPS_WINDOWS))
+        qps = windows[len(windows) // 2]
+        results[name] = (qps, recall)
+        print(f"engine search_arrays {name}: {qps:.0f} QPS (B={BATCH}; median of "
+              f"{QPS_WINDOWS} windows >= {QPS_WINDOW_S} s, range {windows[0]:.0f}-"
+              f"{windows[-1]:.0f}), recall@10 {recall:.5f} [{card}]", flush=True)
+        check(recall >= RECALL_FLOOR, f"{name}: recall {recall} < {RECALL_FLOOR}")
+
+    t0 = time.perf_counter()
+    streamed = list(db.search_arrays_stream(iter(queries), k=K, depth=3))
+    stream_s = time.perf_counter() - t0
+    check(len(streamed) == 4, "stream yielded 4 batches")
+    for qb, (ids_s, _) in zip(queries, streamed):
+        ids_b, _ = db.search_arrays(qb, k=K)
+        check(np.array_equal(ids_s, ids_b), "stream results equal search_arrays")
+        check(not np.isin(ids_s, deleted).any(), "stream: a deleted id was returned")
+    print(f"engine search_arrays_stream: 4 x {BATCH} queries, "
+          f"{4 * BATCH / stream_s:.0f} QPS [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    for i in all_ids[live]:
+        db.get(int(i))
+    for i in deleted:
+        try:
+            db.get(int(i))
+        except vg.ErrNotFound:
+            continue
+        raise RuntimeError(f"check failed: deleted id {i} still readable")
+    print(f"engine get: {int(live.sum())} live ids readable, 1000 deleted ids gone "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches = scan_topk.launches
+    check(launches > 0, "the engine path launched scan_topk")
+    print(f"engine peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"scan_topk launches {launches} [{card}]", flush=True)
+    db.close()
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from vecgo_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"triton {'present' if importlib.util.find_spec('triton') else 'absent'}")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
+    print(nvcc.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rng = np.random.default_rng(args.seed)
+    main_case = kernel_case("segment", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card)
+    chunk = kernel_case("memtable-chunk", rng, BATCH, 8192, DIM, 16, torch.float32, "l2", 0.3, card)
+    wide = kernel_case("wide", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card)
+    launches = engine_phase(args, card)
+
+    print(json.dumps({"kernels": [{
+        "name": "scan_topk",
+        "route": "cuda",
+        "source": "vecgo_tpu_torch/csrc/scan_topk.cu",
+        "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
+        "launches": launches,
+        "max_abs_err": max(c["err"] for c in (main_case, chunk, wide)),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+    }]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

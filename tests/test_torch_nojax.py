@@ -1,0 +1,56 @@
+"""The port never imports jax.
+
+Runs in a subprocess, because this test process has jax loaded already
+(tests/conftest.py imports it). The child imports vecgo_tpu_torch, drives a
+small slice of the flat path on the CPU and checks sys.modules; without a
+CUDA device it also checks that the default device ("cuda") is refused.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu.metadata import eq
+
+    torch.set_num_threads(1)
+    x = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
+    db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu"))
+    ids = db.insert_batch(x, [{"c": i % 3} for i in range(600)])
+    db.commit()
+    db.insert_batch(x[:50] + 1.0)
+    db.delete(ids[0])
+    got, _ = db.search_arrays(x[:4], k=3, filter=eq("c", 1))
+    assert got.shape == (4, 3) and ids[0] not in got
+    assert db.search(x[1], k=1)[0].id == ids[1]
+    db.close()
+    assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+    if not torch.cuda.is_available():
+        try:
+            vg.Create(dim=8)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("Create() with the default device must need CUDA")
+    print("NOJAX-OK")
+    """
+)
+
+
+def test_port_runs_without_importing_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    out = subprocess.run(
+        [sys.executable, "-c", CHILD], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "NOJAX-OK" in out.stdout

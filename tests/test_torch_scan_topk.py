@@ -1,0 +1,204 @@
+"""The port's fused scan + top-k against the JAX package.
+
+`scan_topk` on a CPU tensor runs its plain PyTorch version
+(`scan_topk_reference`); it is held against `pallas_l2_topk` (interpret mode,
+as tests/test_pallas.py runs it) and against `blockwise_topk_search(exact=True)`.
+Tolerances: distances within rtol 1e-5 / atol 1e-4 (JAX's fp32
+Precision.HIGH on the CPU against IEEE fp32 sums in another order); ids equal
+except where two rows' exact scores tie within that tolerance. The CUDA
+kernel itself is compared with the plain version in test_torch_cuda.py,
+which skips without a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vecgo_tpu.model import Metric
+from vecgo_tpu.ops import pallas_scan
+from vecgo_tpu.ops import topk as JT
+from vecgo_tpu_torch.ops import topk as T
+from vecgo_tpu_torch.ops.scan_topk import MAX_K, scan_topk, scan_topk_reference
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def _data(b, n, d, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((b, d)).astype(np.float32),
+            r.standard_normal((n, d)).astype(np.float32))
+
+
+def _exact_scores(q, x, rows, metric, bf16=False):
+    """Float64 scores of rows [B, k] (-1 -> inf), in the scan's precision."""
+    q, x = q.astype(np.float64), x.astype(np.float64)
+    v = x[np.maximum(rows, 0)]
+    qn, vn = (q * q).sum(1)[:, None], (v * v).sum(-1)  # norms stay fp32-exact
+    if bf16:  # the product takes bf16-rounded operands
+        q = torch.from_numpy(q).bfloat16().double().numpy()
+        v = torch.from_numpy(v).bfloat16().double().numpy()
+    dot = np.einsum("bkd,bd->bk", v, q)
+    if metric == "l2":
+        s = qn + vn - 2 * dot
+    elif metric == "dot":
+        s = -dot
+    else:
+        s = 1 - dot
+    return np.where(rows >= 0, s, np.inf)
+
+
+def assert_same_topk(d_a, i_a, d_b, i_b, q, x, metric, bf16=False):
+    d_a, i_a, d_b, i_b = map(np.asarray, (d_a, i_a, d_b, i_b))
+    np.testing.assert_allclose(d_a, d_b, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(i_a < 0, i_b < 0)
+    diff = i_a != i_b
+    if diff.any():  # a swap is allowed only between near-equal scores
+        sa = _exact_scores(q, x, np.where(diff, i_a, -1), metric, bf16)
+        sb = _exact_scores(q, x, np.where(diff, i_b, -1), metric, bf16)
+        fin = np.isfinite(sa)
+        np.testing.assert_allclose(sa[fin], sb[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "b,n,d,k,tile_b,tile_n",
+    [(13, 777, 32, 5, 8, 256), (32, 3000, 64, 10, 16, 512), (9, 600, 16, 70, 8, 128)],
+    ids=["padding", "multi-tile", "k-over-tile"],
+)
+def test_reference_matches_pallas_l2_topk(b, n, d, k, tile_b, tile_n):
+    q, x = _data(b, n, d, seed=n)
+    xn = (x * x).sum(1)
+    d_j, i_j = pallas_scan.l2_topk(jnp.asarray(q), jnp.asarray(x), k=k,
+                                   tile_b=tile_b, tile_n=tile_n)
+    d_t, i_t = scan_topk_reference(torch.from_numpy(q), torch.from_numpy(x),
+                                   torch.from_numpy(xn), k, "l2")
+    assert d_t.dtype == torch.float32 and i_t.dtype == torch.int32
+    assert_same_topk(d_t, i_t, d_j, i_j, q, x, "l2")
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cos"])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_blockwise_matches_jax_exact(metric, masked, bf16):
+    q, x = _data(13, 777, 32, seed=7)
+    if metric == "cos":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    mask = np.random.default_rng(8).random(777) < 0.4 if masked else None
+    m = Metric.COSINE if metric == "cos" else Metric(metric)
+    cd = jnp.bfloat16 if bf16 else None
+    d_j, i_j = JT.blockwise_topk_search(
+        jnp.asarray(q), jnp.asarray(x), 10, metric=m, block_rows=128,
+        mask=None if mask is None else jnp.asarray(mask), compute_dtype=cd,
+        x_normalized=True, exact=True,
+    )
+    d_t, i_t = T.blockwise_topk_search(
+        torch.from_numpy(q), torch.from_numpy(x), 10, metric=m,
+        mask=None if mask is None else torch.from_numpy(mask),
+        compute_dtype=torch.bfloat16 if bf16 else None, x_normalized=True,
+    )
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True) if metric == "cos" else q
+    assert_same_topk(d_t, i_t, d_j, i_j, qn, x, metric, bf16)
+    if masked:
+        assert mask[np.asarray(i_t)].all()
+
+
+def test_ties_go_to_the_lower_row_like_pallas():
+    q, x = _data(4, 96, 8, seed=3)
+    x = np.concatenate([x, x, x])  # every row appears three times
+    xn = (x * x).sum(1)
+    _, i_j = pallas_scan.l2_topk(jnp.asarray(q), jnp.asarray(x), k=9, tile_b=8, tile_n=128)
+    _, i_t = scan_topk(torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(xn), 9)
+    np.testing.assert_array_equal(np.asarray(i_t), np.asarray(i_j))
+
+
+def test_fewer_eligible_rows_than_k_pad_with_inf():
+    q, x = _data(3, 50, 8, seed=4)
+    mask = torch.zeros(50, dtype=torch.bool)
+    mask[[3, 17, 41]] = True
+    d, i = scan_topk(torch.from_numpy(q), torch.from_numpy(x),
+                     torch.from_numpy((x * x).sum(1)), 5, "l2", mask)
+    assert sorted(i[0, :3].tolist()) == [3, 17, 41]
+    assert torch.isinf(d[:, 3:]).all() and (i[:, 3:] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_overflowing_rows_never_enter_a_list(metric):
+    q, x = _data(6, 300, 32, seed=11)
+    q = np.abs(q)
+    x[[7, 150]] = 3e38  # q.x overflows: dot scores -inf, l2 scores nan
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    xn = (xt * xt).sum(1)
+    d, i = scan_topk(qt, xt, xn, 8, metric)
+    keep = torch.ones(300, dtype=torch.bool)
+    keep[[7, 150]] = False
+    d_m, i_m = scan_topk(qt, xt, xn, 8, metric, keep)
+    assert torch.isfinite(d).all()
+    assert torch.equal(i, i_m) and torch.equal(d, d_m)
+
+
+def test_cpu_tensors_run_the_plain_version():
+    q, x = _data(5, 300, 16, seed=5)
+    args = (torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy((x * x).sum(1)), 7)
+    before = scan_topk.launches
+    got = scan_topk(*args)
+    want = scan_topk_reference(*args)
+    assert scan_topk.launches == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [0, MAX_K + 1])
+def test_k_out_of_range_raises(k):
+    q, x = _data(2, 10, 4, seed=6)
+    with pytest.raises(ValueError):
+        scan_topk(torch.from_numpy(q), torch.from_numpy(x),
+                  torch.from_numpy((x * x).sum(1)), k)
+
+
+def test_bad_inputs_raise():
+    q, x = _data(2, 10, 4, seed=6)
+    qt, xt, xn = torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy((x * x).sum(1))
+    with pytest.raises(ValueError):
+        scan_topk(qt.double(), xt, xn, 3)
+    with pytest.raises(ValueError):
+        scan_topk(qt, xt.T, xn, 3)  # dim mismatch
+    with pytest.raises(ValueError):
+        scan_topk(qt, xt, None, 3, "l2")  # l2 needs norms
+    with pytest.raises(ValueError):
+        scan_topk(qt, xt, xn, 3, "l2", torch.ones(9, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.DOT, Metric.COSINE, Metric.HAMMING])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_pairwise_scores_match_jax(metric, bf16):
+    from vecgo_tpu.ops import distance as JD
+    from vecgo_tpu_torch.ops import distance as TD
+
+    q, x = _data(7, 50, 24, seed=9)
+    if metric == Metric.HAMMING:
+        q, x = (q > 0).astype(np.float32), (x > 0).astype(np.float32)
+    want = JD.pairwise_scores(jnp.asarray(q), jnp.asarray(x), metric, x_normalized=False,
+                              compute_dtype=jnp.bfloat16 if bf16 else None)
+    got = TD.pairwise_scores(torch.from_numpy(q), torch.from_numpy(x), metric,
+                             x_normalized=False,
+                             compute_dtype=torch.bfloat16 if bf16 else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(TD.row_norms_sq(torch.from_numpy(x)).numpy(),
+                               np.asarray(JD.row_norms_sq(jnp.asarray(x))), rtol=RTOL)
+
+
+def test_small_width_selections_match_jax():
+    r = np.random.default_rng(10)
+    da = np.sort(r.integers(0, 20, (5, 6)).astype(np.float32), 1)  # many ties
+    db = np.sort(r.integers(0, 20, (5, 4)).astype(np.float32), 1)
+    ia = r.integers(0, 100, (5, 6)).astype(np.int32)
+    ib = r.integers(100, 200, (5, 4)).astype(np.int32)
+    want = JT.merge_topk_sorted(*map(jnp.asarray, (da, ia, db, ib)), 7)
+    got = T.merge_topk_sorted(*map(torch.from_numpy, (da, ia, db, ib)), 7)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = JT.topk_smallest_with_ids(jnp.asarray(da), jnp.asarray(ia), 4)
+    got = T.topk_smallest_with_ids(torch.from_numpy(da), torch.from_numpy(ia), 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -1,0 +1,15 @@
+"""What the port does not cover yet, by its item in ROADMAP.md's port queue."""
+
+QUEUE = {
+    2: "quantized flat profiles and beyond-device streaming",
+    3: "graph segments: coded IVF scan kernel, beam search, build, compaction",
+    4: "device BM25 hybrid search",
+    5: "the multi-device plane",
+}
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to vecgo_tpu_torch yet "
+        f"(ROADMAP.md, port queue item {item}: {QUEUE[item]})"
+    )

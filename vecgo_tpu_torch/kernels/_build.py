@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, nvcc compiles every `vecgo_tpu_torch/csrc/*.cu` into one shared
+library with a plain C interface, which `ctypes` loads. The library lands in
+`build/vecgo_tpu_torch/` at the root of the checkout, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises with nvcc's stderr. Nothing here runs at
+import time: the CPU tests import every module of the port on machines
+without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vecgo_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None  # the loaded library, shared by every wrapper in the process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vecgo_scan_topk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.vecgo_scan_topk.restype = i
+    lib.vecgo_cuda_error_string.argtypes = [i]
+    lib.vecgo_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, compiled on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC.glob("*.cu"))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        out = BUILD_DIR / f"libvecgo_kernels_{h.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        _lib = _declare(ctypes.CDLL(str(out)))
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a non-zero cudaError_t."""
+    if code != 0:
+        msg = library().vecgo_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
