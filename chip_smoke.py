@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat engine path once on one CUDA card.
+"""Drive the PyTorch port's flat and graph engine paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
 1. Environment: card name and power limit, torch and CUDA versions, nvcc,
-   Triton, and the seconds the kernels take to build from `vecgo_tpu_torch/csrc`.
+   Triton, and the seconds the kernels take to build from `vecgo_tpu_torch/csrc`
+   (one nvcc per source, all started together).
 2. Kernel phase: `scan_topk` against its plain PyTorch version on the card at
    the shapes the engine gives it (segment scan, memtable chunk, wide rows).
-3. Engine phase: Open -> insert_batch (1M clustered 128-d rows with metadata)
-   -> commit -> 50k more rows left in the memtable -> 1,000 deletes ->
-   search_arrays over 4096-query batches, unfiltered and at 1/10/80%
-   selectivity (QPS: the median of five windows of at least 1 s), plus one
-   search_arrays_stream pass; recall@10 against the
-   exact plain-PyTorch answer over the visible rows, deleted ids absent,
-   every live id readable by get, and the kernel's launch count.
+3. Flat engine phase: Open -> insert_batch (1M clustered 128-d rows with
+   metadata) -> commit -> 50k more rows left in the memtable -> 1,000
+   deletes -> search_arrays over 4096-query batches, unfiltered and at
+   1/10/80% selectivity (QPS: the median of five windows of at least 1 s),
+   plus one search_arrays_stream pass; recall@10 against the exact
+   plain-PyTorch answer over the visible rows, deleted ids absent, every live
+   id readable by get, and the kernel's launch count.
+4. Graph engine phase, on the same database: commit the memtable, compact
+   every segment into one Vamana segment (~1.1M live rows), delete 1,000
+   more ids and insert 10k more rows, then search_arrays at the serving
+   profile (ef=48, nprobes=4, no refine, no rescore), with one refine round
+   and the pool rescore, at 10% selectivity (brute force over the codes) and
+   at 80% (the graph with a mask), and one search_arrays_stream pass; recall@10
+   against the exact answer over the visible rows (floor 0.95), deleted ids
+   absent, every live id readable, both kernels launched by the path.
+   Kernel B (`coded_group_scan`) is then held against its plain version on the
+   segment's own table with the probe inversion of a real batch.
 
 Any failed check raises (exit code != 0). On success the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 2.
@@ -37,6 +48,7 @@ N_CLUSTERS = 1024
 BATCH = 4096
 K = 10
 RECALL_FLOOR = 0.999
+GRAPH_RECALL_FLOOR = 0.95
 # Sync QPS: the median of QPS_WINDOWS windows of at least QPS_WINDOW_S each.
 QPS_WINDOWS = 5
 QPS_WINDOW_S = 1.0
@@ -44,6 +56,8 @@ QPS_WINDOW_S = 1.0
 # of the largest term: relative to |q|^2 + |x|^2, 2e-5 is ~170 ulp (fp32
 # eps 1.2e-7), above the sqrt(d)-scaled rounding of a d <= 768 dot product.
 REL_TOL = 2e-5
+# Kernel B: relative to |q - c|^2 + |x^ - c|^2, the bound the CPU tests hold.
+CODED_REL_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -218,8 +232,168 @@ def engine_phase(args, card):
     check(launches > 0, "the engine path launched scan_topk")
     print(f"engine peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"scan_topk launches {launches} [{card}]", flush=True)
-    db.close()
-    return launches
+    return {"db": db, "rng": rng, "centers": centers, "queries": queries, "x_all": x_all,
+            "ids": all_ids, "u": u_all, "deleted": deleted, "launches": launches}
+
+
+def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
+    """Recall@K of `got` against the exact plain-PyTorch answer over the
+    visible rows."""
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk_reference
+
+    xn = (x_all * x_all).sum(1)
+    _, rows = scan_topk_reference(q, x_all, xn, K, "l2",
+                                  torch.from_numpy(visible).to(x_all.device))
+    gt = all_ids[rows.cpu().numpy()]
+    return float(np.mean([len(set(g) & set(t)) / K for g, t in zip(got, gt)]))
+
+
+def graph_phase(st, card):
+    """Compact the flat phase's database into one Vamana segment and serve it."""
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu.metadata import isin
+    from vecgo_tpu_torch.index.vamana import VamanaSegment
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    db, rng, queries = st["db"], st["rng"], st["queries"]
+    dev = torch.device("cuda")
+    scan_topk.launches = 0
+    coded_group_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    db.commit()
+    t0 = time.perf_counter()
+    db.compact([h.seg_id for h in db.engine._segments])
+    compact_s = time.perf_counter() - t0
+    segs = [h.segment for h in db.engine._segments]
+    check(len(segs) == 1 and type(segs[0]) is VamanaSegment,
+          f"compaction wrote one vecgo_tpu_torch VamanaSegment, got {[type(x) for x in segs]}")
+    seg = segs[0]
+    print(f"graph compact: {seg.n} live rows into one {type(seg).__module__}."
+          f"{type(seg).__name__} (IVF membership {tuple(seg.ivf_members.shape)}) in "
+          f"{compact_s:.3f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{card}]", flush=True)
+
+    all_ids, deleted, u_all = st["ids"], st["deleted"], st["u"]
+    more = rng.choice(all_ids[~np.isin(all_ids, deleted)], 1000, replace=False)
+    for i in more:
+        check(db.delete(int(i)), f"delete {i}")
+    x3 = clustered(rng, 10_000, st["centers"])
+    u3 = rng.integers(0, 100, len(x3))
+    ids3 = np.asarray(db.insert_batch(x3, [{"u": int(v)} for v in u3]), np.int64)
+    all_ids = np.concatenate([all_ids, ids3])
+    deleted = np.concatenate([deleted, more])
+    u_all = np.concatenate([u_all, u3])
+    x_all = torch.cat([st["x_all"], torch.from_numpy(x3).to(dev)])
+    live = ~np.isin(all_ids, deleted)
+    q0 = torch.from_numpy(queries[0]).to(dev)
+
+    serving = dict(ef=48, nprobes=4, graph_refine=0, graph_rescore=False)
+    refine = dict(ef=48, nprobes=4)  # one refine round and the int16 pool rescore
+    results = {}
+    for name, kw, sel in (("serving", serving, None), ("refine", refine, None),
+                          ("sel10", refine, 10), ("sel80", refine, 80)):
+        if sel is not None:
+            kw = dict(kw, filter=isin("u", list(range(sel))))
+        vis = live if sel is None else live & (u_all < sel)
+        got, dist = db.search_arrays(queries[0], k=K, **kw)
+        check(got.shape == (BATCH, K) and np.isfinite(dist).all(),
+              f"graph {name}: result shape/finite")
+        check(not np.isin(got, deleted).any(), f"graph {name}: a deleted id was returned")
+        recall = recall_vs_exact(got, q0, x_all, vis, all_ids)
+        windows = sorted(sync_qps(db, queries[0], kw) for _ in range(QPS_WINDOWS))
+        qps = windows[len(windows) // 2]
+        results[name] = (qps, recall)
+        plan = {"serving": "graph, refine 0, no rescore", "refine": "graph, refine 1, rescore",
+                "sel10": "brute_masked over the codes",
+                "sel80": "graph with a mask, refine 1, rescore"}[name]
+        print(f"graph search_arrays {name} ({plan}): {qps:.0f} QPS (B={BATCH}; median of "
+              f"{QPS_WINDOWS} windows >= {QPS_WINDOW_S} s, range {windows[0]:.0f}-"
+              f"{windows[-1]:.0f}), recall@10 {recall:.5f} [{card}]", flush=True)
+        check(recall >= GRAPH_RECALL_FLOOR, f"graph {name}: recall {recall} < {GRAPH_RECALL_FLOOR}")
+
+    t0 = time.perf_counter()
+    streamed = list(db.search_arrays_stream(iter(queries), k=K, depth=3, **serving))
+    stream_s = time.perf_counter() - t0
+    check(len(streamed) == 4, "graph stream yielded 4 batches")
+    for qb, (ids_s, _) in zip(queries, streamed):
+        ids_b, _ = db.search_arrays(qb, k=K, **serving)
+        check(np.array_equal(ids_s, ids_b), "graph stream results equal search_arrays")
+        check(not np.isin(ids_s, deleted).any(), "graph stream: a deleted id was returned")
+    recall = recall_vs_exact(streamed[0][0], q0, x_all, live, all_ids)
+    check(recall >= GRAPH_RECALL_FLOOR, f"graph stream: recall {recall}")
+    print(f"graph search_arrays_stream (serving profile): 4 x {BATCH} queries, "
+          f"{4 * BATCH / stream_s:.0f} QPS, recall@10 {recall:.5f} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    for i in all_ids[live]:
+        db.get(int(i))
+    for i in deleted:
+        try:
+            db.get(int(i))
+        except vg.ErrNotFound:
+            continue
+        raise RuntimeError(f"check failed: deleted id {i} still readable")
+    print(f"graph get: {int(live.sum())} live ids readable, {len(deleted)} deleted ids gone "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches = {"scan_topk": scan_topk.launches, "coded_group_scan": coded_group_scan.launches}
+    for name, n in launches.items():
+        check(n > 0, f"the graph path launched {name}")
+    print(f"graph peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches} [{card}]", flush=True)
+    return seg, launches
+
+
+def coded_case(seg, q_np, card):
+    """Kernel B against its plain version on the segment's own table, with
+    the probe inversion of a real 4096-query batch (4 probes, kk = 16: the
+    serving profile's shapes)."""
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+    from vecgo_tpu_torch.ops.coded_group_scan import (
+        coded_group_scan, coded_group_scan_reference)
+    from vecgo_tpu_torch.ops.topk import topk_smallest
+
+    dev = torch.device("cuda")
+    t = seg.device_state(dev)["ivfq"]
+    k_pad, s = t.bnorm2.shape
+    n_probe, kk = 4, 16
+    q = torch.from_numpy(q_np).to(dev)
+    cd = (q * q).sum(1)[:, None] + t.cnorm2[None, :] - 2.0 * (
+        q.to(torch.bfloat16).float() @ t.centroids.to(torch.bfloat16).float().T)
+    _, probes = topk_smallest(cd, n_probe)
+    qcap = ivf_ops.default_qcap(q.shape[0], n_probe, k_pad)
+    qtab, _ = ivf_ops._invert_probes(probes, k_pad, qcap)
+    args = (q, qtab, t.codes, t.bnorm2, t.scale, t.centroids, kk)
+    d_k, i_k = coded_group_scan(*args)
+    d_r, i_r = coded_group_scan_reference(*args)
+    torch.cuda.synchronize()
+    live = qtab < q.shape[0]
+    qr = q[qtab.clamp_max(q.shape[0] - 1).long()] - t.centroids[:, None, :]  # [K, qcap, d]
+    qrn = torch.where(live, (qr * qr).sum(-1), 0.0)
+    bn_max = t.bnorm2[torch.isfinite(t.bnorm2)].max()
+    # Both sides sum exact bf16 x int8 products in f32 in another order.
+    tol = CODED_REL_TOL * float(qrn.max() + bn_max)
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), "coded: +inf slots differ")
+    fin = torch.isfinite(d_r)
+    err = float((d_k - d_r).abs()[fin].max())
+    check(err <= tol, f"coded: max |d_kernel - d_plain| = {err} > {tol}")
+    bad = (i_k != i_r) & fin
+    n_bad = int(bad.sum())
+    if n_bad:
+        c, j, _ = bad.nonzero(as_tuple=True)
+        col = i_k[bad].long()
+        v = qr[c, j].to(torch.bfloat16).double()
+        exact = (qrn[c, j].double() + t.bnorm2[c, col].double()
+                 - 2.0 * t.scale[c].double() * (v * t.codes[c, col].double()).sum(1))
+        gap = float((exact - d_r[bad].double()).abs().max())
+        check(gap <= 2 * tol, f"coded: {n_bad} columns differ beyond ties (gap {gap})")
+    ms = cuda_ms(lambda: coded_group_scan(*args), reps=20)
+    plain_ms = cuda_ms(lambda: coded_group_scan_reference(*args), reps=2)
+    print(f"kernel coded_group_scan: B={q.shape[0]} K={k_pad} S={s} d={q.shape[1]} "
+          f"qcap={qcap} kk={kk} probes={n_probe} ({int(live.sum())} live (cluster, query) "
+          f"pairs): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err {err:.3g} "
+          f"(tol {tol:.3g}), tie swaps {n_bad} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def main() -> int:
@@ -245,17 +419,30 @@ def main() -> int:
     main_case = kernel_case("segment", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card)
     chunk = kernel_case("memtable-chunk", rng, BATCH, 8192, DIM, 16, torch.float32, "l2", 0.3, card)
     wide = kernel_case("wide", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card)
-    launches = engine_phase(args, card)
+    st = engine_phase(args, card)
+    seg, graph_launches = graph_phase(st, card)
+    coded = coded_case(seg, st["queries"][1], card)
+    st["db"].close()
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
         "route": "cuda",
         "source": "vecgo_tpu_torch/csrc/scan_topk.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
-        "launches": launches,
+        "launches": st["launches"] + graph_launches["scan_topk"],
+        "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"]},
         "max_abs_err": max(c["err"] for c in (main_case, chunk, wide)),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+    }, {
+        "name": "coded_group_scan",
+        "route": "cuda",
+        "source": "vecgo_tpu_torch/csrc/coded_group_scan.cu",
+        "replaces": "vecgo_tpu/ops/pallas_scan.py:247",
+        "launches": graph_launches["coded_group_scan"],
+        "max_abs_err": coded["err"],
+        "ms": coded["ms"],
+        "plain_ms": coded["plain_ms"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

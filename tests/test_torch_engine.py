@@ -135,11 +135,14 @@ def test_db_directory_opens_in_the_other_package(tmp_path, writer):
 
 
 def test_not_ported_paths_raise_with_their_roadmap_item():
-    db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu"))
+    db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", graph_threshold=4,
+                                        graph_build_mode="beam"))
+    db.insert_batch(np.eye(4, dtype=np.float32))
+    db.commit()
     db.insert_batch(np.eye(4, dtype=np.float32))
     db.commit()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.compact()
+        db.compact([h.seg_id for h in db.engine._segments])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         db.sharded_searcher(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,8 +2,10 @@
 
 Runs in a subprocess, because this test process has jax loaded already
 (tests/conftest.py imports it). The child imports vecgo_tpu_torch, drives a
-small slice of the flat path on the CPU and checks sys.modules; without a
-CUDA device it also checks that the default device ("cuda") is refused.
+small slice of the flat path and of the graph path (compaction into a
+Vamana segment, filtered and unfiltered search) on the CPU and checks
+sys.modules; without a CUDA device it also checks that the default device
+("cuda") is refused.
 """
 
 import os
@@ -31,6 +33,25 @@ CHILD = textwrap.dedent(
     got, _ = db.search_arrays(x[:4], k=3, filter=eq("c", 1))
     assert got.shape == (4, 3) and ids[0] not in got
     assert db.search(x[1], k=1)[0].id == ids[1]
+    db.close()
+
+    # The graph path: compaction into a Vamana segment and its serving.
+    import vecgo_tpu_torch.index.build_fast  # noqa: F401
+    import vecgo_tpu_torch.ops.coded_group_scan  # noqa: F401
+    import vecgo_tpu_torch.quantization.kmeans  # noqa: F401
+    from vecgo_tpu_torch.index.vamana import VamanaSegment
+
+    y = np.random.default_rng(1).standard_normal((4500, 8)).astype(np.float32)
+    db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu", graph_threshold=4096))
+    ids = db.insert_batch(y, [{"c": i % 3} for i in range(len(y))])
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    assert type(db.engine._segments[0].segment) is VamanaSegment
+    db.delete(ids[1])
+    got, _ = db.search_arrays(y[:4], k=3, ef=48, nprobes=4)
+    assert got.shape == (4, 3) and ids[1] not in got and got[0, 0] == ids[0]
+    got, _ = db.search_arrays(y[:4], k=3, filter=eq("c", 1))
+    assert got.shape == (4, 3) and ids[1] not in got
     db.close()
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     if not torch.cuda.is_available():

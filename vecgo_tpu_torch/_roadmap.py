@@ -2,7 +2,8 @@
 
 QUEUE = {
     2: "quantized flat profiles and beyond-device streaming",
-    3: "graph segments: coded IVF scan kernel, beam search, build, compaction",
+    3: ("the rest of graph segments: the beam build mode, serve_compact, stored "
+        "codes and the cluster cache, FreshVamana, tools/compact, the uncoded IVF table"),
     4: "device BM25 hybrid search",
     5: "the multi-device plane",
 }

@@ -3,10 +3,10 @@
 `Engine` subclasses the JAX package's engine: inserts, deletes, point
 lookups, scans, the PK index, manifests, tombstones, vacuum and close are
 host code and are inherited as they are. What is overridden here is what
-creates or searches device state: open (segments), commit (the flat writer,
-segment and memtable classes), the search entry points (the device planner
-in `vecgo_tpu_torch.engine.search`), and the paths not ported yet, which
-raise `NotImplementedError` naming their ROADMAP.md item.
+creates or searches device state: open (segments), commit and compact (the
+port's writer, segment and memtable classes), the search entry points (the
+device planner in `vecgo_tpu_torch.engine.search`), and the paths not
+ported yet, which raise `NotImplementedError` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,23 +25,35 @@ from vecgo_tpu.engine.engine import PK_SIDECAR, _id_row_map, _seg_blob
 from vecgo_tpu.engine.manifest import ManifestStore, SegmentInfo
 from vecgo_tpu.engine.pk import MEMTABLE_SEG, PKIndex
 from vecgo_tpu.engine.snapshot import SegmentHandle
-from vecgo_tpu.engine.tombstone import SegmentTombstones
+from vecgo_tpu.engine.tombstone import SegmentTombstones, TombstoneSet
 from vecgo_tpu.errors import ErrClosed, ErrCorrupt, ErrDimensionMismatch, ErrNotFound
 from vecgo_tpu.engine.search import _seg_by_id
 from vecgo_tpu.model import Candidate, SearchOptions, SearchResult
+from vecgo_tpu.index.common import csr_concat, csr_select
+from vecgo_tpu.metadata.columnar import ColumnarMeta
 from vecgo_tpu.storage import container
 from vecgo_tpu_torch._roadmap import not_ported
 from vecgo_tpu_torch.engine import search as search_mod
 from vecgo_tpu_torch.engine.memtable import MemTable
 from vecgo_tpu_torch.index.flat import FlatSegment, FlatWriter
+from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter
 
 
 @dataclass
 class EngineOptions(jax_engine.EngineOptions):
     """The JAX engine's options plus the device that holds segments and
-    memtable chunks and runs every scan ("cuda" by default; "cpu" runs the
-    kernels' plain PyTorch versions). Compaction is not ported yet, so it
-    does not run after commits unless asked for."""
+    memtable chunks, runs every scan and builds graphs ("cuda" by default;
+    "cpu" runs the kernels' plain PyTorch versions).
+
+    `auto_compact` defaults to False, unlike the JAX engine's True. Below
+    `graph_threshold` live rows, compaction writes a flat segment, and from
+    2 x `ivf_rows_per_partition` (16,384) rows on that flat segment is
+    partitioned (flat IVF), which the port's `FlatWriter` does not write yet
+    (ROADMAP.md, port queue item 2): a size-tiered compaction of 16,384 to
+    32,767 live rows would raise in ordinary use. An explicit `compact()`
+    into a graph segment (at least `graph_threshold` rows) or into a flat
+    segment under 16,384 rows works; the default returns to True with
+    item 2."""
 
     auto_compact: bool = False
     device: Any = "cuda"
@@ -57,22 +69,34 @@ class EngineOptions(jax_engine.EngineOptions):
             raise ValueError(f"unsupported device {self.device}")
 
 
-def open_segment(store, info, verify_checksum: bool = True):
+_SEGMENT_CLASSES = {"flat": FlatSegment, "vamana": VamanaSegment}
+
+
+def open_segment(store, info, options, verify_checksum: bool = True):
     """Open a committed segment: a zero-copy view where the store has one,
-    else a lazy ranged-read open. Only flat segments are ported."""
+    else a lazy ranged-read open. Graph segments take the options' serving
+    knobs (serve_refine, serve_compact)."""
     view_getter = getattr(store, "get_view", None)
     if view_getter is not None:
         data = view_getter(info.name)
         kind = container.parse_header(data)[0].get("kind")
     else:
         kind = container.LazyContainer(store, info.name, verify_checksum).meta.get("kind")
-    if kind == "vamana":
-        raise not_ported("opening a vamana (graph) segment", 3)
-    if kind != "flat":
+    cls = _SEGMENT_CLASSES.get(kind)
+    if cls is None:
         raise ErrCorrupt(f"unknown segment kind {kind!r}")
     if view_getter is not None:
-        return FlatSegment.open(data, info.seg_id, verify_checksum)
-    return FlatSegment.open_lazy(store, info.name, info.seg_id, verify_checksum)
+        seg = cls.open(data, info.seg_id, verify_checksum)
+    else:
+        seg = cls.open_lazy(store, info.name, info.seg_id, verify_checksum)
+    return _serving_knobs(seg, options)
+
+
+def _serving_knobs(seg, options):
+    if isinstance(seg, VamanaSegment):
+        seg.serve_compact = options.serve_compact
+        seg.serve_refine = options.serve_refine
+    return seg
 
 
 class Engine(jax_engine.Engine):
@@ -115,7 +139,7 @@ class Engine(jax_engine.Engine):
         eng._next_id = m.next_id
         eng._next_seg_id = m.next_seg_id
         for info in m.segments:
-            seg = open_segment(store, info, options.verify_checksum)
+            seg = open_segment(store, info, options, options.verify_checksum)
             eng._segments.append(SegmentHandle(seg, info))
             if info.tombstone_blob:
                 eng._tombstones.by_seg[info.seg_id] = SegmentTombstones.from_bytes(
@@ -315,4 +339,138 @@ class Engine(jax_engine.Engine):
         return self._version
 
     def compact(self, seg_ids: Optional[List[int]] = None) -> Optional[int]:
-        raise not_ported("compaction", 3)
+        """Merge segments (the JAX engine's compaction with the port's
+        writers): P1 snapshots the inputs under the lock; P2 merges and
+        writes without it, into a Vamana segment built on the options'
+        device at >= graph_threshold live rows, else a flat segment; P3
+        swaps under the lock, remapping deletes that arrived after P1 and
+        the PK index onto the new segment."""
+        self._check_writable()
+        opt = self.options
+        with self._lock:
+            if seg_ids is None:
+                seg_ids = self.pick_compaction()
+                if not seg_ids:
+                    return None
+            inputs = [h for h in self._segments if h.seg_id in set(seg_ids)]
+            if not inputs:
+                return None
+            snapshot_lsn = self._lsn
+            tombstones = self._tombstones
+            out_seg_id = self._next_seg_id
+            self._next_seg_id += 1
+
+        # ---- P2: merge without the lock ----
+        total_live = sum(h.segment.n - tombstones.count(h.seg_id, snapshot_lsn) for h in inputs)
+        if total_live >= opt.graph_threshold:
+            writer = VamanaWriter(
+                opt.dim, opt.metric, device=opt.device, r=opt.graph_r,
+                l_build=opt.graph_l_build, alpha=opt.graph_alpha,
+                build_mode=opt.graph_build_mode, build_params=opt.graph_build_params,
+                quantizer=opt.quantizer, qparams=opt.qparams, seed=opt.seed,
+                compress=opt.compress_segments, store_codes=opt.store_codes,
+                ivf_min_n=opt.serve_ivf_min_n,
+            )
+            kind = "vamana"
+        else:
+            writer = FlatWriter(
+                opt.dim, opt.metric, quantizer=opt.quantizer, qparams=opt.qparams,
+                ivf_partitions=(
+                    total_live // opt.ivf_rows_per_partition
+                    if total_live >= 2 * opt.ivf_rows_per_partition else 0
+                ),
+                seed=opt.seed, compress=opt.compress_segments,
+            )
+            kind = "flat"
+        # Docs, payloads and metadata move as CSR slabs unless the inputs
+        # disagree on a column's kind; then they move row by row.
+        kinds: dict = {}
+        slabs_ok = True
+        for h in inputs:
+            for f, kd in h.segment.cm.field_kinds().items():
+                if kinds.setdefault(f, kd) != kd:
+                    slabs_ok = False
+        live_info = []  # (old_seg_id, live_rows, live_ids, n_old)
+        cm_parts, docs_parts, pay_parts = [], [], []
+        t0 = time.time()
+        for h in inputs:
+            seg = h.segment
+            dead = tombstones.deleted_mask(seg.seg_id, seg.n, snapshot_lsn)
+            live = np.arange(seg.n) if dead is None else np.flatnonzero(~dead)
+            rids = np.asarray(seg.ids, np.int64)[live]
+            docs = pays = None
+            if slabs_ok:
+                seg._ensure_blob("docs")
+                seg._ensure_blob("payload")
+                cm_parts.append(seg.cm.select(live))
+                docs_parts.append(csr_select(seg._docs_data, seg._docs_indptr, live)
+                                  + (len(live),))
+                pay_parts.append(csr_select(seg._payload_data, seg._payload_indptr, live)
+                                 + (len(live),))
+            else:
+                docs = [seg.doc(int(r)) for r in live]
+                pays = [seg.payload(int(r)) for r in live]
+            writer.add_batch(np.asarray(seg.vectors)[live], rids, docs, pays,
+                             np.asarray(seg.lsns, np.int64)[live])
+            live_info.append((seg.seg_id, live, rids, seg.n))
+        if slabs_ok:
+            writer.set_preset_rows(ColumnarMeta.concat(cm_parts), csr_concat(docs_parts),
+                                   csr_concat(pay_parts))
+        t_build = time.time()
+        data = writer.finish()
+        obs = opt.observer
+        if obs is not None and kind == "vamana":
+            obs.on_build(writer.row_count, time.time() - t_build)
+        blob_name = _seg_blob(out_seg_id)
+        self.store.put(blob_name, data)
+        cls = VamanaSegment if kind == "vamana" else FlatSegment
+        out_seg = _serving_knobs(cls.open(data, out_seg_id, verify_checksum=False), opt)
+
+        # ---- P3: swap under the lock ----
+        with self._lock:
+            live_ids = {h.seg_id for h in self._segments}
+            if not all(h.seg_id in live_ids for h in inputs):
+                self.store.delete(blob_name)  # inputs vanished (concurrent compaction)
+                return None
+            row_maps = {
+                old_seg: _id_row_map(out_seg, rids, live, n_old)
+                for old_seg, live, rids, n_old in live_info
+            }
+            info = SegmentInfo(
+                name=blob_name, seg_id=out_seg_id, kind=kind,
+                level=max(h.info.level for h in inputs) + 1, row_count=out_seg.n,
+                stats=out_seg.meta.get("stats", {}),
+            )
+            gone = {h.seg_id for h in inputs}
+            self._segments = [h for h in self._segments if h.seg_id not in gone] + [
+                SegmentHandle(out_seg, info)]
+            # Deletes that arrived after P1 refer to rows copied into the
+            # output: move them onto the new segment.
+            tb = dict(self._tombstones.by_seg)
+            late_rows, late_lsns = [], []
+            for h in inputs:
+                ts = tb.pop(h.seg_id, None)
+                if ts is None:
+                    continue
+                rm = row_maps[h.seg_id]
+                for row, lsn in zip(ts.rows, ts.lsns):
+                    if lsn > snapshot_lsn:
+                        new_row = int(rm[int(row)]) if int(row) < len(rm) else -1
+                        if new_row >= 0:
+                            late_rows.append(new_row)
+                            late_lsns.append(int(lsn))
+            if late_rows:
+                tb[out_seg_id] = SegmentTombstones(out_seg.n, late_rows, late_lsns)
+            self._tombstones = TombstoneSet(tb)
+            for old_seg, rm in row_maps.items():
+                self.pk.remap_bulk(old_seg, out_seg_id, rm)
+            self._version += 1
+            self._save_manifest()
+            self._plan_cache.clear()
+            for h in inputs:
+                h.mark_obsolete()
+            if obs is not None:
+                obs.on_compaction(len(inputs), out_seg.n, time.time() - t0)
+        self._log.info("compact: %d segments -> seg %d (%s, %d rows) dur=%.3fs",
+                       len(inputs), out_seg_id, kind, out_seg.n, time.time() - t0)
+        return self._version

@@ -15,6 +15,7 @@ over batch i runs while the card scans batch i+1.
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -50,13 +51,19 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
     b = qd.shape[0]
     k = opts.k
     fetch_k = max(k * max(opts.refine_factor, 1), k)
-    # Every source of the flat path returns exact distances, so the per-source
-    # top (k + churn margin) already holds the global top-k.
+    # The memtable and flat sources return exact distances, so their top
+    # (k + churn margin) already holds the global top-k. Graph sources keep
+    # the JAX planner's refine_factor pool (fetch_k) and a device rerank.
     exact_k = max(exact_k or fetch_k, k)
     scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     out = []
     dist_comps = 0
     for src in plan.sources:
+        if src.kind in ("graph", "brute_masked"):
+            d, rows, comps = _graph_source(src, qd, min(fetch_k, src.n), opts, options)
+            dist_comps += comps + b * rows.shape[1]
+            out.append((src.seg_id, d, rows))
+            continue
         if src.kind == "mem":
             kk = min(exact_k, src.n)
             d, rows = src.source.search(qd, kk, src.n, _source_mask(src, qd.device))
@@ -67,13 +74,54 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
         elif src.kind == "flat_compact":
             d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
                                       options.metric, scan_dtype)
-        elif src.kind in ("flat_stream", "graph_stream", "graph_cached"):
+        else:  # flat_stream, graph_stream, graph_cached
             raise not_ported(f"the {src.kind!r} source (beyond-device segment)", 2)
-        else:
-            raise not_ported(f"the {src.kind!r} source (graph segment)", 3)
         dist_comps += b * src.rows_considered + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
+
+
+def _graph_source(src, qd, kk: int, opts, options):
+    """A graph segment's candidates, reranked on the device: brute force over
+    its coded slots (or its f32 rows) at low selectivity, else the graph
+    search with selectivity-adaptive ef. Returns (d, rows, distance
+    computations)."""
+    seg = src.source
+    b = qd.shape[0]
+    mask = _source_mask(src, qd.device)
+    if src.kind == "brute_masked":
+        if seg.ivf_members is not None:
+            d, rows = seg.masked_scan(qd, kk, mask)
+        else:
+            dev = seg.device_state(qd.device)
+            d, rows = T.blockwise_topk_search(
+                qd, dev["full"], kk, metric=options.metric, x_norms_sq=dev["rnorm2"],
+                mask=mask, x_normalized=True,
+            )
+        comps = b * src.rows_considered
+    else:
+        ef = max(opts.ef or options.ef_search, kk)
+        if src.mask is not None and 0 < src.rows_considered < src.n:
+            # Selectivity-adaptive ef: a filter that rides the graph drops
+            # most traversal candidates, so the working set widens by
+            # 1/selectivity, capped (lockstep cost grows with ef).
+            sel = src.rows_considered / src.n
+            ef = min(int(ef / max(sel, 1e-3)),
+                     max(ef, getattr(options, "ef_filtered_cap", 2048)))
+        bw = opts.beam_width or options.beam_width
+        gkw = {}
+        if opts.graph_refine >= 0:
+            gkw["refine_steps"] = opts.graph_refine
+        if opts.graph_rescore is not None:
+            gkw["rescore"] = opts.graph_rescore
+        if opts.nprobes:
+            gkw["n_probe"] = opts.nprobes
+        if opts.graph_qcap_factor > 0:
+            gkw["qcap_factor"] = opts.graph_qcap_factor
+        d, rows = seg.search(qd, kk, mask=mask, ef=ef, beam_width=bw, **gkw)
+        steps = ef // max(bw, 1) + 8 + int(math.ceil(math.log2(max(seg.n, 2))))
+        comps = b * steps * bw * seg.r
+    return seg.rerank(qd, rows), rows, comps
 
 
 def _plan_state(src) -> dict:

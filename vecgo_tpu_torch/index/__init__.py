@@ -1,1 +1,1 @@
-"""Segment indexes of the port (flat only, so far)."""
+"""Segment indexes of the port: flat and Vamana (graph) segments."""

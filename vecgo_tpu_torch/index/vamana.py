@@ -1,0 +1,328 @@
+"""Vamana (graph) segment of the port (vecgo_tpu/index/vamana.py).
+
+The container format is shared: `VamanaWriter` writes the same sections and
+meta as the JAX writer's clustered build, and either package opens the
+other's segments. Both classes subclass the JAX ones for their host half
+(row buffer, sections, metadata, docs and payloads); every method that
+touches the device is overridden here, and the beyond-device tiers raise.
+
+Serving (`search`): a segment of at least `ivf_min_n` rows carries the
+build's IVF membership, from which `device_state` encodes the SQ8-residual
+coded table plus the int16 refinement plane: the only vector data on the
+device. A query batch takes an IVF shortlist through kernel B
+(`ops.ivf.ivf_scan`), optionally one lockstep graph-refine round over the
+codes, and an optional rescore of the pool on the int16 plane. Smaller
+segments walk the graph from IVF-guided entry nodes over a bf16 copy.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vecgo_tpu.errors import ErrCorrupt
+from vecgo_tpu.index import common
+from vecgo_tpu.index import vamana as jax_vamana
+from vecgo_tpu.index.flat import segment_stats
+from vecgo_tpu.index.vamana import SEGMENT_KIND
+from vecgo_tpu.model import Metric
+from vecgo_tpu.storage import container
+from vecgo_tpu_torch._roadmap import not_ported
+from vecgo_tpu_torch.ops import beam as beam_ops
+from vecgo_tpu_torch.ops import distance as D
+from vecgo_tpu_torch.ops import ivf as ivf_ops
+from vecgo_tpu_torch.ops import topk as T
+
+# Slots scored per block of the masked brute-force scan.
+_SCAN_BLOCK = 65536
+
+
+def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host section on `device` (sections are often read-only views of the
+    container; device state is never written, so sharing them is safe)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device=device, dtype=dtype)
+
+
+class VamanaWriter(jax_vamana.VamanaWriter):
+    """Builds an immutable vamana segment with the clustered build on
+    `device` (the JAX writer's default build mode)."""
+
+    def __init__(self, dim: int, metric: Metric = Metric.L2, *, device="cpu", **kw):
+        super().__init__(dim, metric, **kw)
+        if self.build_mode != "clustered":
+            raise not_ported(f"build_mode={self.build_mode!r}", 3)
+        if self.store_codes:
+            raise not_ported("persisted coded tables (store_codes)", 3)
+        self.device = torch.device(device)
+
+    def finish(self) -> bytes:
+        from vecgo_tpu_torch.index.build_fast import build_graph_clustered
+
+        n = len(self._rows)
+        x, ids = self._rows.stacked(self.metric)
+        want_ivf = self.serve_ivf and n >= self.ivf_min_n
+        out = build_graph_clustered(
+            torch.from_numpy(x).to(self.device).to(torch.bfloat16),
+            r=self.r, alpha=self.alpha, seed=self.seed, return_membership=want_ivf,
+            **self.build_params,
+        )
+        graph, medoid, centroids, entry_nodes = out[:4]
+        if self._preset is not None:
+            sections, md_meta, cm = common.preset_row_sections(x, ids, self._rows.lsns,
+                                                               self._preset)
+        else:
+            sections, md_meta, cm = common.row_sections(
+                x, ids, self._rows.docs, self._rows.payloads, self._rows.lsns)
+        sections["graph"] = graph
+        sections["entry.centroids"] = centroids
+        sections["entry.nodes"] = entry_nodes
+        ivf_meta = None
+        if want_ivf:
+            members = np.ascontiguousarray(out[4], np.int32)
+            sections["ivf.members"] = members
+            ivf_meta = {"capacity": int(members.shape[1]), "k": int(members.shape[0]),
+                        "coded": True}
+        meta = {
+            "kind": SEGMENT_KIND,
+            "dim": self.dim,
+            "metric": self.metric.value,
+            "count": n,
+            "medoid": medoid,
+            "r": self.r,
+            "l_build": self.l_build,
+            "alpha": self.alpha,
+            "quantizer": {"kind": self.quantizer_kind, "params": dict(self.qparams)},
+            "ivf": ivf_meta,
+            "metadata": md_meta,
+            "stats": segment_stats(x, cm),
+        }
+        return container.pack_container(meta, sections, compress=self.compress or None)
+
+
+class VamanaSegment(jax_vamana.VamanaSegment):
+    """Immutable graph segment: host sections plus a lazily built device
+    state (see module docstring)."""
+
+    # ---------------- IO ----------------
+
+    @staticmethod
+    def open(data: bytes, seg_id: int = 0, verify_checksum: bool = True) -> "VamanaSegment":
+        meta, sections = container.unpack_container(data, verify_checksum, copy=False)
+        return VamanaSegment._checked(meta, sections, seg_id, None)
+
+    @staticmethod
+    def open_lazy(store, name: str, seg_id: int = 0,
+                  verify_checksum: bool = True) -> "VamanaSegment":
+        """Ranged-read open: hot sections now, docs and payloads deferred."""
+        lc = container.LazyContainer(store, name, verify_checksum)
+        if (lc.meta.get("ivf") or {}).get("codes_stored"):
+            raise not_ported("serving persisted coded tables (store_codes)", 3)
+        sections = lc.load_many(exclude_prefixes=("docs.", "payload.", "ivfq."))
+        return VamanaSegment._checked(lc.meta, sections, seg_id, lc)
+
+    @staticmethod
+    def _checked(meta, sections, seg_id, lazy) -> "VamanaSegment":
+        if any(name.startswith("ivfq.") for name in sections):
+            raise not_ported("serving persisted coded tables (store_codes)", 3)
+        try:
+            return VamanaSegment(meta, sections, seg_id, lazy=lazy)
+        except ErrCorrupt:
+            raise
+        except Exception as e:
+            raise ErrCorrupt(f"vamana segment open failed: {e}")
+
+    # ---------------- device ----------------
+
+    def device_state(self, device) -> dict:
+        """Coded table (+ int16 plane with serve_refine) and graph on `device`;
+        segments without a membership keep a bf16 traversal copy, norms and
+        the f32 table for the graph walk and its exact rerank."""
+        device = torch.device(device)
+        if self._dev is not None and self._dev["graph"].device == device:
+            return self._dev
+        if self.serve_compact:
+            raise not_ported("the one-slot-per-row table (serve_compact)", 3)
+        graph = _tensor(self.graph, device, torch.int32)
+        entry = torch.tensor([self.medoid], dtype=torch.int64, device=device)
+        if self.ivf_members is not None:
+            xf = _tensor(self.vectors, device, torch.float32)
+            if self.serve_refine:
+                table = ivf_ops.device_table_coded(self.ivf_members, xf, refine=xf)
+            else:
+                table = ivf_ops.device_table_coded(self.ivf_members, xf.to(torch.bfloat16))
+            del xf
+            self._dev = {"graph": graph, "entry": entry, "ivfq": table}
+            return self._dev
+        full = _tensor(self.vectors, device, torch.float32)
+        self._dev = {
+            "trav": full.to(torch.bfloat16),
+            "rnorm2": _tensor(self.rnorm2, device, torch.float32),
+            "graph": graph,
+            "full": full,
+            "entry": entry,
+        }
+        if self.entry_centroids is not None and len(self.entry_centroids):
+            self._dev["entry_centroids"] = _tensor(self.entry_centroids, device, torch.float32)
+            self._dev["entry_nodes"] = _tensor(self.entry_nodes, device, torch.int64)
+        return self._dev
+
+    def release_device(self):
+        self._dev = None
+
+    # ---------------- search ----------------
+
+    def search(self, q, k: int, mask=None, ef: int = 0, beam_width: int = 4,
+               n_probe: int = 0, refine_steps: int = 1, rescore: Optional[bool] = None,
+               qcap_factor: float = 0.0):
+        """Top-k rows. q [B, d] f32 on the device (normalized upstream for
+        cosine); mask [N] bool (host or device) filters results. Returns
+        (dists [B, k], rows [B, k] int64): distances to the decoded rows
+        for coded segments (callers rerank), bf16-scored for table-less
+        ones. The knobs are the JAX segment's (vecgo_tpu.index.vamana)."""
+        b = q.shape[0]
+        if self.n == 0:
+            return (torch.full((b, k), math.inf, device=q.device),
+                    torch.full((b, k), -1, dtype=torch.int64, device=q.device))
+        ef = max(ef or max(self.DEFAULT_EF_SEARCH, k), k)
+        dev = self.device_state(q.device)
+        dmask = None if mask is None else torch.as_tensor(mask, dtype=torch.bool).to(q.device)
+
+        if "ivfq" in dev:
+            table = dev["ivfq"]
+            kt, s = table.bnorm2.shape
+            if n_probe <= 0:
+                n_probe = int(min(kt, max(8, min(32, (ef + 15) // 16 * 4))))
+            kk = min(max(8, min(16, -(-2 * ef // max(n_probe, 1)))), s)
+            mflat = None if dmask is None else ivf_ops.slot_mask_from_rows(table, dmask)
+            qcap = 0
+            if qcap_factor > 0:
+                qcap = min(max(32, (int(qcap_factor * b * n_probe / max(kt, 1)) + 31) // 32 * 32),
+                           b)
+            sd, srows = ivf_ops.ivf_scan(q, table, n_probe=n_probe, kk=kk, mask_flat=mflat,
+                                         qcap=qcap)
+            cd, crows = beam_ops._dedup_topk(sd, srows, ef)
+            pool = torch.where(torch.isfinite(cd), crows, -1)
+            if refine_steps > 0:
+                qc = q.float() @ table.centroids.T
+                _, pool = beam_ops.beam_search_coded(
+                    q, table, dev["graph"], pool, qc, ef=ef, k=ef, beam_width=beam_width,
+                    max_steps=refine_steps, mask=dmask,
+                )
+            if rescore is None:
+                rescore = True
+            if not rescore and refine_steps == 0:
+                res_d = cd[:, :k]
+                return res_d, torch.where(torch.isfinite(res_d), crows[:, :k], -1)
+            rd = self.rerank(q, pool)
+            o = torch.sort(rd, dim=1, stable=True).indices[:, :k]
+            res_d = rd.gather(1, o)
+            return res_d, torch.where(torch.isfinite(res_d), pool.gather(1, o), -1)
+
+        entry = dev["entry"]
+        max_steps = 0
+        if "entry_centroids" in dev:
+            # IVF-guided entries: each query starts at the entry nodes of its
+            # nearest centroids plus the medoid.
+            n_probe = min(4, dev["entry_centroids"].shape[0])
+            cd = D.squared_l2(q, dev["entry_centroids"], compute_dtype=torch.bfloat16)
+            _, probes = T.topk_smallest(cd, n_probe)
+            entry = torch.cat([dev["entry_nodes"][probes], entry[None, :].expand(b, 1)], 1)
+            max_steps = ef // max(beam_width, 1) + 12
+        return beam_ops.beam_search(q, dev["trav"], dev["rnorm2"], dev["graph"], entry, ef=ef,
+                                    k=k, beam_width=beam_width, max_steps=max_steps, mask=dmask)
+
+    def masked_scan(self, q, k: int, mask=None):
+        """Brute force over the coded slot space (the planner's low-
+        selectivity strategy for coded graph segments): every live slot's
+        SQ8 code is scored blockwise and the top 2k slots are kept exactly,
+        then mapped to rows and deduplicated (overlap memberships hold a row
+        twice). Returns (dists [B, k] vs the decoded rows, rows [B, k])."""
+        dev = self.device_state(q.device)
+        table = dev["ivfq"]
+        k_pad, s, d = table.codes.shape
+        n_slots = k_pad * s
+        codes = table.codes.reshape(n_slots, d)
+        rows_flat = table.rows.reshape(-1).long()
+        if mask is None:
+            ok = torch.isfinite(table.xnorm2)
+        else:
+            ok = ivf_ops.slot_mask_from_rows(
+                table, torch.as_tensor(mask, dtype=torch.bool).to(q.device))
+        qf = q.float()
+        q16 = qf.to(torch.bfloat16).float()
+        qn = (qf * qf).sum(-1)[:, None, None]
+        qc = qf @ table.centroids.T  # [B, K]
+        kw = min(2 * k, n_slots)
+        b = q.shape[0]
+        best_d = torch.full((b, kw), math.inf, device=q.device)
+        best_s = torch.full((b, kw), -1, dtype=torch.int64, device=q.device)
+        g = max(1, _SCAN_BLOCK // s)  # whole clusters per block: per-cluster terms broadcast
+        for c0 in range(0, k_pad, g):
+            c1 = min(k_pad, c0 + g)
+            prod = (q16 @ codes[c0 * s : c1 * s].float().T).view(b, c1 - c0, s)
+            sc = qn + table.xnorm2[None, c0:c1] - 2.0 * (
+                qc[:, c0:c1, None] + table.scale[None, c0:c1, None] * prod)
+            sc = torch.where(ok[None, c0:c1], sc, math.inf).view(b, -1)
+            bd, bi = torch.topk(sc, min(kw, sc.shape[1]), dim=1, largest=False)
+            best_d, best_s = T.merge_topk_sorted(best_d, best_s, bd, bi + c0 * s, kw)
+        rows = torch.where(torch.isfinite(best_d) & (best_s >= 0),
+                           rows_flat[best_s.clamp_min(0)], -1)
+        dd, rows = beam_ops._dedup_topk(torch.where(rows >= 0, best_d, math.inf), rows, k)
+        dd = torch.where(dd >= beam_ops._BIG, math.inf, dd)
+        return dd, torch.where(torch.isfinite(dd), rows, -1)
+
+    def rerank(self, q, rows):
+        """Distances of candidate rows [B, C] (-1 -> +inf): to the rows
+        decoded from the int16 plane (serve_refine), from the int8 codes,
+        or, for table-less segments, to the f32 rows; all in IEEE f32."""
+        dev = self.device_state(q.device)
+        metric = self.metric.compute()
+        safe = rows.long().clamp_min(0)
+        qf = q.float()
+        if metric == Metric.COSINE:
+            qf = D.normalize(qf)
+        if "ivfq" in dev:
+            t = dev["ivfq"]
+            s = t.rows.shape[1]
+            slot = t.slot_of_row[safe].long()
+            cl = slot // s
+            if t.rcodes is not None:
+                xhat = t.centroids[cl] + t.rcodes[safe].float() * (
+                    t.scale[cl] * ivf_ops.RSCALE_RATIO)[:, :, None]
+                xn = (xhat * xhat).sum(-1)
+            else:
+                codes = t.codes.reshape(-1, t.codes.shape[2])
+                xhat = t.centroids[cl] + codes[slot].float() * t.scale[cl][:, :, None]
+                xn = t.xnorm2.reshape(-1)[slot]
+        else:
+            xhat = dev["full"][safe]
+            xn = dev["rnorm2"][safe]
+        prod = torch.bmm(xhat, qf[:, :, None])[:, :, 0]
+        if metric == Metric.L2:
+            dd = ((qf * qf).sum(-1, keepdim=True) + xn - 2.0 * prod).clamp_min(0.0)
+        elif metric == Metric.DOT:
+            dd = -prod
+        else:
+            dd = 1.0 - prod
+        return torch.where(rows >= 0, dd, math.inf)
+
+    # ---------------- tiers not ported yet ----------------
+
+    def rerank_host(self, *args, **kw):
+        raise not_ported("beyond-device rerank from host rows", 2)
+
+    def cluster_cache(self, *args, **kw):
+        raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
+
+    def search_cached(self, *args, **kw):
+        raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
+
+    def stream_state(self, *args, **kw):
+        raise not_ported("beyond-device stream transports", 2)

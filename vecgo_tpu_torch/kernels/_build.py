@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, nvcc compiles every `vecgo_tpu_torch/csrc/*.cu` into one shared
-library with a plain C interface, which `ctypes` loads. The library lands in
-`build/vecgo_tpu_torch/` at the root of the checkout, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. A failed build raises with nvcc's stderr. Nothing here runs at
+At first use, nvcc compiles every `vecgo_tpu_torch/csrc/*.cu` into an object
+file, one nvcc process per source, all started together, and links them
+into one shared library with a plain C interface, which `ctypes` loads. The
+library lands in `build/vecgo_tpu_torch/` at the root of the checkout, named
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused. A failed build raises with nvcc's stderr; ptxas's
+register and shared-memory report of the last build is kept in `BUILD_LOG`. Nothing here runs at
 import time: the CPU tests import every module of the port on machines
 without nvcc.
 """
@@ -24,11 +26,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vecgo_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _lib = None  # the loaded library, shared by every wrapper in the process
+# ptxas's report (registers, shared memory, spills) per source of the last build.
+BUILD_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -46,6 +50,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vecgo_scan_topk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.vecgo_scan_topk.restype = i
+    lib.vecgo_coded_group_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
+    lib.vecgo_coded_group_scan.restype = i
     lib.vecgo_cuda_error_string.argtypes = [i]
     lib.vecgo_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,14 +71,29 @@ def library() -> ctypes.CDLL:
         out = BUILD_DIR / f"libvecgo_kernels_{h.hexdigest()[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+            procs = [
+                (src, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                ))
+                for src, obj in zip(sources, objs)
+            ]
+            for src, proc in procs:
+                _, err = proc.communicate()
+                BUILD_LOG[src.name] = err
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{err}")
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                   "-o", str(tmp), *map(str, objs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-                )
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, out)
+            for obj in objs:
+                obj.unlink()
         _lib = _declare(ctypes.CDLL(str(out)))
         return _lib
 

@@ -1,1 +1,2 @@
-"""Device operators of the port: distances, top-k, and the fused scan kernel."""
+"""Device operators of the port: distances, top-k, the coded IVF scan, beam
+search, and the hand-written kernels' wrappers."""

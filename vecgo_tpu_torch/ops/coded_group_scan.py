@@ -1,0 +1,131 @@
+"""Coded IVF group scan + top-kk: the port of `pallas_coded_group_scan`.
+
+`coded_group_scan` is the one kernel of the graph-segment path: it scores the
+SQ8 residual codes of every probed cluster against the queries that probe
+it, and keeps each (cluster, query) pair's kk nearest slots. On a CUDA tensor
+it launches `csrc/coded_group_scan.cu` (or raises); on a CPU tensor it runs
+`coded_group_scan_reference`, the plain PyTorch version it is tested against.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+MAX_KK = 32  # one list entry per lane of a warp
+_BIG = 3.0e38
+# Kernel layout (must match csrc/coded_group_scan.cu).
+_QT = 8
+_ROWS = 64
+_MAX_SMEM = 232_448
+_MAX_GRID_Y = 65535
+# Reference blocks hold at most this many scores ([clusters, qcap, S] f32).
+_REF_BLOCK_ELEMS = 1 << 26
+
+
+def _smem_bytes(d: int) -> int:
+    dp = -(-d // 4) * 4
+    ws = (dp // 4) | 1
+    return (_QT * dp + _QT + _QT * _ROWS) * 4 + _ROWS * ws * 4
+
+
+def _check(q, qtab, codes, bn, scale, cent, kk):
+    if q.dtype != torch.float32 or q.dim() != 2:
+        raise ValueError(f"q must be [B, d] float32, got {tuple(q.shape)} {q.dtype}")
+    b, d = q.shape
+    if qtab.dtype != torch.int32 or qtab.dim() != 2:
+        raise ValueError(f"qtab must be [K, qcap] int32, got {qtab.dtype}")
+    k, qcap = qtab.shape
+    if codes.dtype != torch.int8 or codes.dim() != 3 or codes.shape[0] != k \
+            or codes.shape[2] != d:
+        raise ValueError(f"codes must be [K, S, d] int8, got {tuple(codes.shape)} {codes.dtype}")
+    s = codes.shape[1]
+    for name, t, shape in (("bn", bn, (k, s)), ("scale", scale, (k,)), ("cent", cent, (k, d))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(t.shape)} {t.dtype}")
+    if not 1 <= kk <= min(MAX_KK, s):
+        raise ValueError(f"coded_group_scan supports 1 <= kk <= min({MAX_KK}, S={s}), got {kk}")
+    for t in (qtab, codes, bn, scale, cent):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
+    for t in (q, qtab, codes, bn, scale, cent):
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def coded_group_scan(q, qtab, codes, bn, scale, cent, kk: int):
+    """Top-kk slots of every (cluster, probing query) pair.
+
+    q [B, d] f32 queries (normalized upstream for cosine); qtab [K, qcap]
+    int32, the queries probing each cluster (B marks an empty slot); codes
+    [K, S, d] int8 SQ8 residual codes; bn [K, S] f32 |x^ - c|^2 (+inf at
+    padded or masked slots); scale [K] f32; cent [K, d] f32.
+    Returns sorted (ld [K, qcap, kk] f32, lc [K, qcap, kk] int32 in-cluster
+    column) with (+inf, -1) for empty slots and missing entries; ties go to
+    the lower column.
+    """
+    _check(q, qtab, codes, bn, scale, cent, kk)
+    if q.device.type == "cpu":
+        return coded_group_scan_reference(q, qtab, codes, bn, scale, cent, kk)
+    if q.device.type != "cuda":
+        raise ValueError(f"coded_group_scan runs on cpu or cuda, not {q.device}")
+    b, d = q.shape
+    k, qcap = qtab.shape
+    s = codes.shape[1]
+    if _smem_bytes(d) > _MAX_SMEM:
+        raise ValueError(f"coded_group_scan supports d <= 2048, got d={d}")
+    if -(-qcap // _QT) > _MAX_GRID_Y:
+        raise ValueError(f"coded_group_scan supports qcap <= {_MAX_GRID_Y * _QT}, got {qcap}")
+    if d % 4 == 0 and codes.data_ptr() % 4:
+        raise ValueError("codes must be 4-byte aligned")
+    from vecgo_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    out_d = torch.empty((k, qcap, kk), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((k, qcap, kk), dtype=torch.int32, device=q.device)
+    if k == 0 or qcap == 0:
+        return out_d, out_i
+    with torch.cuda.device(q.device):  # the C launch uses the current device
+        rc = lib.vecgo_coded_group_scan(
+            q.data_ptr(), qtab.data_ptr(), codes.data_ptr(), bn.data_ptr(),
+            scale.data_ptr(), cent.data_ptr(), b, k, qcap, s, d, kk,
+            out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(rc, "coded_group_scan launch")
+    coded_group_scan.launches += 1
+    return out_d, out_i
+
+
+coded_group_scan.launches = 0
+
+
+def coded_group_scan_reference(q, qtab, codes, bn, scale, cent, kk: int):
+    """Plain PyTorch version of `coded_group_scan` (the coded branch of the
+    JAX package's `_scan_groups`), blocked over clusters. Same contract, same
+    tie order."""
+    b, d = q.shape
+    k, qcap = qtab.shape
+    s = codes.shape[1]
+    dev = q.device
+    out_d = torch.full((k, qcap, kk), math.inf, dtype=torch.float32, device=dev)
+    out_i = torch.full((k, qcap, kk), -1, dtype=torch.int32, device=dev)
+    q_ext = torch.cat([q, torch.zeros((1, d), dtype=q.dtype, device=dev)])
+    step = max(1, _REF_BLOCK_ELEMS // max(qcap * s, 1))
+    for c0 in range(0, k, step):
+        c1 = min(k, c0 + step)
+        qt = qtab[c0:c1].long()
+        live = (qt >= 0) & (qt < b)
+        qr = q_ext[torch.where(live, qt, b)] - cent[c0:c1, None, :]  # [g, qcap, d]
+        qrn = (qr * qr).sum(-1)
+        prod = torch.matmul(qr.to(torch.bfloat16).float(), codes[c0:c1].float().transpose(1, 2))
+        dd = qrn[:, :, None] + bn[c0:c1, None, :] - 2.0 * (scale[c0:c1, None, None] * prod)
+        ok = torch.isfinite(dd) & (dd < _BIG) & live[:, :, None]
+        dd = torch.where(ok, dd, math.inf)
+        sd, idx = torch.sort(dd, dim=-1, stable=True)
+        sd, idx = sd[..., :kk], idx[..., :kk]
+        found = torch.isfinite(sd)
+        out_d[c0:c1] = torch.where(found, sd, math.inf)
+        out_i[c0:c1] = torch.where(found, idx, -1).to(torch.int32)
+    return out_d, out_i

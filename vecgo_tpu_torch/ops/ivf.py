@@ -1,0 +1,212 @@
+"""Coded IVF shortlist scan (port of the coded half of vecgo_tpu/ops/ivf.py).
+
+A graph segment serves from an SQ8-residual coded table: rows are bucketed
+into K capacity-capped clusters (the graph build's own membership), each
+cluster's residuals x - centroid are int8-coded with a per-cluster scale,
+and the codes are the only vector data on the device. A query batch
+
+  1. scores the centroids [B, K] and takes its `n_probe` nearest clusters,
+  2. inverts the probe lists into, per cluster, the queries that probe it
+     (one device sort plus run arithmetic),
+  3. scans every probed cluster's codes against its queries and keeps each
+     (cluster, query) pair's kk nearest slots: kernel B, `coded_group_scan`,
+  4. scatters those winners back into per-query candidate tables.
+
+On a CUDA tensor step 3 launches the kernel at every dimension (the JAX
+package's d % 128 and VMEM gates were the TPU compiler's); on a CPU tensor
+it runs the kernel's plain version, the coded branch of `_scan_groups`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from vecgo_tpu_torch._roadmap import not_ported
+from vecgo_tpu_torch.ops import topk as T
+from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+# int16 refinement step as a multiple of the int8 scale (vecgo_tpu.ops.ivf).
+RSCALE_RATIO = 127.0 / 32767.0
+# Clusters encoded per step of the table build (bounds the f32 transient).
+_BUILD_CLUSTERS = 64
+# Rows encoded per step of the int16 refinement plane.
+_REFINE_ROWS = 131072
+
+
+class IVFCodedTable(NamedTuple):
+    """SQ8-residual blocked layout on the device (see vecgo_tpu.ops.ivf)."""
+
+    codes: torch.Tensor  # [K, S, d] int8 residual codes, padding zero
+    scale: torch.Tensor  # [K] f32 dequant scale (max|res| / 127 per cluster)
+    bnorm2: torch.Tensor  # [K, S] f32 |x^ - c|^2 (decoded), +inf at padded slots
+    xnorm2: torch.Tensor  # [K, S] f32 |x^|^2 (decoded absolute), +inf padded
+    rows: torch.Tensor  # [K, S] int32 segment row per slot, -1 padded
+    slot_of_row: torch.Tensor  # [N] int32 a slot containing each row
+    centroids: torch.Tensor  # [K, d] f32 (member means)
+    cnorm2: torch.Tensor  # [K] f32, +inf for empty/padded clusters
+    rcodes: Optional[torch.Tensor] = None  # [N, d] int16 refinement plane
+
+
+def _coded_build(mdev: torch.Tensor, x: torch.Tensor) -> IVFCodedTable:
+    """Encode the SQ8-residual table from a membership mdev [K, S] int32
+    (-1 padded) over rows x [N, d] (f32 or bf16, on the same device).
+    Centroids are the member means."""
+    k_pad, s = mdev.shape
+    n, d = x.shape
+    dev = x.device
+    codes = torch.empty((k_pad, s, d), dtype=torch.int8, device=dev)
+    scale = torch.empty(k_pad, dtype=torch.float32, device=dev)
+    bn = torch.empty((k_pad, s), dtype=torch.float32, device=dev)
+    xn = torch.empty((k_pad, s), dtype=torch.float32, device=dev)
+    cent = torch.empty((k_pad, d), dtype=torch.float32, device=dev)
+    cn = torch.empty(k_pad, dtype=torch.float32, device=dev)
+    for g0 in range(0, k_pad, _BUILD_CLUSTERS):
+        g1 = min(k_pad, g0 + _BUILD_CLUSTERS)
+        mg = mdev[g0:g1]
+        valid = mg >= 0
+        v = x[mg.clamp_min(0).reshape(-1).long()].reshape(g1 - g0, s, d).float()
+        v = torch.where(valid[:, :, None], v, 0.0)
+        cnt = valid.sum(1).float()
+        c = v.sum(1) / cnt.clamp_min(1.0)[:, None]
+        res = torch.where(valid[:, :, None], v - c[:, None, :], 0.0)
+        sc = (res.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+        cd = torch.round(res / sc[:, None, None]).clamp(-127, 127).to(torch.int8)
+        res_hat = cd.float() * sc[:, None, None]
+        xhat = c[:, None, :] + res_hat
+        codes[g0:g1] = cd
+        scale[g0:g1] = sc
+        bn[g0:g1] = torch.where(valid, (res_hat * res_hat).sum(-1), math.inf)
+        xn[g0:g1] = torch.where(valid, (xhat * xhat).sum(-1), math.inf)
+        cent[g0:g1] = c
+        cn[g0:g1] = torch.where(cnt > 0, (c * c).sum(-1), math.inf)
+    # slot_of_row: one slot per row; where overlap memberships hold a row
+    # twice, the higher slot id (the last write of the JAX scatter) wins.
+    flat_rows = mdev.reshape(-1).long()
+    target = torch.where(flat_rows >= 0, flat_rows, n)
+    slot_ids = torch.arange(k_pad * s, device=dev)
+    sor = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    sor.scatter_reduce_(0, target, slot_ids, reduce="amax", include_self=True)
+    slot_of_row = sor[:n].clamp_min(0).to(torch.int32)
+    return IVFCodedTable(codes, scale, bn, xn, mdev, slot_of_row, cent, cn)
+
+
+def _refine_codes(xf: torch.Tensor, slot_of_row, cents, scale, s: int) -> torch.Tensor:
+    """Per-row int16 residual codes against the row's own (slot_of_row)
+    cluster centroid: the refinement plane for pool rescoring."""
+    n, d = xf.shape
+    out = torch.empty((n, d), dtype=torch.int16, device=xf.device)
+    for r0 in range(0, n, _REFINE_ROWS):
+        r1 = min(n, r0 + _REFINE_ROWS)
+        cl = (slot_of_row[r0:r1] // s).long()
+        rs = scale[cl] * RSCALE_RATIO
+        qv = torch.round((xf[r0:r1].float() - cents[cl]) / rs[:, None])
+        out[r0:r1] = qv.clamp(-32767, 32767).to(torch.int16)
+    return out
+
+
+def device_table_coded(members, vectors: torch.Tensor, group: int = 8,
+                       compact: bool = False, refine=None) -> IVFCodedTable:
+    """The SQ8-residual serving table on `vectors.device` from a membership
+    table [K, S] (numpy or tensor; -1 padded), padded to a multiple of
+    `group` clusters as the JAX package pads it. refine: an f32 [N, d]
+    source for the int16 refinement plane (`rcodes`), or None."""
+    if compact:
+        raise not_ported("the one-slot-per-row table (serve_compact)", 3)
+    dev = vectors.device
+    m = torch.as_tensor(np.asarray(members) if not isinstance(members, torch.Tensor)
+                        else members).to(device=dev, dtype=torch.int32)
+    k, s = m.shape
+    k_pad = -(-k // group) * group
+    if k_pad > k:
+        m = torch.cat([m, torch.full((k_pad - k, s), -1, dtype=torch.int32, device=dev)])
+    table = _coded_build(m.contiguous(), vectors)
+    if refine is not None:
+        xf = torch.as_tensor(refine, dtype=torch.float32).to(dev)
+        table = table._replace(rcodes=_refine_codes(
+            xf, table.slot_of_row, table.centroids, table.scale, s))
+    return table
+
+
+def slot_mask_from_rows(table: IVFCodedTable, row_mask: torch.Tensor) -> torch.Tensor:
+    """Lift a [N] row mask into the [K, S] slot space (padding -> False)."""
+    rows = table.rows.reshape(-1).long()
+    ok = row_mask[rows.clamp_min(0)] & (rows >= 0)
+    return ok.reshape(table.rows.shape)
+
+
+def _invert_probes(probes: torch.Tensor, k_pad: int, qcap: int):
+    """probes [B, P] cluster ids -> (qtab [k_pad, qcap] int32 query index or
+    B as empty, qslot [k_pad, qcap] int32 probe slot). Within a cluster the
+    queries keep (probe slot, query) order, so earlier probes survive qcap
+    pressure first; the (cluster, column) pairs written are unique."""
+    b, p = probes.shape
+    dev = probes.device
+    cl = probes.reshape(-1).long()
+    sl = torch.arange(p, device=dev).repeat(b)
+    qid = torch.arange(b, device=dev).repeat_interleave(p)
+    order = torch.sort(cl * p + sl, stable=True).indices
+    cl_s, sl_s, qid_s = cl[order], sl[order], qid[order]
+    pos_all = torch.arange(b * p, device=dev)
+    boundary = torch.ones(b * p, dtype=torch.bool, device=dev)
+    boundary[1:] = cl_s[1:] != cl_s[:-1]
+    run_start = torch.cummax(torch.where(boundary, pos_all, 0), 0).values
+    pos = pos_all - run_start
+    keep = pos < qcap
+    qtab = torch.full((k_pad, qcap), b, dtype=torch.int32, device=dev)
+    qslot = torch.zeros((k_pad, qcap), dtype=torch.int32, device=dev)
+    qtab[cl_s[keep], pos[keep]] = qid_s[keep].to(torch.int32)
+    qslot[cl_s[keep], pos[keep]] = sl_s[keep].to(torch.int32)
+    return qtab, qslot
+
+
+def default_qcap(b: int, n_probe: int, k_pad: int) -> int:
+    """3x the average probes per cluster, in multiples of 32, at most B."""
+    return min(max(32, ((3 * b * n_probe // max(k_pad, 1)) + 31) // 32 * 32), b)
+
+
+def ivf_scan(q: torch.Tensor, table: IVFCodedTable, *, n_probe: int, kk: int,
+             qcap: int = 0, mask_flat: Optional[torch.Tensor] = None):
+    """Blocked coded IVF scan. q [B, d] f32 (normalized upstream for cosine);
+    mask_flat [K, S] bool or None (filters and tombstones in slot space).
+    Returns (dists [B, n_probe*kk] f32 vs the decoded rows, rows
+    [B, n_probe*kk] int64 segment rows, -1 missing)."""
+    b, d = q.shape
+    k_pad, s = table.bnorm2.shape
+    n_probe = min(n_probe, k_pad)
+    qcap = min(qcap, b) if qcap else default_qcap(b, n_probe, k_pad)
+    qf = q.float().contiguous()
+    qn = (qf * qf).sum(-1)
+    cd = qn[:, None] + table.cnorm2[None, :] - 2.0 * (
+        qf.to(torch.bfloat16).float() @ table.centroids.to(torch.bfloat16).float().T)
+    _, probes = T.topk_smallest(cd, n_probe)
+    qtab, qslot = _invert_probes(probes, k_pad, qcap)
+    bn = table.bnorm2 if mask_flat is None else torch.where(
+        mask_flat.reshape(k_pad, s), table.bnorm2, math.inf)
+    ld, lc = coded_group_scan(qf, qtab, table.codes, bn.contiguous(), table.scale,
+                              table.centroids, kk)
+    base = (torch.arange(k_pad, device=q.device) * s)[:, None, None]
+    lrow = torch.where(lc >= 0, base + lc, -1)
+    live = qtab < b
+    qi, qs = qtab[live].long(), qslot[live].long()
+    out_d = torch.full((b, n_probe, kk), math.inf, dtype=torch.float32, device=q.device)
+    out_r = torch.full((b, n_probe, kk), -1, dtype=torch.int64, device=q.device)
+    out_d[qi, qs] = ld[live]
+    out_r[qi, qs] = lrow[live]
+    out_d = out_d.reshape(b, n_probe * kk)
+    out_r = out_r.reshape(b, n_probe * kk)
+    seg_rows = torch.where(out_r >= 0, table.rows.reshape(-1)[out_r.clamp_min(0)].long(), -1)
+    return torch.where(seg_rows >= 0, out_d, math.inf), seg_rows
+
+
+def compact_members_primary(*args, **kw):
+    raise not_ported("the one-slot-per-row table (serve_compact)", 3)
+
+
+__all__ = [
+    "IVFCodedTable", "RSCALE_RATIO", "compact_members_primary", "device_table_coded",
+    "ivf_scan", "slot_mask_from_rows",
+]

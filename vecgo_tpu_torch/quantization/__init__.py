@@ -1,9 +1,10 @@
 """Quantizer registry of the port: only the identity ("none") so far.
 
-`vecgo_tpu.quantization.create` imports every quantizer module, and those
-import jax, so even the unquantized flat writer and segment need this
+`vecgo_tpu.quantization.create` imports every quantizer module, and each of
+those loads jax, so even the unquantized flat writer and segment need this
 jax-free registry. Its state round-trips through the same meta entry
-(`{"kind": "none", "params": {"dim": d}}`) as the JAX package's.
+(`{"kind": "none", "params": {"dim": d}}`) as the JAX package's. The graph
+build's k-means is `vecgo_tpu_torch.quantization.kmeans`.
 """
 
 from __future__ import annotations
