@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat and graph engine paths once on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile]
 
 1. Environment: card name and power limit, torch and CUDA versions, nvcc,
    Triton, and the seconds the kernels take to build from `vecgo_tpu_torch/csrc`
    (one nvcc per source, all started together).
 2. Kernel phase: `scan_topk` against its plain PyTorch version on the card at
-   the shapes the engine gives it (segment scan, memtable chunk, wide rows).
+   the shapes the engine gives it (the segment scan at pools 18 and 82, f32
+   memtable chunks at pools 74 and 82, wide rows), plus k = 256; each case
+   prints its time beside its bound (the larger of operations over the
+   card's peak for their type and bytes over 3.35 TB/s), its share of that
+   bound, and the product alone through torch.mm (context only).
 3. Flat engine phase: Open -> insert_batch (1M clustered 128-d rows with
    metadata) -> commit -> 50k more rows left in the memtable -> 1,000
    deletes -> search_arrays over 4096-query batches, unfiltered and at
@@ -25,6 +29,12 @@
    absent, every live id readable, both kernels launched by the path.
    Kernel B (`coded_group_scan`) is then held against its plain version on the
    segment's own table with the probe inversion of a real batch.
+
+With --profile, the flat phase's unfiltered case and the graph phase's
+serving case also print a breakdown of one sync batch: its wall time (the
+median of 7 sync batches), the device's busy time in 3 batches under
+torch.profiler (the union of kernel and copy intervals), the host's share
+(wall - busy) and the largest device items.
 
 Any failed check raises (exit code != 0). On success the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits with code 2.
@@ -58,6 +68,11 @@ QPS_WINDOW_S = 1.0
 REL_TOL = 2e-5
 # Kernel B: relative to |q - c|^2 + |x^ - c|^2, the bound the CPU tests hold.
 CODED_REL_TOL = 1e-4
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): dense bf16 on the
+# tensor cores, fp32 on the FMA units, HBM3.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_BPS = 3.35e12
 
 
 def card_line() -> str:
@@ -91,6 +106,31 @@ def clustered(rng, n: int, centers: np.ndarray) -> np.ndarray:
     return x + 0.35 * rng.standard_normal((n, centers.shape[1])).astype(np.float32)
 
 
+def bound(flop: float, nbytes: float, bf16_tensor: bool):
+    """The least time the H100 could take for this work (ms) and what bounds
+    it: operations over the peak rate of their type (989 TFLOP/s bf16 dense
+    on the tensor cores, 67 TFLOP/s fp32 on the FMA units) against bytes over
+    3.35 TB/s, each input read once and each output written once."""
+    t_ops = flop / (PEAK_BF16 if bf16_tensor else PEAK_F32)
+    t_mem = nbytes / HBM_BPS
+    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes")
+
+
+def mm_ms(q, xs) -> float:
+    """The product alone through torch.mm on the same table in 64k-row
+    blocks (context only: the port never calls it; no single PyTorch call
+    computes the scan with its top-k)."""
+    qc = q.to(xs.dtype)
+    out = torch.empty((q.shape[0], 65536), dtype=xs.dtype, device=q.device)
+
+    def run():
+        for s in range(0, xs.shape[0], 65536):
+            e = min(xs.shape[0], s + 65536)
+            torch.mm(qc, xs[s:e].T, out=out[:, : e - s])
+
+    return cuda_ms(run, reps=3)
+
+
 def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
     from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
 
@@ -103,6 +143,7 @@ def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
         q = q / q.norm(dim=1, keepdim=True)
     xn = (x * x).sum(1)
     xs = x.to(dtype).contiguous()
+    del x
     mask = None
     if mask_frac:
         mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
@@ -133,11 +174,18 @@ def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
         check(bool(mask[i_k[fin].long()].all()), f"{name}: a masked row was returned")
     ms = cuda_ms(lambda: scan_topk(*args), reps=5)
     plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    mm = mm_ms(q, xs)
+    nbytes = (b * d * 4 + n * d * xs.element_size() + n * 4 * (metric == "l2")
+              + (n if mask is not None else 0) + b * k * 8)
+    bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, dtype == torch.bfloat16)
     print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(dtype)[6:]} {metric}"
           f"{f' mask {mask_frac:.0%} out' if mask_frac else ''}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g} (tol {tol:.3g}), "
-          f"tie swaps {int(bad.sum())} [{card}]", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+          f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}, "
+          f"plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), tie swaps {int(bad.sum())} [{card}]",
+          flush=True)
+    return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "mm_ms": mm}
 
 
 def sync_qps(db, queries, kw) -> float:
@@ -150,9 +198,54 @@ def sync_qps(db, queries, kw) -> float:
     return done / elapsed
 
 
+def profile_batch(db, queries, kw, label, card, reps=3):
+    """Where one sync search_arrays batch spends its time: wall (median of 7
+    sync batches), device busy (the union of the kernel and copy intervals
+    that torch.profiler records over `reps` batches, per batch), the rest
+    (host work and idle device), and the largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def batch():
+        db.search_arrays(queries, k=K, **kw)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        batch()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[3]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            batch()
+    spans, items = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.time_range
+        spans.append((t.start, t.end))
+        name = e.name if len(e.name) <= 48 else e.name[:45] + "..."
+        us, calls = items.get(name, (0.0, 0))
+        items[name] = (us + t.end - t.start, calls + 1)
+    check(bool(spans), f"profile {label}: the profiler recorded device work")
+    busy_us, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e3 / reps
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"profile {label}: wall {wall:.3f} ms/batch (median of 7 sync batches), device busy "
+          f"{busy:.3f} ms ({busy / wall:.1%}), host and idle {wall - busy:.3f} ms "
+          f"({1 - busy / wall:.1%}); largest device items per batch: "
+          + "; ".join(f"{n} {us / 1e3 / reps:.3f} ms ({c / reps:g} calls)"
+                      for n, (us, c) in top) + f" [{card}]", flush=True)
+
+
 def engine_phase(args, card):
     import vecgo_tpu_torch as vg
-    from vecgo_tpu.metadata import isin
+    from vecgo_tpu_torch.metadata import isin
     from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
 
     rng = np.random.default_rng(args.seed)
@@ -205,6 +298,8 @@ def engine_phase(args, card):
               f"{QPS_WINDOWS} windows >= {QPS_WINDOW_S} s, range {windows[0]:.0f}-"
               f"{windows[-1]:.0f}), recall@10 {recall:.5f} [{card}]", flush=True)
         check(recall >= RECALL_FLOOR, f"{name}: recall {recall} < {RECALL_FLOOR}")
+        if args.profile and sel is None:
+            profile_batch(db, queries[0], kw, "flat unfiltered", card)
 
     t0 = time.perf_counter()
     streamed = list(db.search_arrays_stream(iter(queries), k=K, depth=3))
@@ -233,7 +328,8 @@ def engine_phase(args, card):
     print(f"engine peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"scan_topk launches {launches} [{card}]", flush=True)
     return {"db": db, "rng": rng, "centers": centers, "queries": queries, "x_all": x_all,
-            "ids": all_ids, "u": u_all, "deleted": deleted, "launches": launches}
+            "ids": all_ids, "u": u_all, "deleted": deleted, "launches": launches,
+            "profile": args.profile}
 
 
 def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
@@ -251,7 +347,7 @@ def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
 def graph_phase(st, card):
     """Compact the flat phase's database into one Vamana segment and serve it."""
     import vecgo_tpu_torch as vg
-    from vecgo_tpu.metadata import isin
+    from vecgo_tpu_torch.metadata import isin
     from vecgo_tpu_torch.index.vamana import VamanaSegment
     from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
     from vecgo_tpu_torch.ops.scan_topk import scan_topk
@@ -311,6 +407,8 @@ def graph_phase(st, card):
               f"{QPS_WINDOWS} windows >= {QPS_WINDOW_S} s, range {windows[0]:.0f}-"
               f"{windows[-1]:.0f}), recall@10 {recall:.5f} [{card}]", flush=True)
         check(recall >= GRAPH_RECALL_FLOOR, f"graph {name}: recall {recall} < {GRAPH_RECALL_FLOOR}")
+        if st["profile"] and name == "serving":
+            profile_batch(db, queries[0], kw, "graph serving", card)
 
     t0 = time.perf_counter()
     streamed = list(db.search_arrays_stream(iter(queries), k=K, depth=3, **serving))
@@ -389,16 +487,28 @@ def coded_case(seg, q_np, card):
         check(gap <= 2 * tol, f"coded: {n_bad} columns differ beyond ties (gap {gap})")
     ms = cuda_ms(lambda: coded_group_scan(*args), reps=20)
     plain_ms = cuda_ms(lambda: coded_group_scan_reference(*args), reps=2)
+    # Work this batch needs: each live (cluster, query) pair scores the
+    # cluster's S slots at d (fp32 FMA on the SIMT units); bytes: the codes,
+    # norms, scales, centroids, queries and probe table once, outputs once.
+    n_live = int(live.sum())
+    nbytes = (t.codes.numel() + t.bnorm2.numel() * 4 + t.scale.numel() * 4
+              + t.centroids.numel() * 4 + q.numel() * 4 + qtab.numel() * 4
+              + d_k.numel() * 4 + i_k.numel() * 4)
+    bound_ms, bound_by = bound(2.0 * n_live * s * q.shape[1], nbytes, False)
     print(f"kernel coded_group_scan: B={q.shape[0]} K={k_pad} S={s} d={q.shape[1]} "
           f"qcap={qcap} kk={kk} probes={n_probe} ({int(live.sum())} live (cluster, query) "
-          f"pairs): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err {err:.3g} "
+          f"pairs): kernel {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
+          f"{bound_ms / ms:.1%}, plain {plain_ms:.3f} ms, max_abs_err {err:.3g} "
           f"(tol {tol:.3g}), tie swaps {n_bad} [{card}]", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="print a torch.profiler breakdown of a flat and a graph batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -416,9 +526,19 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(args.seed)
-    main_case = kernel_case("segment", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card)
-    chunk = kernel_case("memtable-chunk", rng, BATCH, 8192, DIM, 16, torch.float32, "l2", 0.3, card)
-    wide = kernel_case("wide", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card)
+    # The engine's shapes: the segment's bf16 pool scan at k + 8 (clean) and
+    # at the churn margin's pool, the memtable's f32 chunks at its pools,
+    # wide f32 rows, and the largest k the kernel takes.
+    cases = [
+        kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card),
+        kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card),
+        kernel_case("chunk-pool74", rng, BATCH, 8192, DIM, 74, torch.float32, "l2", 0.3, card),
+        kernel_case("chunk-pool82", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card),
+        kernel_case("wide-d768", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card),
+        kernel_case("k256", rng, BATCH, 65536, DIM, 256, torch.bfloat16, "l2", 0.1, card),
+    ]
+    main_case = cases[0]
+    torch.cuda.empty_cache()
     st = engine_phase(args, card)
     seg, graph_launches = graph_phase(st, card)
     coded = coded_case(seg, st["queries"][1], card)
@@ -431,9 +551,15 @@ def main() -> int:
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
         "launches": st["launches"] + graph_launches["scan_topk"],
         "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"]},
-        "max_abs_err": max(c["err"] for c in (main_case, chunk, wide)),
+        "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "share": main_case["bound_ms"] / main_case["ms"],
+        "library_ms": None,
+        "cases": {c["name"]: {k: c[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                 "mm_ms")} for c in cases},
     }, {
         "name": "coded_group_scan",
         "route": "cuda",
@@ -443,6 +569,10 @@ def main() -> int:
         "max_abs_err": coded["err"],
         "ms": coded["ms"],
         "plain_ms": coded["plain_ms"],
+        "bound_ms": coded["bound_ms"],
+        "bound_by": coded["bound_by"],
+        "share": coded["bound_ms"] / coded["ms"],
+        "library_ms": None,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from vecgo_tpu.model import Metric
+from vecgo_tpu_torch.model import Metric as PMetric
 from vecgo_tpu.utils import testutil as tu
 from vecgo_tpu_torch.index import build_fast as bf
 from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter
@@ -99,7 +100,7 @@ def test_reverse_edges_are_in_edges():
 def test_writer_roundtrip_and_search():
     n, d = 600, 16
     x = tu.gaussian_vectors(n, d, seed=11)
-    w = VamanaWriter(d, Metric.L2, r=16)
+    w = VamanaWriter(d, PMetric.L2, r=16)
     w.add_batch(x, np.arange(n))
     seg = VamanaSegment.open(w.finish())
     assert seg.n == n and seg.ivf_members is None  # under ivf_min_n: graph walk

@@ -30,14 +30,41 @@ def cuda():
     return torch.device("cuda")
 
 
-def _exact(q, x, rows, metric):
+def _exact(q, x, rows, metric, xn=None):
     v = x[rows.clamp_min(0).long()].double()
     dot = torch.einsum("bkd,bd->bk", v, q.double())
     if metric == "l2":
-        s = (q.double() ** 2).sum(1, keepdim=True) + (v * v).sum(-1) - 2 * dot
+        vn = (v * v).sum(-1) if xn is None else xn[rows.clamp_min(0).long()].double()
+        s = (q.double() ** 2).sum(1, keepdim=True) + vn - 2 * dot
     else:
         s = -dot if metric == "dot" else 1 - dot
     return torch.where(rows >= 0, s, torch.inf)
+
+
+def _check_against_plain(q, x, xn, k, metric, mask, d_k, i_k, d_r, i_r):
+    dtype = x.dtype
+    tol = REL * (float((q * q).sum(1).max() + xn[torch.isfinite(xn)].max())
+                 if metric == "l2" else 1.0)
+    assert torch.equal(i_k < 0, i_r < 0)
+    assert torch.equal(torch.isfinite(d_k), torch.isfinite(d_r))
+    fin = torch.isfinite(d_r)
+    if fin.any():
+        assert float((d_k - d_r).abs()[fin].max()) <= tol
+    swapped = (i_k != i_r) & fin
+    if swapped.any():
+        qo = q.to(dtype).float() if dtype == torch.bfloat16 else q
+        xo = x.float()
+        # Both sides score l2 with the caller's |x|^2, not the rounded row's.
+        gap = (_exact(qo, xo, torch.where(swapped, i_k, -1), metric, xn)
+               - _exact(qo, xo, torch.where(swapped, i_r, -1), metric, xn))[swapped]
+        assert float(gap.abs().max()) <= 2 * tol
+    if mask is not None:
+        assert bool(mask[i_k[fin].long()].all())
+    # Sorted by (score, row).
+    dd, ii = d_k[:, 1:], i_k[:, 1:]
+    prev_d, prev_i = d_k[:, :-1], i_k[:, :-1]
+    ok = (prev_d < dd) | ((prev_d == dd) & ((prev_i < ii) | (ii < 0)))
+    assert bool(ok.all())
 
 
 @pytest.mark.cuda
@@ -48,10 +75,29 @@ def _exact(q, x, rows, metric):
      (64, 8192, 128, 16, torch.float32, "l2", 0.3),
      (70, 3000, 96, 256, torch.bfloat16, "dot", 0.5),
      (40, 4096, 768, 10, torch.float32, "cos", 0.0),
-     (5, 10, 16, 20, torch.float32, "l2", 0.0)],
+     (5, 10, 16, 20, torch.float32, "l2", 0.0),
+     # The engine's pools: memtable chunks (f32) and the churn margin (bf16).
+     (300, 8192, 128, 74, torch.float32, "l2", 0.3),
+     (300, 8192, 128, 82, torch.float32, "l2", 0.0),
+     (200, 20000, 128, 82, torch.bfloat16, "l2", 0.1),
+     (100, 5000, 128, 256, torch.bfloat16, "l2", 0.2),
+     (100, 5000, 64, 256, torch.float32, "cos", 0.0),
+     # d neither a multiple of 16 nor of 8; wide rows (the query tile shrinks
+     # to 64, and at k=256 its depth chunks ride the ring).
+     (77, 3001, 100, 18, torch.bfloat16, "l2", 0.1),
+     (77, 3001, 100, 18, torch.float32, "dot", 0.0),
+     (150, 4000, 768, 18, torch.bfloat16, "cos", 0.0),
+     (60, 2000, 768, 256, torch.bfloat16, "l2", 0.0),
+     # N below one 64-row tile; B not a multiple of the query tile.
+     (129, 50, 32, 10, torch.bfloat16, "dot", 0.0),
+     (129, 50, 32, 10, torch.float32, "cos", 0.0),
+     # Every metric on both table types.
+     (257, 3000, 64, 10, torch.bfloat16, "cos", 0.0),
+     (257, 3000, 64, 10, torch.float32, "dot", 0.0),
+     (257, 3000, 64, 10, torch.float32, "l2", 0.5)],
 )
 def test_kernel_matches_plain_version(cuda, b, n, d, k, dtype, metric, mask_frac):
-    r = np.random.default_rng(n + k)
+    r = np.random.default_rng(n + k + d)
     q = torch.from_numpy(r.standard_normal((b, d)).astype(np.float32)).to(cuda)
     x = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(cuda)
     if metric == "cos":
@@ -64,19 +110,121 @@ def test_kernel_matches_plain_version(cuda, b, n, d, k, dtype, metric, mask_frac
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     assert scan_topk.launches == before + 1
-    tol = REL * (float((q * q).sum(1).max() + xn.max()) if metric == "l2" else 1.0)
-    assert torch.equal(i_k < 0, i_r < 0)
-    fin = torch.isfinite(d_r)
-    assert float((d_k - d_r).abs()[fin].max()) <= tol
-    swapped = (i_k != i_r) & fin
-    if swapped.any():
-        qo = q.to(dtype).float() if dtype == torch.bfloat16 else q
-        xo = x.to(dtype).float()
-        gap = (_exact(qo, xo, torch.where(swapped, i_k, -1), metric)
-               - _exact(qo, xo, torch.where(swapped, i_r, -1), metric))[swapped]
-        assert float(gap.abs().max()) <= 2 * tol
-    if mask is not None:
-        assert bool(mask[i_k[fin].long()].all())
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_breaks_exact_ties_to_lower_rows_across_splits(cuda, dtype):
+    """37 distinct rows repeated over 20,000: every query's 74 best are exact
+    ties, spread over several splits; both sides keep the lowest row ids."""
+    r = np.random.default_rng(37)
+    base = torch.from_numpy(r.standard_normal((37, 64)).astype(np.float32)).to(cuda)
+    x = base[torch.arange(20_000, device=cuda) % 37].contiguous()
+    q = torch.from_numpy(r.standard_normal((64, 64)).astype(np.float32)).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, 74, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_r)
+    best = i_k[:, :1] % 37
+    assert torch.equal(i_k, best + 37 * torch.arange(74, device=cuda, dtype=i_k.dtype))
+    assert torch.equal(d_k, d_k[:, :1].expand(-1, 74))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_skips_non_finite_and_masked_rows(cuda, dtype):
+    r = np.random.default_rng(12)
+    n, d = 3000, 48
+    q = torch.from_numpy(r.standard_normal((100, d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    x[5] = float("nan")
+    x[700, 3] = float("inf")
+    x[2999] = float("-inf")
+    xn = (x * x).sum(1)
+    mask = torch.from_numpy(r.random(n) >= 0.3).to(cuda)
+    mask[:64] = False  # a whole tile masked
+    for metric in ("l2", "dot", "cos"):
+        args = (q, x.to(dtype), xn, 82, metric, mask)
+        d_k, i_k = scan_topk(*args)
+        d_r, i_r = scan_topk_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(d_k).all()
+        assert not torch.isin(i_k, torch.tensor([5, 700, 2999], device=cuda)).any()
+        _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,n,k", [("random", 256, 256), ("nearing", 1024, 200),
+                                       ("nearing", 1024, 256)])
+def test_kernel_merges_full_candidate_buffers_while_lists_fill(cuda, dtype, order, n, k):
+    """No mask, so every tile of a filling list enters it whole and a merge
+    takes a full buffer of 128 candidates. With N = k, one list entry in
+    three queries ranks after all 128 and every row is in the answer. With
+    rows that come nearer the queries tile by tile ("nearing": radius 40
+    down to 1 about the origin, queries within 0.01 of it), every candidate
+    ranks before every listed entry, at every merge."""
+    r = np.random.default_rng(n + k)
+    q = r.standard_normal((64, 128)).astype(np.float32)
+    x = r.standard_normal((n, 128)).astype(np.float32)
+    if order == "nearing":
+        q *= 0.01
+        x *= (np.linspace(40, 1, n) / np.linalg.norm(x, axis=1)).astype(np.float32)[:, None]
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
+    """Rows in cluster order: the first 300 rows (all in the first split)
+    are near the queries and the other 39,700 far, so at k = 256 every
+    entry of the first split's list ranks before every other split's best
+    entry, whose rank in the merge is then exactly k."""
+    from vecgo_tpu_torch.kernels import _build
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    r = np.random.default_rng(256)
+    x = r.standard_normal((40_000, 128)).astype(np.float32)
+    x[300:] += 100.0
+    q = torch.from_numpy(r.standard_normal((64, 128)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, 256, "l2", None)
+    tq, _, _, _, bps, sms = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16),
+                                     128, 256)
+    splits, rows_per_split = st.split_plan(64, 40_000, 256, tq, bps * sms)
+    assert splits > 1 and rows_per_split >= 300
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    assert bool((i_k < 300).all())
+    assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+@pytest.mark.cuda
+def test_kernel_never_runs_plain_version_on_card(cuda, monkeypatch):
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    def boom(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(st, "scan_topk_reference", boom)
+    q = torch.zeros(4, 8, device=cuda)
+    x = torch.ones(100, 8, device=cuda)
+    d_k, i_k = st.scan_topk(q, x, (x * x).sum(1), 3)
+    torch.cuda.synchronize()
+    assert i_k.tolist() == [[0, 1, 2]] * 4
 
 
 @pytest.mark.cuda
@@ -112,7 +260,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 @pytest.mark.cuda
 def test_engine_on_card_goes_through_the_kernel(cuda):
     import vecgo_tpu_torch as vg
-    from vecgo_tpu.metadata import eq
+    from vecgo_tpu_torch.metadata import eq
 
     r = np.random.default_rng(5)
     x = r.standard_normal((20_000, 32)).astype(np.float32)
@@ -271,7 +419,7 @@ def test_ivf_scan_on_card_launches_kernel_and_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_engine_graph_on_card_goes_through_kernel_b(cuda):
     import vecgo_tpu_torch as vg
-    from vecgo_tpu.metadata import isin
+    from vecgo_tpu_torch.metadata import isin
     from vecgo_tpu_torch.index.vamana import VamanaSegment
     from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
 

@@ -14,11 +14,13 @@ import pytest
 import torch
 
 import vecgo_tpu_torch as vg
+from vecgo_tpu import metadata as jmd
 from vecgo_tpu.engine import Engine as JaxEngine
 from vecgo_tpu.engine import EngineOptions as JaxEngineOptions
 from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.metadata import isin
+from vecgo_tpu.errors import ErrNotFound as JaxErrNotFound
 from vecgo_tpu.utils import testutil as tu
+from vecgo_tpu_torch import metadata as pmd
 
 torch.set_num_threads(1)
 
@@ -58,9 +60,11 @@ def twin():
 def test_engine_matches_jax_and_brute_force(twin, sel):
     jax_db, port_db, x, ids, u, gone = twin
     q = np.random.default_rng(32).standard_normal((16, D)).astype(np.float32)
-    kw = {} if sel is None else {"filter": isin("u", list(range(sel)))}
-    got_p, d_p = port_db.search_arrays(q, k=10, **kw)
-    got_j, d_j = jax_db.search_arrays(q, k=10, **kw)
+    # Each package takes its own filter objects.
+    kw_p = {} if sel is None else {"filter": pmd.isin("u", list(range(sel)))}
+    kw_j = {} if sel is None else {"filter": jmd.isin("u", list(range(sel)))}
+    got_p, d_p = port_db.search_arrays(q, k=10, **kw_p)
+    got_j, d_j = jax_db.search_arrays(q, k=10, **kw_j)
     np.testing.assert_array_equal(got_p, got_j)
     np.testing.assert_allclose(d_p, d_j, atol=1e-4)
     vis = ~np.isin(ids, gone) if sel is None else ~np.isin(ids, gone) & (u < sel)
@@ -100,7 +104,7 @@ def test_filtered_recall_exact_on_wide_masked_corpus():
     db.commit()
     q = x[rng.integers(0, n, 16)] + 0.05 * rng.standard_normal((16, d)).astype(np.float32)
     for want_cats in (1, 10, 50):
-        res = db.search_batch(q, k=10, filter=isin("cat", list(range(want_cats))))
+        res = db.search_batch(q, k=10, filter=pmd.isin("cat", list(range(want_cats))))
         elig = np.flatnonzero(cats < want_cats)
         _, ti = tu.brute_force_knn(q, x[elig], 10, "l2")
         assert [[c.id for c in r] for r in res] == [[ids[elig[j]] for j in row] for row in ti]
@@ -129,7 +133,7 @@ def test_db_directory_opens_in_the_other_package(tmp_path, writer):
     got, _ = other.search_arrays(q, k=7)
     np.testing.assert_array_equal(got, want)
     assert other.get(ids[5]).metadata == {"i": 5}
-    with pytest.raises(vg.ErrNotFound):
+    with pytest.raises(vg.ErrNotFound if writer == "jax" else JaxErrNotFound):
         other.get(ids[0])
     other.close()
 
@@ -153,3 +157,11 @@ def test_not_ported_paths_raise_with_their_roadmap_item():
     q.insert_batch(np.eye(4, dtype=np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         q.commit()
+
+
+def test_option_the_port_does_not_honour_raises_when_set():
+    """`stream_transport` keeps the JAX engine's signature; its default is the
+    only value the port honours, so any other raises instead of being ignored."""
+    assert vg.Create(dim=4, device="cpu").stream_transport == "sq8"
+    with pytest.raises(NotImplementedError, match="item 2"):
+        vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", stream_transport="pq"))

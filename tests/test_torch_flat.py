@@ -14,9 +14,12 @@ import torch
 
 from vecgo_tpu.index.flat import FlatSegment as JaxFlatSegment
 from vecgo_tpu.index.flat import FlatWriter as JaxFlatWriter
+from vecgo_tpu import metadata as jmd
 from vecgo_tpu.model import Metric
+from vecgo_tpu_torch import metadata as pmd
 from vecgo_tpu_torch.convert import segment_from_jax
 from vecgo_tpu_torch.index.flat import FlatSegment, FlatWriter
+from vecgo_tpu_torch.model import Metric as PMetric
 
 torch.set_num_threads(1)
 
@@ -34,8 +37,10 @@ def _rows(seed=11):
 
 
 def _write(writer_cls, metric):
+    """Container bytes from either package's writer (each takes its own
+    package's Metric)."""
     x, ids, docs, pays, lsns = _rows()
-    w = writer_cls(D, metric)
+    w = writer_cls(D, metric if writer_cls is JaxFlatWriter else PMetric(metric.value))
     w.add_batch(x, ids, docs, pays, lsns)
     return w.finish()
 
@@ -52,9 +57,8 @@ def test_writers_are_byte_identical_and_cross_open(metric):
     np.testing.assert_array_equal(a.lsns, b.lsns)
     for row in (0, 17, N - 1):
         assert a.doc(row) == b.doc(row) and a.payload(row) == b.payload(row)
-    from vecgo_tpu.metadata import eq
-
-    np.testing.assert_array_equal(a.filter_mask(eq("tag", "t1")), b.filter_mask(eq("tag", "t1")))
+    np.testing.assert_array_equal(a.filter_mask(pmd.eq("tag", "t1")),
+                                  b.filter_mask(jmd.eq("tag", "t1")))
 
 
 def _queries(seg_metric, seed=12):

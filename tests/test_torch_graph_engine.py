@@ -16,8 +16,10 @@ import vecgo_tpu_torch as vg
 from vecgo_tpu.blobstore import MemoryStore
 from vecgo_tpu.engine import Engine as JaxEngine
 from vecgo_tpu.engine import EngineOptions as JaxEngineOptions
-from vecgo_tpu.metadata import isin
+from vecgo_tpu import metadata as jmd
+from vecgo_tpu.errors import ErrNotFound as JaxErrNotFound
 from vecgo_tpu.utils import testutil as tu
+from vecgo_tpu_torch import metadata as pmd
 from vecgo_tpu_torch.engine import EngineOptions
 from vecgo_tpu_torch.index.flat import FlatSegment
 from vecgo_tpu_torch.index.vamana import VamanaSegment
@@ -67,7 +69,7 @@ def test_port_compaction_serves_graph_segment():
         assert db.delete(int(i))
     ids = np.concatenate([ids, db.insert_batch(x[5500:], [{"u": int(v)} for v in u[5500:]])])
     for sel, strategy in ((None, "graph=1"), (10, "brute=1"), (50, "graph=1")):
-        kw = {} if sel is None else {"filter": isin("u", list(range(sel)))}
+        kw = {} if sel is None else {"filter": pmd.isin("u", list(range(sel)))}
         got, _ = db.search_arrays(q, k=10, **kw)
         assert not np.isin(got, gone).any()
         truth = _visible_truth(x, ids, gone, q, None if sel is None else u < sel)
@@ -99,17 +101,22 @@ def test_graph_db_directory_opens_in_the_other_package(tmp_path, writer):
     assert db.engine._segments[0].info.kind == "vamana"
     db.delete(int(ids[0]))
     db.commit()
-    cases = ({}, {"filter": isin("u", list(range(10)))}, {"filter": isin("u", list(range(50)))})
-    want = [db.search_arrays(q, k=10, **kw)[0] for kw in cases]
+    # Each package takes its own filter objects.
+    md_w, md_o = (jmd, pmd) if writer == "jax" else (pmd, jmd)
+    sels = (None, 10, 50)
+    want = [db.search_arrays(q, k=10, **({} if s is None else
+                                         {"filter": md_w.isin("u", list(range(s)))}))[0]
+            for s in sels]
     db.close()
     other = (vg.Open(vg.Local(path), device="cpu") if writer == "jax"
              else vg.DB(JaxEngine.open(path)))
-    for kw, w in zip(cases, want):
+    for s, w in zip(sels, want):
+        kw = {} if s is None else {"filter": md_o.isin("u", list(range(s)))}
         got, _ = other.search_arrays(q, k=10, **kw)
         assert overlap(got, w) >= 0.99
         assert ids[0] not in got
     assert other.get(int(ids[5])).metadata == {"u": int(u[5])}
-    with pytest.raises(vg.ErrNotFound):
+    with pytest.raises(vg.ErrNotFound if writer == "jax" else JaxErrNotFound):
         other.get(int(ids[0]))
     other.close()
 

@@ -17,6 +17,7 @@ import torch
 from vecgo_tpu.index.vamana import VamanaSegment as JaxVamanaSegment
 from vecgo_tpu.index.vamana import VamanaWriter as JaxVamanaWriter
 from vecgo_tpu.model import Metric
+from vecgo_tpu_torch.model import Metric as PMetric
 from vecgo_tpu.utils import testutil as tu
 from vecgo_tpu_torch.index.vamana import VamanaSegment
 
@@ -106,7 +107,7 @@ def test_cosine_segment_searched_by_both():
     from vecgo_tpu_torch.index.vamana import VamanaWriter
 
     x, q, _ = corpus(seed=47)
-    w = VamanaWriter(D, Metric.COSINE)
+    w = VamanaWriter(D, PMetric.COSINE)
     w.add_batch(x, np.arange(N))
     data = w.finish()
     js, ts = JaxVamanaSegment.open(data), VamanaSegment.open(data)

@@ -1,0 +1,184 @@
+"""The port's own host control plane against the JAX package's.
+
+vecgo_tpu_torch carries its own copy of the host modules (metadata filters,
+the section container, manifests, the PK index, tombstones). Each test feeds
+the same seeded inputs to both packages and requires the same results or
+the same bytes, so a database written by either package stays readable by
+the other. The static test checks that no port file and no line of
+chip_smoke.py imports the JAX package.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+
+from vecgo_tpu import metadata as jmd
+from vecgo_tpu.blobstore import MemoryStore as JaxMemoryStore
+from vecgo_tpu.engine import manifest as jman
+from vecgo_tpu.engine import pk as jpk
+from vecgo_tpu.engine import tombstone as jtomb
+from vecgo_tpu.metadata.columnar import ColumnarMeta as JaxColumnarMeta
+from vecgo_tpu.storage import container as jcon
+from vecgo_tpu_torch import metadata as pmd
+from vecgo_tpu_torch.blobstore import MemoryStore
+from vecgo_tpu_torch.engine import manifest as pman
+from vecgo_tpu_torch.engine import pk as ppk
+from vecgo_tpu_torch.engine import tombstone as ptomb
+from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
+from vecgo_tpu_torch.storage import container as pcon
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_never_imports_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "vecgo_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
+           if m == "vecgo_tpu" or m.startswith("vecgo_tpu.") or m == "jax" or m.startswith("jax.")]
+    assert len(files) > 30 and not bad, bad
+
+
+def _docs(n=500, seed=3):
+    r = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        if r.random() < 0.1:
+            docs.append(None)
+            continue
+        d = {"u": int(r.integers(0, 100)), "tag": f"t{int(r.integers(0, 5))}",
+             "w": float(r.standard_normal()), "flag": bool(r.random() < 0.5),
+             "arr": [f"a{j}" for j in r.choice(6, int(r.integers(0, 3)), replace=False)]}
+        if r.random() < 0.2:
+            del d["w"]
+        docs.append(d)
+    return docs
+
+
+FILTERS = [
+    lambda m: m.eq("tag", "t1"),
+    lambda m: m.neq("tag", "t1"),
+    lambda m: m.gt("u", 40),
+    lambda m: m.gte("w", 0.0),
+    lambda m: m.lt("u", 7),
+    lambda m: m.lte("w", -0.5),
+    lambda m: m.isin("u", [1, 2, 3, 50]),
+    lambda m: m.contains("arr", "a2"),
+    lambda m: m.eq("flag", True),
+    lambda m: m.gt("u", 10) & m.isin("tag", ["t0", "t3"]) & m.eq("flag", False),
+]
+
+
+@pytest.mark.parametrize("make", FILTERS, ids=range(len(FILTERS)))
+def test_filter_masks_match_jax(make):
+    docs = _docs()
+    want = JaxColumnarMeta.from_docs(docs).filter_mask(jmd.as_filterset(make(jmd)))
+    got = ColumnarMeta.from_docs(docs).filter_mask(pmd.as_filterset(make(pmd)))
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < len(docs)
+
+
+@pytest.mark.parametrize("compress", [None, "deflate", "lz4", "zstd"])
+def test_container_bytes_match_and_cross_open(compress):
+    r = np.random.default_rng(5)
+    sections = {"vectors": r.standard_normal((300, 24)).astype(np.float32),
+                "ids": np.arange(300, dtype=np.uint64),
+                "graph": r.integers(-1, 300, (300, 8)).astype(np.int32),
+                "payload.data": r.integers(0, 256, 999).astype(np.uint8)}
+    meta = {"kind": "flat", "dim": 24, "nested": {"a": [1, 2]}}
+    jb = jcon.pack_container(meta, sections, compress=compress)
+    pb = pcon.pack_container(meta, sections, compress=compress)
+    assert jb == pb
+    for unpack, data in ((pcon.unpack_container, jb), (jcon.unpack_container, pb)):
+        m, secs = unpack(data, True)
+        assert m["nested"] == {"a": [1, 2]}
+        for name, arr in sections.items():
+            np.testing.assert_array_equal(secs[name], arr)
+
+
+def _manifest(mod, version):
+    info = mod.SegmentInfo(name="segment_000003.vgt", seg_id=3, kind="flat", level=1,
+                           row_count=1234, stats={"row_count": 1234, "radius": 2.5},
+                           tombstone_blob="segment_000003.v2.tomb")
+    return mod.Manifest(version=version, lsn=77, next_id=1300, next_seg_id=4,
+                        segments=[info], config={"dim": 24, "metric": "l2"},
+                        created_at=1.5 + version)
+
+
+def test_manifests_match_and_load_across_packages():
+    js, ps = JaxMemoryStore(), MemoryStore()
+    jms, pms = jman.ManifestStore(js), pman.ManifestStore(ps)
+    for v in (1, 2):
+        jms.save(_manifest(jman, v))
+        pms.save(_manifest(pman, v))
+    assert sorted(js.list("")) == sorted(ps.list(""))
+    for name in js.list(""):
+        assert js.get(name) == ps.get(name)
+    # Each package's store loads the other's manifests.
+    for src, dst in ((js, ps), (ps, js)):
+        for name in src.list(""):
+            dst.put(name, src.get(name))
+    for ms in (pman.ManifestStore(ps), jman.ManifestStore(js)):
+        m = ms.load()
+        assert (m.version, m.lsn, m.next_id, m.segments[0].tombstone_blob) == (
+            2, 77, 1300, "segment_000003.v2.tomb")
+        assert ms.load(version=1).created_at == 2.5
+
+
+def _pk_ops(mod):
+    pk = mod.PKIndex()
+    pk.upsert_block(np.arange(1, 201, dtype=np.int64), mod.MEMTABLE_SEG,
+                    np.arange(200, dtype=np.int64), 1)
+    for i, id_ in enumerate((5, 17, 150)):
+        pk.upsert(id_, mod.MEMTABLE_SEG, 200 + i, 300 + i)
+    pk.delete(42, 310)
+    pk.delete(17, 311)
+    pk.remap_bulk(mod.MEMTABLE_SEG, 7, np.arange(203, dtype=np.int64)[::-1].copy())
+    pk.upsert(900, 7, 3, 320)
+    pk.compact_chains(305)
+    return pk
+
+
+def test_pk_index_matches_jax():
+    jp, pp = _pk_ops(jpk), _pk_ops(ppk)
+    assert jp.checkpoint_bytes() == pp.checkpoint_bytes()
+    assert jp.checkpoint_bytes(max_lsn=305) == pp.checkpoint_bytes(max_lsn=305)
+    np.testing.assert_array_equal(jp.dirty_sorted(), pp.dirty_sorted())
+    cross = ppk.PKIndex.from_checkpoint(jp.checkpoint_bytes())
+    for id_ in list(range(0, 205)) + [900, 901]:
+        for lsn in (None, 1, 302, 310, 320):
+            want = jp.get_entry(id_, lsn)
+            assert pp.get_entry(id_, lsn) == want
+            assert cross.get_entry(id_, lsn) == want
+    assert sorted(pp.scan(315)) == sorted(jp.scan(315)) and len(pp) == len(jp)
+
+
+def test_tombstones_match_jax():
+    rows, lsns = [3, 99, 12, 40], [10, 11, 12, 20]
+    jt = jtomb.SegmentTombstones(128, rows, lsns).add(77, 25)
+    pt = ptomb.SegmentTombstones(128, rows, lsns).add(77, 25)
+    assert jt.to_bytes() == pt.to_bytes()
+    for snap in (None, 11, 20, 30):
+        np.testing.assert_array_equal(pt.deleted_mask(snap), jt.deleted_mask(snap))
+        assert pt.count(snap) == jt.count(snap)
+    back = ptomb.SegmentTombstones.from_bytes(jt.to_bytes())
+    np.testing.assert_array_equal(back.deleted_mask(), jt.deleted_mask())
+    js = jtomb.TombstoneSet().with_delete(4, 9, 30, 64).with_delete(5, 1, 31, 8)
+    ps = ptomb.TombstoneSet().with_delete(4, 9, 30, 64).with_delete(5, 1, 31, 8)
+    for seg, n in ((4, 64), (5, 8), (6, 10)):
+        a, b = ps.deleted_mask(seg, n, 30), js.deleted_mask(seg, n, 30)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+        assert ps.count(seg) == js.count(seg)

@@ -15,6 +15,7 @@ from vecgo_tpu.engine.memtable import CHUNK
 from vecgo_tpu.engine.memtable import MemTable as JaxMemTable
 from vecgo_tpu.model import Metric
 from vecgo_tpu_torch.engine.memtable import MemTable
+from vecgo_tpu_torch.model import Metric as PMetric
 
 torch.set_num_threads(1)
 
@@ -22,7 +23,7 @@ D = 16
 
 
 def _filled(cls, metric, x):
-    mt = cls(D, metric)
+    mt = cls(D, metric if cls is JaxMemTable else PMetric(metric.value))
     mt.insert_block(x[:CHUNK + 100], id0=1, lsn0=1)
     for i in range(CHUNK + 100, len(x)):  # per-row inserts land in the tail
         mt.insert(x[i], id=i + 1, lsn=i + 1)
@@ -51,7 +52,7 @@ def test_memtable_search_matches_jax(metric, masked, n_visible):
 
 def test_memtable_fewer_rows_than_k():
     x = np.random.default_rng(22).standard_normal((5, D)).astype(np.float32)
-    tm = MemTable(D, Metric.L2)
+    tm = MemTable(D, PMetric.L2)
     tm.insert_block(x, id0=1, lsn0=1)
     d, rows = tm.search(torch.from_numpy(x[:2]), 8, 5, np.array([1, 0, 1, 1, 0], bool))
     assert sorted(rows[0, :3].tolist()) == [0, 2, 3]
@@ -64,7 +65,7 @@ def test_tail_upload_follows_new_rows():
     r = np.random.default_rng(23)
     x = r.standard_normal((CHUNK + 40, D)).astype(np.float32)
     q = torch.from_numpy(x[-3:] + 0.001)
-    tm = MemTable(D, Metric.L2)
+    tm = MemTable(D, PMetric.L2)
     tm.insert_block(x[: CHUNK - 10], id0=1, lsn0=1)
     assert tm.search(q, 1, len(tm))[1][0, 0] != CHUNK + 37
     for i in range(CHUNK - 10, CHUNK + 40):

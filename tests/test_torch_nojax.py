@@ -1,11 +1,11 @@
-"""The port never imports jax.
+"""The port never imports jax, nor any module of the JAX package.
 
 Runs in a subprocess, because this test process has jax loaded already
-(tests/conftest.py imports it). The child imports vecgo_tpu_torch, drives a
-small slice of the flat path and of the graph path (compaction into a
-Vamana segment, filtered and unfiltered search) on the CPU and checks
-sys.modules; without a CUDA device it also checks that the default device
-("cuda") is refused.
+(tests/conftest.py imports it). The child imports every module of
+vecgo_tpu_torch, drives a small slice of the flat path and of the graph path
+(compaction into a Vamana segment, filtered and unfiltered search) on the
+CPU and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
+a CUDA device it also checks that the default device ("cuda") is refused.
 """
 
 import os
@@ -17,11 +17,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = textwrap.dedent(
     """
+    import importlib
+    import pkgutil
     import sys
     import numpy as np
     import torch
     import vecgo_tpu_torch as vg
-    from vecgo_tpu.metadata import eq
+    from vecgo_tpu_torch.metadata import eq
+
+    for mod in pkgutil.walk_packages(vg.__path__, "vecgo_tpu_torch."):
+        importlib.import_module(mod.name)
 
     torch.set_num_threads(1)
     x = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
@@ -54,6 +59,8 @@ CHILD = textwrap.dedent(
     assert got.shape == (4, 3) and ids[1] not in got
     db.close()
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+    jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
+    assert not jax_pkg, jax_pkg
     if not torch.cuda.is_available():
         try:
             vg.Create(dim=8)

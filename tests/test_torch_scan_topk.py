@@ -18,6 +18,7 @@ import torch
 from vecgo_tpu.model import Metric
 from vecgo_tpu.ops import pallas_scan
 from vecgo_tpu.ops import topk as JT
+from vecgo_tpu_torch.model import Metric as PMetric
 from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.ops.scan_topk import MAX_K, scan_topk, scan_topk_reference
 
@@ -94,7 +95,7 @@ def test_blockwise_matches_jax_exact(metric, masked, bf16):
         x_normalized=True, exact=True,
     )
     d_t, i_t = T.blockwise_topk_search(
-        torch.from_numpy(q), torch.from_numpy(x), 10, metric=m,
+        torch.from_numpy(q), torch.from_numpy(x), 10, metric=PMetric(m.value),
         mask=None if mask is None else torch.from_numpy(mask),
         compute_dtype=torch.bfloat16 if bf16 else None, x_normalized=True,
     )
@@ -180,7 +181,7 @@ def test_pairwise_scores_match_jax(metric, bf16):
         q, x = (q > 0).astype(np.float32), (x > 0).astype(np.float32)
     want = JD.pairwise_scores(jnp.asarray(q), jnp.asarray(x), metric, x_normalized=False,
                               compute_dtype=jnp.bfloat16 if bf16 else None)
-    got = TD.pairwise_scores(torch.from_numpy(q), torch.from_numpy(x), metric,
+    got = TD.pairwise_scores(torch.from_numpy(q), torch.from_numpy(x), PMetric(metric.value),
                              x_normalized=False,
                              compute_dtype=torch.bfloat16 if bf16 else None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
@@ -202,3 +203,21 @@ def test_small_width_selections_match_jax():
     got = T.topk_smallest_with_ids(torch.from_numpy(da), torch.from_numpy(ia), 4)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n,k,slots", [(1 << 20, 18, 264), (1 << 20, 82, 264), (8192, 74, 396),
+                                       (8192, 82, 396), (65536, 256, 132)])
+def test_split_plan_fills_the_card(n, k, slots):
+    """4096 queries are 64 query tiles: the rows are split so that every one
+    of the card's 132 SMs gets a block, each split keeps its minimum of tiles,
+    the merge stays narrow, and the splits cover the rows exactly once."""
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    splits, rows = st.split_plan(4096, n, k, 64, slots)
+    assert 64 * splits >= 132
+    assert rows % st._TN == 0 and rows >= st._MIN_TILES_PER_SPLIT * st._TN
+    assert (splits - 1) * rows < n <= splits * rows
+    assert splits * k <= st._MAX_MERGE_WIDTH
+    if n >= 1 << 20:  # the last wave at least _WAVE_FILL full
+        waves = 64 * splits / slots
+        assert waves / np.ceil(waves) >= st._WAVE_FILL

@@ -1,13 +1,14 @@
 """vecgo_tpu_torch — the vecgo_tpu engine on PyTorch and CUDA (NVIDIA H100).
 
-The port keeps `vecgo_tpu`'s layout, API and on-disk format, imports its
-host control plane (model, metadata, storage, manifests, PK index, planner)
-and replaces every device path: plain PyTorch for tensor code, and
-hand-written CUDA kernels (`csrc/`) where the JAX package had Pallas ones.
-It never imports jax.
+The port keeps `vecgo_tpu`'s layout, API and on-disk format. It carries its
+own copy of the host control plane (model, errors, metadata, storage,
+blobstore, manifests, PK index, tombstones, planner, engine) under the same
+relative paths, and replaces every device path: plain PyTorch for tensor
+code, and hand-written CUDA kernels (`csrc/`) where the JAX package had
+Pallas ones. It imports neither jax nor `vecgo_tpu`.
 """
 
-from vecgo_tpu.errors import (
+from vecgo_tpu_torch.errors import (
     ErrBackpressure,
     ErrClosed,
     ErrDimensionMismatch,
@@ -16,7 +17,7 @@ from vecgo_tpu.errors import (
     ErrReadOnly,
     VecgoError,
 )
-from vecgo_tpu.model import Candidate, Metric, QueryStats, Record, SearchOptions, SearchResult
+from vecgo_tpu_torch.model import Candidate, Metric, QueryStats, Record, SearchOptions, SearchResult
 from vecgo_tpu_torch.api import DB, Backend, Create, Local, Memory, Open, Remote
 
 __version__ = "0.1.0"

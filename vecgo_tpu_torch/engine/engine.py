@@ -1,47 +1,61 @@
 """The port's Engine (vecgo_tpu/engine/engine.py on PyTorch).
 
-`Engine` subclasses the JAX package's engine: inserts, deletes, point
-lookups, scans, the PK index, manifests, tombstones, vacuum and close are
-host code and are inherited as they are. What is overridden here is what
-creates or searches device state: open (segments), commit and compact (the
-port's writer, segment and memtable classes), the search entry points (the
-device planner in `vecgo_tpu_torch.engine.search`), and the paths not
-ported yet, which raise `NotImplementedError` naming their ROADMAP.md item.
+Open/recovery, CRUD, the PK index, manifests, tombstones, commit,
+compaction, vacuum and close are the JAX engine's host code, copied. What
+differs is what creates or searches device state: segments and the
+memtable are the port's classes, compaction builds graphs on the options'
+device, the search entry points run the device planner in
+`vecgo_tpu_torch.engine.search`, and the paths not ported yet raise
+`NotImplementedError` naming their ROADMAP.md item.
+
+Threading model (as in the JAX engine): one writer lock guards mutations;
+searches are lock-free against published immutable snapshots. File
+deletion happens only in vacuum(), so time travel keeps working.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import threading
 import time
-from dataclasses import dataclass
-from typing import Any, List, Optional
+from dataclasses import dataclass, field as dc_field
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from vecgo_tpu.blobstore import LocalStore
-from vecgo_tpu.engine import engine as jax_engine
-from vecgo_tpu.engine.engine import PK_SIDECAR, _id_row_map, _seg_blob
-from vecgo_tpu.engine.manifest import ManifestStore, SegmentInfo
-from vecgo_tpu.engine.pk import MEMTABLE_SEG, PKIndex
-from vecgo_tpu.engine.snapshot import SegmentHandle
-from vecgo_tpu.engine.tombstone import SegmentTombstones, TombstoneSet
-from vecgo_tpu.errors import ErrClosed, ErrCorrupt, ErrDimensionMismatch, ErrNotFound
-from vecgo_tpu.engine.search import _seg_by_id
-from vecgo_tpu.model import Candidate, SearchOptions, SearchResult
-from vecgo_tpu.index.common import csr_concat, csr_select
-from vecgo_tpu.metadata.columnar import ColumnarMeta
-from vecgo_tpu.storage import container
 from vecgo_tpu_torch._roadmap import not_ported
+from vecgo_tpu_torch.blobstore import BlobStore, LocalStore
 from vecgo_tpu_torch.engine import search as search_mod
-from vecgo_tpu_torch.engine.memtable import MemTable
+from vecgo_tpu_torch.engine.manifest import Manifest, ManifestStore, SegmentInfo
+from vecgo_tpu_torch.engine.memtable import MemTable, copy_validate
+from vecgo_tpu_torch.engine.pk import DELETED, MEMTABLE_SEG, PKIndex
+from vecgo_tpu_torch.engine.policy import SegmentView, SizeTieredPolicy
+from vecgo_tpu_torch.engine.resource import Controller, DeviceBudget
+from vecgo_tpu_torch.engine.snapshot import SegmentHandle, Snapshot, SnapshotTracker
+from vecgo_tpu_torch.engine.tombstone import SegmentTombstones, TombstoneSet
+from vecgo_tpu_torch.errors import (
+    ErrClosed,
+    ErrCorrupt,
+    ErrDimensionMismatch,
+    ErrInvalidVector,
+    ErrNotFound,
+    ErrReadOnly,
+)
+from vecgo_tpu_torch.index.common import csr_concat, csr_select
 from vecgo_tpu_torch.index.flat import FlatSegment, FlatWriter
 from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter
+from vecgo_tpu_torch.metadata import Schema
+from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
+from vecgo_tpu_torch.model import Candidate, Metric, SearchOptions, SearchResult
+from vecgo_tpu_torch.storage import container
+from vecgo_tpu_torch.utils.hostmem import all_finite, huge_arange
 
 
 @dataclass
-class EngineOptions(jax_engine.EngineOptions):
-    """The JAX engine's options plus the device that holds segments and
+class EngineOptions:
+    """The JAX engine's options (same fields and defaults) plus the device that holds segments and
     memtable chunks, runs every scan and builds graphs ("cuda" by default;
     "cpu" runs the kernels' plain PyTorch versions).
 
@@ -55,7 +69,66 @@ class EngineOptions(jax_engine.EngineOptions):
     segment under 16,384 rows works; the default returns to True with
     item 2."""
 
-    auto_compact: bool = False
+
+    dim: int = 0
+    metric: Metric = Metric.L2
+    quantizer: str = "none"  # quantizer for flushed/compacted segments
+    qparams: Dict[str, Any] = dc_field(default_factory=dict)
+    flush_threshold: int = 100_000  # memtable rows before auto-flush
+    graph_threshold: int = 32_768  # compaction output >= this -> vamana graph
+    graph_r: int = 32
+    graph_l_build: int = 64
+    graph_alpha: Optional[float] = None  # None = per-mode default (1.5 clustered / 1.2 beam)
+    graph_build_mode: str = "clustered"  # "clustered" (fast) | "beam"
+    graph_build_params: Dict[str, Any] = dc_field(default_factory=dict)  # build_fast knobs (cluster_size, overlap, ...)
+    ivf_rows_per_partition: int = 8192  # flat IVF rule (reference: rows/8192)
+    # Train flat-IVF partitions at FLUSH time. The reference's flat writer
+    # k-means-partitions every flush (flat/writer.go:101-147) because its
+    # CPU scan wins by skipping partitions; on TPU the exact MXU sweep beats
+    # partitioned probing at segment scale (docs/PERF.md: the nprobes flat
+    # profile measures SLOWER than exact — the probe mask adds VPU work
+    # without skipping blocks), so the flush-time k-means was pure commit
+    # latency: 154 s of a 180 s 1M commit (probe_flush_phases). Default off;
+    # compaction still partitions its (long-lived) outputs.
+    flush_ivf_partitions: bool = False
+    compaction_threshold: int = 4  # size-tiered trigger (reference default 4)
+    compaction_policy: Any = None  # engine.policy.CompactionPolicy; None = size-tiered
+    auto_flush: bool = True
+    auto_compact: bool = False  # see the class docstring
+    background: bool = False  # run flush/compaction on background threads
+    flush_interval_s: float = 5.0  # background loop cadence
+    memory_limit_bytes: int = 0  # host memtable cap; ErrBackpressure over it (0 = unlimited)
+    hbm_budget_bytes: int = 0  # device residency budget; over-budget segments stream (0 = unlimited)
+    schema: Optional[Schema] = None
+    read_only: bool = False
+    verify_checksum: bool = True
+    compress_segments: str = ""  # "" | "lz4" | "zstd" | "deflate" (reference: LZ4/ZSTD blocks, diskann/compression.go)
+    retention_versions: int = 10
+    retention_duration_s: float = 0.0
+    orphan_gc_grace_s: float = 3600.0  # min age before open-time orphan GC deletes
+    ef_search: int = 64
+    # Filtered graph search widens ef by 1/selectivity (the reference's
+    # dynamic EF expansion, hnsw.go:1858-1895, capped 20,000) so a 35%-
+    # selectivity filter doesn't get an unfiltered query's ef. This caps the
+    # expansion — batched lockstep search cost scales ~linearly with ef, so
+    # the cap is far below the reference's single-query 20k.
+    ef_filtered_cap: int = 2048
+    beam_width: int = 4
+    flat_scan_dtype: str = "bf16"  # "bf16" (1-pass MXU scan + exact f32 rerank) | "f32" (3-pass HIGH scan)
+    serve_compact: bool = False  # coded-table repack: half HBM, ~2x probes
+    serve_refine: bool = True  # int16 pool-rescore plane (+2 B/dim/row HBM): recall to the pool bound
+    serve_ivf_min_n: int = 4096  # min rows for a coded IVF serving table (below: pure graph walk)
+    lexical_device: str = "auto"  # "auto" | "off": MXU BM25 snapshot for batched hybrid at >=50k docs
+    store_codes: Any = False  # persist ivfq.* codes for cloud serving: False | True/"sq8" | "pq" | "opq"
+    stream_transport: str = "sq8"  # beyond-HBM stream coding: "sq8" (1 B/dim) | "pq" (d/2 B/row, 128-pooled exact rerank)
+    selectivity_cutoff: float = 0.30
+    compact_gather_cutoff: float = 0.50  # <= this selectivity: gather eligible rows into a dense device sub-corpus (scan cost O(sel*N); dense rows also dodge the masked approx_min_k selection hazard, ops/topk.py)
+    plan_gather_budget_bytes: int = 2 << 30  # total HBM the plan cache may hold in gathered sub-corpora (LRU-evicted)
+    lexical: bool = False  # BM25 over insert(text=...)
+    observer: Any = None  # MetricsObserver
+    logger: Any = None  # logging.Logger (reference: WithLogger/slog, engine.go:158)
+    commit_store: Any = None  # blobstore.s3.DDBCommitStore-style CAS commit plane
+    seed: int = 42
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -67,6 +140,50 @@ class EngineOptions(jax_engine.EngineOptions):
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        # Kept for the JAX engine's signature; only its default is ported.
+        if self.stream_transport != "sq8":
+            raise not_ported(f"stream_transport={self.stream_transport!r}", 2)
+
+    def to_config(self) -> dict:
+        return {
+            "dim": self.dim,
+            "metric": self.metric.value,
+            "quantizer": self.quantizer,
+            "qparams": self.qparams,
+            "schema": self.schema.to_dict() if self.schema else None,
+            "lexical": self.lexical,
+        }
+
+    def apply_config(self, cfg: dict):
+        self.dim = cfg["dim"]
+        self.metric = Metric(cfg["metric"])
+        self.quantizer = cfg.get("quantizer", "none")
+        self.qparams = cfg.get("qparams", {})
+        if cfg.get("schema"):
+            self.schema = Schema.from_dict(cfg["schema"])
+        self.lexical = cfg.get("lexical", False)
+
+
+def _seg_blob(seg_id: int) -> str:
+    return f"segment_{seg_id:06d}.vgt"
+
+
+PK_SIDECAR = "PKCURRENT"  # {"version": N, "blob": "pk_%06d.ckpt"}
+
+
+def _id_row_map(seg, rids: np.ndarray, old_rows: np.ndarray, n_old: int) -> np.ndarray:
+    """Vectorized (old row -> new row) map for PK remapping after a segment
+    write that may permute rows: row of id rids[i] in `seg` lands at
+    row_map[old_rows[i]]; unmapped rows carry -1 (dropped)."""
+    seg_ids = np.asarray(seg.ids, np.int64)
+    rids = np.asarray(rids, np.int64)
+    order = np.argsort(seg_ids, kind="stable")
+    pos = np.searchsorted(seg_ids[order], rids)
+    new_rows = order[np.clip(pos, 0, max(len(order) - 1, 0))] if len(order) else np.zeros(0, np.int64)
+    ok = (pos < len(order)) & (seg_ids[new_rows] == rids) if len(order) else np.zeros(0, bool)
+    row_map = np.full(n_old, -1, np.int64)
+    row_map[np.asarray(old_rows)[ok]] = new_rows[ok]
+    return row_map
 
 
 _SEGMENT_CLASSES = {"flat": FlatSegment, "vamana": VamanaSegment}
@@ -99,16 +216,43 @@ def _serving_knobs(seg, options):
     return seg
 
 
-class Engine(jax_engine.Engine):
+class Engine:
     """The LSM engine on PyTorch (see module docstring)."""
 
-    def __init__(self, store, options: EngineOptions):
+    def __init__(self, store: BlobStore, options: EngineOptions):
         if not isinstance(options, EngineOptions):
             raise TypeError("vecgo_tpu_torch.Engine needs vecgo_tpu_torch EngineOptions")
         if options.lexical:
             raise not_ported("lexical (BM25) indexing", 4)
-        super().__init__(store, options)
+        self.store = store
+        self.options = options
+        self.manifests = ManifestStore(store, commit_store=options.commit_store)
+        self._lock = threading.RLock()
+        self._closed = False
+        self._lsn = 0
+        self._committed_lsn = 0  # LSN recorded by the last manifest save
+        self._next_id = 1
+        self._next_seg_id = 1
+        self._version = 0
+        self.pk = PKIndex()
         self.memtable = MemTable(options.dim, options.metric)
+        self._segments: List[SegmentHandle] = []
+        self._tombstones = TombstoneSet()
+        self._tracker = SnapshotTracker()
+        self._log = options.logger or logging.getLogger("vecgo_tpu_torch.engine")
+        # Host memtable backpressure (reference: 1 GB default engine.go:446).
+        self._mem_controller = Controller(
+            options.memory_limit_bytes, observer=options.observer
+        )
+        # HBM residency budget: over-budget segments stream (beyond-HBM tier).
+        self._device_budget = (
+            DeviceBudget(options.hbm_budget_bytes)
+            if options.hbm_budget_bytes > 0
+            else None
+        )
+        # (snapshot, filter) -> plan LRU: plans are snapshot-invariant, so
+        # repeated batches skip the O(N) mask/strategy rebuild (search.py).
+        self._plan_cache = search_mod.PlanCache()
 
     # ==================== open / recovery ====================
 
@@ -164,7 +308,327 @@ class Engine(jax_engine.Engine):
                       len(eng._segments), eng._lsn)
         return eng
 
+    def _gc_orphans(self, grace_s: Optional[float] = None):
+        """Delete segment blobs referenced by NO manifest version.
+
+        Age-gated: a second writer mid-commit has PUT its segment blob but not
+        yet saved the manifest — deleting young unreferenced blobs would
+        corrupt that in-flight commit (the manifest-CAS multi-writer window).
+        Blobs without a known mtime are left alone here; vacuum() reclaims
+        them explicitly.
+        """
+        if grace_s is None:
+            grace_s = self.options.orphan_gc_grace_s
+        referenced = set()
+        for v in self.manifests.list_versions():
+            m = self.manifests.load(v)
+            for s in m.segments:
+                referenced.add(s.name)
+                if s.tombstone_blob:
+                    referenced.add(s.tombstone_blob)
+            if m.pk_checkpoint:
+                referenced.add(m.pk_checkpoint)
+        mtime = getattr(self.store, "mtime", None)
+        now = time.time()
+        for name in self.store.list("segment_"):
+            if name in referenced:
+                continue
+            if grace_s > 0:
+                if mtime is None:
+                    continue
+                try:
+                    age = now - mtime(name)
+                except ErrNotFound:
+                    continue
+                if age < grace_s:
+                    continue
+            self.store.delete(name)
+
+    def _rebuild_pk(self):
+        """Vectorized PK rebuild (reference engine.go:620-712): per-segment
+        sorted blocks for single-version ids; explicit chains (with the real
+        per-row delete LSNs) for updated/tombstoned ids."""
+        self.pk = PKIndex.rebuild_from_segments(
+            [h.segment for h in self._segments], self._tombstones
+        )
+
+    # ==================== snapshots ====================
+
+    def snapshot(self) -> Snapshot:
+        with self._lock:
+            return Snapshot(
+                lsn=self._lsn,
+                version=self._version,
+                memtable=self.memtable,
+                mem_rows=len(self.memtable),
+                segments=tuple(self._segments),
+                tombstones=self._tombstones,
+            ).acquire()
+
+    # ==================== CRUD ====================
+
+    def _check_writable(self):
+        if self._closed:
+            raise ErrClosed("engine is closed")
+        if self.options.read_only:
+            raise ErrReadOnly("read-only (reader mode or time travel)")
+
+    def insert(self, vector, metadata=None, payload=None, text=None, id=None) -> int:
+        """Insert one record; returns its id (reference: Insert engine.go:833)."""
+        return self.insert_batch(
+            np.asarray(vector, np.float32)[None, :],
+            [metadata],
+            [payload],
+            [text] if text is not None else None,
+            [id] if id is not None else None,
+        )[0]
+
+    def insert_batch(
+        self,
+        vectors,
+        metadatas=None,
+        payloads=None,
+        texts=None,
+        ids=None,
+    ) -> List[int]:
+        """Atomic batch insert (reference: BatchInsert :935, WriteBatch batch.go).
+
+        This is also the bulk path (the reference's deferred mode,
+        BatchInsertDeferred :1066, is simply the only mode: L0 has no graph to
+        maintain on TPU). Auto-id batches without text/schema take a fully
+        vectorized route: one memtable slab write + one PK block — O(1) host
+        work per batch instead of per row (millions of rows/s)."""
+        self._check_writable()
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.options.dim:
+            raise ErrDimensionMismatch(
+                f"batch shape {vectors.shape}, want [*, {self.options.dim}]"
+            )
+        n = vectors.shape[0]
+        schema = self.options.schema
+        explicit_bulk_ids = None
+        if (
+            ids is not None
+            and texts is None
+            and schema is None
+            and n >= 2
+        ):
+            # Explicit ids ride the vectorized path when strictly increasing
+            # and fresh (never seen) — the common bulk-load shape. Updates or
+            # unsorted ids fall back to the per-row MVCC path.
+            cand_ids = np.asarray(ids, np.int64)
+            if (
+                len(cand_ids) == n
+                and (np.diff(cand_ids) > 0).all()
+                and not self.pk.contains_any_sorted(cand_ids)
+            ):
+                explicit_bulk_ids = cand_ids
+        bulk = (
+            (ids is None or explicit_bulk_ids is not None)
+            and texts is None
+            and schema is None
+            and n >= 2
+        )
+        row_bytes = self.options.dim * 4 + 64
+        if self.options.metric == Metric.HAMMING:
+            # Hamming vectors are 0/1-encoded (distance == squared L2 exactly).
+            if not np.isin(vectors, (0.0, 1.0)).all():
+                raise ErrInvalidVector("hamming metric requires 0/1 vectors")
+        if bulk:
+            if self.options.metric == Metric.COSINE:
+                # Cosine normalization inside insert_block materializes the
+                # slab itself; validate with the allocation-free reduction
+                # scan (np.isfinite(x).all() would materialize a full-size
+                # bool array — utils/hostmem module doc).
+                if not all_finite(vectors):
+                    raise ErrInvalidVector("batch contains NaN/Inf")
+                precopied = False
+            else:
+                # Fused copy+validate: the defensive slab copy and the
+                # finiteness check share one pass (validation reads each
+                # chunk cache-hot right after it is written). Done OUTSIDE
+                # the engine lock — the copy is the bulk path's biggest cost.
+                vectors = copy_validate(vectors)
+                precopied = True
+            self._mem_controller.acquire(n * row_bytes)
+            new_ids = None
+            with self._lock:
+                if explicit_bulk_ids is not None and self.pk.contains_any_sorted(
+                    explicit_bulk_ids
+                ):
+                    # TOCTOU guard: the pre-lock freshness gate raced with a
+                    # concurrent insert of the same ids. Bulk upsert_block
+                    # would violate the one-block-per-id PK invariant, so fall
+                    # back to the per-row MVCC path below. The recheck runs
+                    # under the SAME lock acquisition as upsert_block.
+                    bulk = False
+                else:
+                    if explicit_bulk_ids is not None:
+                        id0 = int(explicit_bulk_ids[0])
+                        self._next_id = max(
+                            self._next_id, int(explicit_bulk_ids[-1]) + 1
+                        )
+                        new_ids = explicit_bulk_ids
+                    else:
+                        id0 = self._next_id
+                        self._next_id += n
+                        new_ids = huge_arange(id0, n)
+                    lsn0 = self._lsn + 1
+                    self._lsn += n
+                    row0 = self.memtable.insert_block(
+                        vectors, id0, lsn0, metadatas, payloads,
+                        ids=new_ids, precopied=precopied,
+                    )
+                    self.pk.upsert_block(
+                        new_ids,
+                        MEMTABLE_SEG,
+                        huge_arange(row0, n),
+                        lsn0,
+                    )
+                    obs = self.options.observer
+                    if obs is not None:
+                        obs.on_insert(n)
+                        obs.on_memtable_status(
+                            len(self.memtable), self._mem_controller.used
+                        )
+            if bulk:
+                if (
+                    self.options.auto_flush
+                    and len(self.memtable) >= self.options.flush_threshold
+                ):
+                    self.commit()
+                return new_ids.tolist()
+            # Lost the race: hand the reservation back (the per-row path
+            # below takes its own) and fall through.
+            self._mem_controller.release(n * row_bytes)
+        out = []
+        self._mem_controller.acquire(n * row_bytes)
+        with self._lock:
+            for i in range(n):
+                md = metadatas[i] if metadatas is not None else None
+                if schema is not None:
+                    schema.validate(md)
+                text = texts[i] if texts is not None else None
+                if text is not None:
+                    md = dict(md or {})
+                    md["_text"] = text
+                rid = int(ids[i]) if ids is not None else self._next_id
+                self._next_id = max(self._next_id, rid + 1)
+                self._lsn += 1
+                lsn = self._lsn
+                # Upsert semantics: tombstone any currently-visible old row.
+                old = self.pk.get_entry(rid)
+                if old is not None and old[1] != DELETED:
+                    self._apply_tombstone(old[1], old[2], lsn)
+                row = self.memtable.insert(
+                    vectors[i],
+                    rid,
+                    lsn,
+                    md,
+                    payloads[i] if payloads is not None else None,
+                )
+                self.pk.upsert(rid, MEMTABLE_SEG, row, lsn)
+                out.append(rid)
+            obs = self.options.observer
+            if obs is not None:
+                obs.on_insert(n)
+                obs.on_memtable_status(
+                    len(self.memtable), self._mem_controller.used
+                )
+        if self.options.auto_flush and len(self.memtable) >= self.options.flush_threshold:
+            self.commit()
+        return out
+
+    def _apply_tombstone(self, seg_id: int, row: int, lsn: int):
+        if seg_id == MEMTABLE_SEG:
+            self.memtable.mark_deleted(row, lsn)
+        else:
+            seg = self._segment_by_id(seg_id)
+            self._tombstones = self._tombstones.with_delete(seg_id, row, lsn, seg.n)
+
+    def delete(self, id: int) -> bool:
+        """Delete by id (reference: Delete engine.go:1186)."""
+        self._check_writable()
+        with self._lock:
+            ent = self.pk.get_entry(int(id))
+            if ent is None or ent[1] == DELETED:
+                return False
+            self._lsn += 1
+            self._apply_tombstone(ent[1], ent[2], self._lsn)
+            self.pk.delete(int(id), self._lsn)
+            obs = self.options.observer
+            if obs is not None:
+                obs.on_delete(1)
+            return True
+
+    def get(self, id: int) -> Candidate:
+        """Point lookup (reference: Get engine.go:1638)."""
+        if self._closed:
+            raise ErrClosed("engine is closed")
+        obs = self.options.observer
+        with self._lock:
+            ent = self.pk.get_entry(int(id))
+            if ent is None or ent[1] == DELETED:
+                raise ErrNotFound(f"id {id}")
+            _, seg_id, row = ent
+            if seg_id == MEMTABLE_SEG:
+                mem = self.memtable
+                if obs is not None:
+                    obs.on_get(1)
+                return Candidate(
+                    id=int(id), distance=0.0, metadata=mem.doc(row),
+                    payload=mem.payload(row), vector=mem.vector(row).copy(),
+                )
+            seg = self._segment_by_id(seg_id)
+        if obs is not None:
+            obs.on_get(1)
+        return Candidate(
+            id=int(id), distance=0.0, metadata=seg.doc(row),
+            payload=seg.payload(row), vector=seg.vector(row).copy(),
+        )
+
+    def _segment_by_id(self, seg_id: int):
+        for h in self._segments:
+            if h.seg_id == seg_id:
+                return h.segment
+        raise ErrNotFound(f"segment {seg_id}")
+
+    def scan(self):
+        """Yield all visible records in id order (reference: Scan engine.go:1393)."""
+        # Capture the PK entries under the same lock as the snapshot: a
+        # concurrent flush/compaction remaps live PK entries to segments the
+        # snapshot doesn't hold, which would silently drop rows.
+        with self._lock:
+            snap = self.snapshot()
+            entries = sorted(self.pk.scan(snap.lsn))
+        try:
+            for id, seg_id, row in entries:
+                if seg_id == MEMTABLE_SEG:
+                    if row >= snap.mem_rows:
+                        continue
+                    mem = snap.memtable
+                    yield Candidate(
+                        id=id, distance=0.0, metadata=mem.doc(row),
+                        payload=mem.payload(row), vector=mem.vector(row).copy(),
+                    )
+                else:
+                    try:
+                        seg = search_mod._seg_by_id(snap, seg_id)
+                    except KeyError:
+                        continue
+                    yield Candidate(
+                        id=id, distance=0.0, metadata=seg.doc(row),
+                        payload=seg.payload(row), vector=seg.vector(row).copy(),
+                    )
+        finally:
+            snap.release()
+
     # ==================== search ====================
+
+    def search(self, q, k: int = 10, **kw) -> SearchResult:
+        """Single-query search; kw fields mirror SearchOptions."""
+        res = self.search_batch(np.asarray(q, np.float32)[None, :], k, **kw)
+        return res[0]
 
     def _search_options(self, k: int, kw: dict) -> SearchOptions:
         if self._closed:
@@ -228,7 +692,7 @@ class Engine(jax_engine.Engine):
                     c = Candidate(id=int(ids[bi, j]), distance=float(dists[bi, j]))
                     if not opts.without_data:
                         seg_id, row = locs[bi][j]
-                        src = snap.memtable if seg_id == -1 else _seg_by_id(snap, seg_id)
+                        src = snap.memtable if seg_id == -1 else search_mod._seg_by_id(snap, seg_id)
                         c.metadata = src.doc(row)
                         c.payload = src.payload(row)
                         if opts.with_vectors:
@@ -337,6 +801,44 @@ class Engine(jax_engine.Engine):
         if self.options.auto_compact:
             self.compact_if_needed()
         return self._version
+
+    def _save_manifest(self, initial: bool = False):
+        m = Manifest(
+            version=self._version,
+            lsn=self._lsn,
+            next_id=self._next_id,
+            next_seg_id=self._next_seg_id,
+            segments=[h.info for h in self._segments],
+            config=self.options.to_config(),
+        )
+        self.manifests.save(m)
+        self._committed_lsn = m.lsn
+
+    # ==================== compaction ====================
+
+    def pick_compaction(self) -> Optional[List[int]]:
+        """Delegate to the configured policy (reference: policy.Pick)."""
+        policy = self.options.compaction_policy or SizeTieredPolicy(
+            threshold=self.options.compaction_threshold
+        )
+        views = [
+            SegmentView(
+                seg_id=h.seg_id,
+                level=h.info.level,
+                rows=h.segment.n,
+                live_rows=h.segment.n - self._tombstones.count(h.seg_id),
+            )
+            for h in self._segments
+        ]
+        picked = policy.pick(views)
+        return picked if picked else None
+
+    def compact_if_needed(self) -> bool:
+        picked = self.pick_compaction()
+        if picked:
+            self.compact(picked)
+            return True
+        return False
 
     def compact(self, seg_ids: Optional[List[int]] = None) -> Optional[int]:
         """Merge segments (the JAX engine's compaction with the port's
@@ -474,3 +976,248 @@ class Engine(jax_engine.Engine):
         self._log.info("compact: %d segments -> seg %d (%s, %d rows) dur=%.3fs",
                        len(inputs), out_seg_id, kind, out_seg.n, time.time() - t0)
         return self._version
+
+    # ==================== write batch ====================
+
+    def write_batch(self) -> "WriteBatch":
+        """Atomic multi-op batch (reference: WriteBatch batch.go:31)."""
+        return WriteBatch(self)
+
+    # ==================== background loops ====================
+
+    def start_background(self):
+        """Start flush + compaction threads (reference: runFlushLoop
+        engine.go:2313, runCompactionLoop :2329; GoSafe panic trap safe.go:11)."""
+        if getattr(self, "_bg_stop", None) is not None:
+            return
+        self._bg_stop = threading.Event()
+        self._compact_signal = threading.Event()
+
+        def _safe(fn):
+            # GoSafe analogue: a crashed background loop must not kill the engine.
+            def run():
+                while not self._bg_stop.is_set():
+                    try:
+                        fn()
+                    except Exception:
+                        logging.getLogger("vecgo_tpu_torch").exception(
+                            "background task failed"
+                        )
+                        self._bg_stop.wait(1.0)
+
+            return run
+
+        def flush_loop():
+            self._bg_stop.wait(self.options.flush_interval_s)
+            if self._bg_stop.is_set():
+                return
+            obs = self.options.observer
+            if obs is not None:
+                # Queue depth = pending background work units (reference
+                # OnQueueDepth): a due flush + a due compaction.
+                depth = int(len(self.memtable) >= self.options.flush_threshold)
+                depth += int(bool(self.pick_compaction()))
+                obs.on_queue_depth(depth)
+            if len(self.memtable) >= self.options.flush_threshold:
+                self.commit()
+                self._compact_signal.set()
+
+        def compact_loop():
+            self._compact_signal.wait(self.options.flush_interval_s)
+            self._compact_signal.clear()
+            if self._bg_stop.is_set():
+                return
+            self.compact_if_needed()
+
+        self._bg_threads = [
+            threading.Thread(target=_safe(flush_loop), daemon=True, name="vecgo-flush"),
+            threading.Thread(target=_safe(compact_loop), daemon=True, name="vecgo-compact"),
+        ]
+        for t in self._bg_threads:
+            t.start()
+
+    def stop_background(self):
+        stop = getattr(self, "_bg_stop", None)
+        if stop is None:
+            return
+        stop.set()
+        getattr(self, "_compact_signal", threading.Event()).set()
+        for t in getattr(self, "_bg_threads", []):
+            t.join(timeout=10)
+        self._bg_stop = None
+
+    # ==================== vacuum / time travel ====================
+
+    def vacuum(self) -> dict:
+        """Reclaim unreferenced manifests + blobs (reference: Vacuum :1979)."""
+        self._check_writable()
+        with self._lock:
+            referenced, deleted_versions = self.manifests.vacuum(
+                self.options.retention_versions, self.options.retention_duration_s
+            )
+            # The PKCURRENT sidecar references a checkpoint blob outside any
+            # manifest; keep it if it matches a retained version.
+            if self.store.exists(PK_SIDECAR):
+                try:
+                    sc = json.loads(self.store.get(PK_SIDECAR))
+                    if sc.get("blob"):
+                        referenced.add(sc["blob"])
+                except Exception:
+                    pass
+            deleted_blobs = []
+            live = {h.info.name for h in self._segments}
+            for name in self.store.list("segment_"):
+                if name not in referenced and name not in live:
+                    self.store.delete(name)
+                    deleted_blobs.append(name)
+            for name in self.store.list("pk_"):
+                if name not in referenced:
+                    self.store.delete(name)
+            self._log.info(
+                "vacuum: deleted %d versions, %d blobs",
+                len(deleted_versions), len(deleted_blobs),
+            )
+            return {
+                "deleted_versions": deleted_versions,
+                "deleted_blobs": deleted_blobs,
+            }
+
+    def versions(self) -> List[int]:
+        return self.manifests.list_versions()
+
+    # ==================== introspection / lifecycle ====================
+
+    def stats(self) -> dict:
+        """Reference: Stats engine.go:2134, DebugInfo, SegmentInfo."""
+        with self._lock:
+            seg_rows = sum(h.segment.n for h in self._segments)
+            dead = sum(
+                self._tombstones.count(h.seg_id) for h in self._segments
+            )
+            mem_dead = self.memtable.deleted_mask(len(self.memtable))
+            dead += int(mem_dead.sum()) if mem_dead is not None else 0
+            return {
+                "version": self._version,
+                "lsn": self._lsn,
+                "next_id": self._next_id,
+                "memtable_rows": len(self.memtable),
+                "segments": [
+                    {
+                        "seg_id": h.seg_id,
+                        "kind": h.info.kind,
+                        "rows": h.segment.n,
+                        "level": h.info.level,
+                        "tombstones": self._tombstones.count(h.seg_id),
+                    }
+                    for h in self._segments
+                ],
+                "segment_rows": seg_rows,
+                "tombstoned_rows": dead,
+                "live_rows": len(self.memtable) + seg_rows - dead,
+                "pk_entries": len(self.pk),
+                "memtable_bytes": self._mem_controller.used,
+                "hbm": (
+                    self._device_budget.stats()
+                    if self._device_budget is not None
+                    else None
+                ),
+            }
+
+    def cache_stats(self) -> dict:
+        """Block-cache stats when the store is a CachingStore
+        (reference: Engine.CacheStats engine.go:2123+)."""
+        if hasattr(self.store, "cache_stats"):
+            return self.store.cache_stats()
+        return {}
+
+    def debug_info(self) -> dict:
+        """Extended introspection (reference: Engine.DebugInfo)."""
+        with self._lock:
+            info = self.stats()
+            info["manifest_versions"] = self.manifests.list_versions()
+            info["dirty_pk_ids"] = len(self.pk.dirty_sorted())
+            info["cache"] = self.cache_stats()
+            for seg in info["segments"]:
+                h = next(x for x in self._segments if x.seg_id == seg["seg_id"])
+                if hasattr(h.segment, "graph_stats"):
+                    seg["graph"] = h.segment.graph_stats()
+                seg["stats"] = h.info.stats.get("row_count")
+            return info
+
+    def close(self):
+        """Checkpoint PK and close (reference: Close engine.go:2226-2258).
+
+        The checkpoint pointer goes into a PKCURRENT sidecar, NOT an in-place
+        rewrite of the current MANIFEST: manifest versions stay immutable
+        (append-only + CAS story intact; a plain S3 overwrite would be racy).
+        """
+        if self._closed:
+            return
+        self.stop_background()
+        with self._lock:
+            if not self.options.read_only and self.manifests.exists():
+                name = f"pk_{self._version:06d}.ckpt"
+                # Bound to committed state: a checkpoint must never reference
+                # the volatile memtable or post-commit LSNs (crash model =
+                # lose everything since last Commit; reopen would otherwise
+                # resolve ids to memtable rows that no longer exist).
+                self.store.put(
+                    name, self.pk.checkpoint_bytes(max_lsn=self._committed_lsn)
+                )
+                self.store.put(
+                    PK_SIDECAR,
+                    json.dumps({"version": self._version, "blob": name}).encode(),
+                )
+            self._closed = True
+        self._log.info("close: version=%d", self._version)
+
+
+class WriteBatch:
+    """Atomic multi-op batch: queue inserts/deletes, apply under one lock
+    acquisition (reference: engine/batch.go:31, ApplyBatch:70)."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self._inserts = []  # (vector, metadata, payload, text, id)
+        self._deletes = []
+
+    def insert(self, vector, metadata=None, payload=None, text=None, id=None):
+        self._inserts.append((np.asarray(vector, np.float32), metadata, payload, text, id))
+        return self
+
+    def delete(self, id: int):
+        self._deletes.append(int(id))
+        return self
+
+    def apply(self) -> List[int]:
+        """Apply all ops atomically; returns assigned insert ids."""
+        eng = self.engine
+        eng._check_writable()
+        with eng._lock:
+            ids = []
+            if self._inserts:
+                vectors = np.stack([op[0] for op in self._inserts])
+                auto = eng.options.auto_flush
+                eng.options.auto_flush = False  # no flush mid-batch
+                try:
+                    ids = eng.insert_batch(
+                        vectors,
+                        [op[1] for op in self._inserts],
+                        [op[2] for op in self._inserts],
+                        [op[3] for op in self._inserts]
+                        if any(op[3] is not None for op in self._inserts)
+                        else None,
+                        [op[4] for op in self._inserts]
+                        if all(op[4] is not None for op in self._inserts)
+                        else None,
+                    )
+                finally:
+                    eng.options.auto_flush = auto
+            for id in self._deletes:
+                eng.delete(id)
+        if (
+            eng.options.auto_flush
+            and len(eng.memtable) >= eng.options.flush_threshold
+        ):
+            eng.commit()
+        return ids

@@ -2,9 +2,9 @@
 
 The container format is shared: `VamanaWriter` writes the same sections and
 meta as the JAX writer's clustered build, and either package opens the
-other's segments. Both classes subclass the JAX ones for their host half
-(row buffer, sections, metadata, docs and payloads); every method that
-touches the device is overridden here, and the beyond-device tiers raise.
+other's segments. The host half (row buffer, sections, metadata, docs and
+payloads) is the JAX module's; the build, the device state and the searches
+are the port's, and the beyond-device tiers raise.
 
 Serving (`search`): a segment of at least `ivf_min_n` rows carries the
 build's IVF membership, from which `device_state` encodes the SQ8-residual
@@ -19,23 +19,28 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from vecgo_tpu.errors import ErrCorrupt
-from vecgo_tpu.index import common
-from vecgo_tpu.index import vamana as jax_vamana
-from vecgo_tpu.index.flat import segment_stats
-from vecgo_tpu.index.vamana import SEGMENT_KIND
-from vecgo_tpu.model import Metric
-from vecgo_tpu.storage import container
 from vecgo_tpu_torch._roadmap import not_ported
+from vecgo_tpu_torch.errors import ErrCorrupt
+from vecgo_tpu_torch.index import common
+from vecgo_tpu_torch.index.flat import segment_stats
+from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
+from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops import beam as beam_ops
 from vecgo_tpu_torch.ops import distance as D
 from vecgo_tpu_torch.ops import ivf as ivf_ops
 from vecgo_tpu_torch.ops import topk as T
+from vecgo_tpu_torch.storage import container
+
+SEGMENT_KIND = "vamana"
+
+DEFAULT_R = 32
+DEFAULT_L_BUILD = 64
+DEFAULT_ALPHA = 1.2
 
 # Slots scored per block of the masked brute-force scan.
 _SCAN_BLOCK = 65536
@@ -50,17 +55,80 @@ def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-class VamanaWriter(jax_vamana.VamanaWriter):
+class VamanaWriter:
     """Builds an immutable vamana segment with the clustered build on
     `device` (the JAX writer's default build mode)."""
 
-    def __init__(self, dim: int, metric: Metric = Metric.L2, *, device="cpu", **kw):
-        super().__init__(dim, metric, **kw)
+    def __init__(
+        self,
+        dim: int,
+        metric: Metric = Metric.L2,
+        r: int = DEFAULT_R,
+        l_build: int = DEFAULT_L_BUILD,
+        alpha: Optional[float] = None,
+        quantizer: str = "none",
+        qparams: Optional[dict] = None,
+        seed: int = 42,
+        compress: str = "",
+        build_mode: str = "clustered",
+        build_params: Optional[dict] = None,
+        serve_ivf: bool = True,
+        ivf_capacity: int = 512,
+        ivf_min_n: int = 4096,  # below this, a graph walk beats the table
+        store_codes: bool = False,
+        device="cpu",
+    ):
+        """build_mode: only "clustered" (cluster-local KNN + RobustPrune,
+        index/build_fast.py) is ported; the JAX package's "beam" build is
+        ROADMAP.md port queue item 3. alpha=None resolves per mode as in the
+        JAX writer: 1.5 for clustered (1.2 for beam)."""
+        if build_mode not in ("clustered", "beam"):
+            raise ValueError(f"unknown build_mode {build_mode!r} (clustered|beam)")
+        self.compress = compress
+        self.dim = dim
+        self.metric = metric
+        self.r = r
+        self.l_build = l_build
+        self.build_mode = build_mode
+        self.alpha = alpha if alpha is not None else (
+            1.5 if build_mode == "clustered" else DEFAULT_ALPHA
+        )
+        self.build_params = dict(build_params or {})
+        self.serve_ivf = serve_ivf
+        self.ivf_capacity = ivf_capacity
+        self.ivf_min_n = ivf_min_n
+        # Persist the SQ8-residual coded table (`ivfq.*` sections) so remote
+        # opens can serve from block-granular ranged reads without ever
+        # downloading the vectors (reference: codes ARE the on-disk serving
+        # payload, diskann/writer.go + segment.go:503-708). Off by default:
+        # local serving re-encodes from vectors at open (cheaper than +1
+        # byte/dim/slot on every blob for stores that never go remote).
+        self.store_codes = store_codes
+        self.quantizer_kind = quantizer
+        self.qparams = dict(qparams or {})
+        self.seed = seed
+        self._rows = common.RowBuffer(dim)
+        self._preset = None
         if self.build_mode != "clustered":
             raise not_ported(f"build_mode={self.build_mode!r}", 3)
         if self.store_codes:
             raise not_ported("persisted coded tables (store_codes)", 3)
         self.device = torch.device(device)
+
+    def add(self, vector, id: int, metadata=None, payload: Optional[bytes] = None,
+            lsn: int = 0):
+        self._rows.add(vector, id, metadata, payload, lsn)
+
+    def add_batch(self, vectors, ids, metadatas=None, payloads=None, lsns=None):
+        self._rows.add_batch(vectors, ids, metadatas, payloads, lsns)
+
+    def set_preset_rows(self, cm, docs_csr, payload_csr) -> None:
+        """Compaction slab path (see FlatWriter.set_preset_rows)."""
+        self._preset = (cm, docs_csr, payload_csr)
+
+    @property
+    def row_count(self) -> int:
+        return len(self._rows)
 
     def finish(self) -> bytes:
         from vecgo_tpu_torch.index.build_fast import build_graph_clustered
@@ -106,9 +174,64 @@ class VamanaWriter(jax_vamana.VamanaWriter):
         return container.pack_container(meta, sections, compress=self.compress or None)
 
 
-class VamanaSegment(jax_vamana.VamanaSegment):
+class VamanaSegment(common.RowBlobAccess):
     """Immutable graph segment: host sections plus a lazily built device
     state (see module docstring)."""
+
+    DEFAULT_EF_SEARCH = 64
+    # Serving memory/compute knob (engine: EngineOptions.serve_compact):
+    # repack the coded table to one slot per row at open — half the HBM of
+    # the overlap build membership, ~2x the probes for equal recall.
+    serve_compact = False
+    # int16 refinement plane for pool rescoring (+2 B/dim/row HBM): the int8
+    # x̂ rescore caps recall ~2 points below the ef-pool's content
+    # (scripts/probe_coded_recall2.py: 0.977 vs 0.999 exact-rr at 200k);
+    # the plane restores the pool bound. EngineOptions.serve_refine.
+    serve_refine = True
+
+    def __init__(
+        self,
+        meta: dict,
+        sections: Dict[str, np.ndarray],
+        seg_id: int = 0,
+        lazy=None,  # storage.container.LazyContainer for deferred docs/payload
+    ):
+        if meta.get("kind") != SEGMENT_KIND:
+            raise ErrCorrupt(f"not a vamana segment: kind={meta.get('kind')!r}")
+        self.meta = meta
+        self.seg_id = seg_id
+        self.dim = int(meta["dim"])
+        self.metric = Metric(meta["metric"])
+        self.n = int(meta["count"])
+        self.medoid = int(meta["medoid"])
+        self.r = int(meta["r"])
+        self.ids: np.ndarray = sections["ids"]
+        # Deferred on cloud opens of codes-stored segments (the `vectors`
+        # property materializes with one ranged read on first touch; the
+        # serving paths below never touch it).
+        self._vectors_arr: Optional[np.ndarray] = sections.get("vectors")
+        self.rnorm2: np.ndarray = sections["rnorm2"]
+        self.lsns: np.ndarray = sections.get("lsns", np.zeros(self.n, np.int64))
+        self.graph: np.ndarray = sections["graph"]
+        # IVF-guided entries (older segments without them fall back to medoid).
+        self.entry_centroids: Optional[np.ndarray] = sections.get("entry.centroids")
+        self.entry_nodes: Optional[np.ndarray] = sections.get("entry.nodes")
+        # Blocked IVF serving table (two-stage shortlist; ops/ivf.py).
+        self.ivf_members: Optional[np.ndarray] = sections.get("ivf.members")
+        self.ivf_centroids: Optional[np.ndarray] = sections.get("ivf.centroids")
+        self.cm = ColumnarMeta.from_sections(meta["metadata"], sections)
+        self._attach_row_blobs(sections, lazy)
+        self._dev = None
+
+    @property
+    def vectors(self) -> np.ndarray:
+        """Full-precision rows. On a cloud open of a codes-stored segment this
+        is DEFERRED — first touch pulls the whole section with one ranged read
+        (resident serving, compaction, iteration); the beyond-HBM serving
+        paths (cluster_cache / rerank_host) never touch it."""
+        if self._vectors_arr is None:
+            self._vectors_arr = self._lazy.load("vectors")
+        return self._vectors_arr
 
     # ---------------- IO ----------------
 
@@ -185,7 +308,7 @@ class VamanaSegment(jax_vamana.VamanaSegment):
         cosine); mask [N] bool (host or device) filters results. Returns
         (dists [B, k], rows [B, k] int64): distances to the decoded rows
         for coded segments (callers rerank), bf16-scored for table-less
-        ones. The knobs are the JAX segment's (vecgo_tpu.index.vamana)."""
+        ones. The knobs are the JAX segment's."""
         b = q.shape[0]
         if self.n == 0:
             return (torch.full((b, k), math.inf, device=q.device),
@@ -326,3 +449,28 @@ class VamanaSegment(jax_vamana.VamanaSegment):
 
     def stream_state(self, *args, **kw):
         raise not_ported("beyond-device stream transports", 2)
+
+    # ---- host access (same contract as FlatSegment) ----
+
+    def filter_mask(self, f) -> np.ndarray:
+        return self.cm.filter_mask(f)
+
+    # payload() / doc() provided by common.RowBlobAccess (lazy-aware).
+
+    def vector(self, row: int) -> np.ndarray:
+        return self.vectors[row]
+
+    def iterate(self):
+        for row in range(self.n):
+            yield int(self.ids[row]), self.vectors[row], self.doc(row), self.payload(row)
+
+    def graph_stats(self) -> dict:
+        """Degree/connectivity stats (reference: hnsw.Stats, stats.go:10)."""
+        deg = (self.graph >= 0).sum(1)
+        return {
+            "nodes": self.n,
+            "avg_degree": float(deg.mean()) if self.n else 0.0,
+            "min_degree": int(deg.min()) if self.n else 0,
+            "max_degree": int(deg.max()) if self.n else 0,
+            "medoid": self.medoid,
+        }

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from vecgo_tpu.model import Metric
+from vecgo_tpu_torch.model import Metric
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -8,21 +8,28 @@ it launches `csrc/scan_topk.cu` (or raises); on a CPU tensor it runs
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from vecgo_tpu.model import Metric
+from vecgo_tpu_torch.model import Metric
 
 MAX_K = 256
 _METRIC_CODES = {Metric.L2: 0, Metric.DOT: 1, Metric.COSINE: 2}
 # Reference blocks hold at most this many scores ([B, block] f32, 256 MB).
 _REF_BLOCK_ELEMS = 1 << 26
-# Kernel tiling (must match csrc/scan_topk.cu).
-_TQ = _TN = 64
+# Corpus rows per tile (must match TN in csrc/scan_topk.cu).
+_TN = 64
 # Merge cost grows with splits * k candidates per query; keep it bounded.
 _MAX_MERGE_WIDTH = 8192
-_MAX_GRID_Y = 65535  # query tiles run along the grid's y dimension
+# A split scans at least this many tiles, so the bulk merges that fill its
+# lists stay a small part of its work.
+_MIN_TILES_PER_SPLIT = 32
+# The grid's last wave should be at least this full.
+_WAVE_FILL = 0.9
+# (device, bf16, d, k) -> (query tile, candidates, resident, smem bytes, blocks per SM, SMs)
+_plans: dict = {}
 
 
 def metric_code(metric) -> int:
@@ -62,7 +69,9 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     """Top-k smallest scores of each query over the rows of x.
 
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
-    otherwise); mask [N] bool/uint8 or None (False = row excluded).
+    otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
+    card each call also allocates the kernel's candidate buffers, 64 KB per
+    (64-query tile, row split).
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -83,24 +92,23 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
         return out_d, out_i
     if n == 0:
         return out_d.fill_(math.inf), out_i.fill_(-1)
-    n_tiles = -(-n // _TN)
-    q_tiles = -(-b // _TQ)
-    if q_tiles > _MAX_GRID_Y:
-        raise ValueError(f"scan_topk takes at most {_MAX_GRID_Y * _TQ} queries per call, got {b}")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = min(n_tiles, max(1, -(-4 * sms // q_tiles)), max(1, _MAX_MERGE_WIDTH // k))
-    rows_per_split = -(-n_tiles // splits) * _TN
-    splits = -(-n // rows_per_split)
+    bf16 = int(x.dtype == torch.bfloat16)
+    tq, cap, resident, smem, bps, sms = _plan(lib, q.device, bf16, d, k)
+    splits, rows_per_split = split_plan(b, n, k, tq, bps * sms)
+    slots = -(-b // tq) * splits * tq * cap  # every block's candidate buffers
+    cand_d = torch.empty(slots, dtype=torch.float32, device=q.device)
+    cand_i = torch.empty(slots, dtype=torch.int32, device=q.device)
     part_d = part_i = None
     if splits > 1:
         part_d = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
         part_i = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):  # the C launch uses the current device
         rc = lib.vecgo_scan_topk(
-            q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+            q.data_ptr(), x.data_ptr(), bf16,
             xnorm2.data_ptr() if code == 0 else None,
             mask.data_ptr() if mask is not None else None,
-            b, n, d, k, code, rows_per_split, splits,
+            b, n, d, k, code, rows_per_split, splits, resident, smem,
+            cand_d.data_ptr(), cand_i.data_ptr(),
             part_d.data_ptr() if part_d is not None else None,
             part_i.data_ptr() if part_i is not None else None,
             out_d.data_ptr(), out_i.data_ptr(),
@@ -112,6 +120,53 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
 
 
 scan_topk.launches = 0
+
+
+def _plan(lib, device, bf16: int, d: int, k: int):
+    """The kernel's launch configuration for this table, asked of the
+    library once per (device, shape): query tile, candidates per query,
+    whether the bf16 query tile stays resident, dynamic shared memory, how
+    many blocks one SM holds, and the SM count."""
+    key = (device.index, bf16, d, k)
+    if key not in _plans:
+        from vecgo_tpu_torch.kernels import _build
+
+        tq, cap, resident, smem, bps = (ctypes.c_int() for _ in range(5))
+        with torch.cuda.device(device):
+            rc = lib.vecgo_scan_topk_plan(bf16, d, k, ctypes.byref(tq), ctypes.byref(cap),
+                                          ctypes.byref(resident), ctypes.byref(smem),
+                                          ctypes.byref(bps))
+        _build.check(rc, "scan_topk plan")
+        if bps.value < 1:
+            raise RuntimeError(f"scan_topk: no block fits one SM (bf16={bf16}, d={d}, k={k})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _plans[key] = (tq.value, cap.value, resident.value, smem.value, bps.value, sms)
+    return _plans[key]
+
+
+def split_plan(b: int, n: int, k: int, tq: int, slots: int):
+    """(splits, rows_per_split) for B queries in tiles of `tq` over N rows,
+    with `slots` blocks resident on the card at once.
+
+    Query tiles alone rarely fill the card (4096 queries are 64 tiles of
+    64), so the rows are split too: the fewest splits whose grid fills its
+    last wave to `_WAVE_FILL`, between one full wave and the most splits
+    that keep `_MIN_TILES_PER_SPLIT` tiles each and the merge narrow.
+    """
+    q_tiles = -(-b // tq)
+    n_tiles = -(-n // _TN)
+    s_max = max(1, min(n_tiles // _MIN_TILES_PER_SPLIT, _MAX_MERGE_WIDTH // k))
+    s_min = min(s_max, -(-slots // q_tiles))
+    best, best_fill = s_min, 0.0
+    for s in range(s_min, min(s_max, 8 * s_min) + 1):
+        waves = q_tiles * s / slots
+        fill = waves / math.ceil(waves)
+        if fill > best_fill:
+            best, best_fill = s, fill
+        if fill >= _WAVE_FILL:
+            break
+    rows_per_split = -(-n_tiles // best) * _TN
+    return -(-n // rows_per_split), rows_per_split
 
 
 def scan_topk_reference(q, x, xnorm2, k: int, metric="l2", mask=None):

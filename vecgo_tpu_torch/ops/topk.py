@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from vecgo_tpu.model import Metric
+from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops import distance as D
 from vecgo_tpu_torch.ops.scan_topk import scan_topk
 
