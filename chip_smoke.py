@@ -28,7 +28,12 @@
    against the exact answer over the visible rows (floor 0.95), deleted ids
    absent, every live id readable, both kernels launched by the path.
    Kernel B (`coded_group_scan`) is then held against its plain version on the
-   segment's own table with the probe inversion of a real batch.
+   segment's own table with the probe inversion of a real batch, at the
+   serving profile (4 probes, kk 16) and at the segment's default knobs (20
+   probes, kk 8, qcap 96) with 80% of the slots kept; each case prints its
+   bound (probed clusters' bytes, bf16 peak) beside the all-clusters count
+   (every cluster's bytes, fp32 peak: the count the first port used) and the
+   code bytes' achieved TB/s.
 
 With --profile, the flat phase's unfiltered case and the graph phase's
 serving case also print a breakdown of one sync batch: its wall time (the
@@ -442,66 +447,113 @@ def graph_phase(st, card):
     return seg, launches
 
 
-def coded_case(seg, q_np, card):
-    """Kernel B against its plain version on the segment's own table, with
-    the probe inversion of a real 4096-query batch (4 probes, kk = 16: the
-    serving profile's shapes)."""
+# Kernel B's two cases: (name, probes, kk, share of slots kept): the serving
+# profile, and the segment's default knobs (ef 80 -> 20 probes, kk 8) under
+# an 80% filter.
+CODED_CASES = (("serving", 4, 16, 1.0), ("probes20", 20, 8, 0.8))
+
+
+def coded_inputs(t, q, rng, n_probe, kk, keep):
+    """Kernel B's arguments for a query batch q on a coded table t: the
+    probe inversion of the batch at `n_probe` probes and the default qcap;
+    `keep` < 1 masks the other slots in bn (+inf). Returns (args, qcap)."""
     from vecgo_tpu_torch.ops import ivf as ivf_ops
-    from vecgo_tpu_torch.ops.coded_group_scan import (
-        coded_group_scan, coded_group_scan_reference)
     from vecgo_tpu_torch.ops.topk import topk_smallest
 
-    dev = torch.device("cuda")
-    t = seg.device_state(dev)["ivfq"]
     k_pad, s = t.bnorm2.shape
-    n_probe, kk = 4, 16
-    q = torch.from_numpy(q_np).to(dev)
+    b = q.shape[0]
     cd = (q * q).sum(1)[:, None] + t.cnorm2[None, :] - 2.0 * (
         q.to(torch.bfloat16).float() @ t.centroids.to(torch.bfloat16).float().T)
     _, probes = topk_smallest(cd, n_probe)
-    qcap = ivf_ops.default_qcap(q.shape[0], n_probe, k_pad)
+    qcap = ivf_ops.default_qcap(b, n_probe, k_pad)
     qtab, _ = ivf_ops._invert_probes(probes, k_pad, qcap)
-    args = (q, qtab, t.codes, t.bnorm2, t.scale, t.centroids, kk)
-    d_k, i_k = coded_group_scan(*args)
-    d_r, i_r = coded_group_scan_reference(*args)
-    torch.cuda.synchronize()
-    live = qtab < q.shape[0]
-    qr = q[qtab.clamp_max(q.shape[0] - 1).long()] - t.centroids[:, None, :]  # [K, qcap, d]
+    bn = t.bnorm2
+    if keep < 1:
+        kept = torch.from_numpy(rng.random((k_pad, s)) < keep).to(q.device)
+        bn = torch.where(kept, bn, torch.inf).contiguous()
+    return (q, qtab, t.codes, bn, t.scale, t.centroids, kk), qcap
+
+
+def coded_check(name, args, out, ref):
+    """Hold kernel B's output (d, i) against its plain version's: the same
+    +inf slots, distances within CODED_REL_TOL of |q - c|^2 + max bn, and
+    ids equal except where the kernel's column scores within twice that of
+    the plain version's. Returns (max |d - plain|, tolerance, tie swaps)."""
+    q, qtab, codes, bn, scale, cent, _ = args
+    (d_k, i_k), (d_r, _) = out, ref
+    b = q.shape[0]
+    live = qtab < b
+    qr = q[qtab.clamp_max(b - 1).long()] - cent[:, None, :]  # [K, qcap, d]
     qrn = torch.where(live, (qr * qr).sum(-1), 0.0)
-    bn_max = t.bnorm2[torch.isfinite(t.bnorm2)].max()
+    bn_max = bn[torch.isfinite(bn)].max()
     # Both sides sum exact bf16 x int8 products in f32 in another order.
     tol = CODED_REL_TOL * float(qrn.max() + bn_max)
-    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), "coded: +inf slots differ")
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), f"{name}: +inf slots differ")
     fin = torch.isfinite(d_r)
     err = float((d_k - d_r).abs()[fin].max())
-    check(err <= tol, f"coded: max |d_kernel - d_plain| = {err} > {tol}")
-    bad = (i_k != i_r) & fin
+    check(err <= tol, f"{name}: max |d_kernel - d_plain| = {err} > {tol}")
+    bad = (i_k != ref[1]) & fin
     n_bad = int(bad.sum())
     if n_bad:
         c, j, _ = bad.nonzero(as_tuple=True)
         col = i_k[bad].long()
         v = qr[c, j].to(torch.bfloat16).double()
-        exact = (qrn[c, j].double() + t.bnorm2[c, col].double()
-                 - 2.0 * t.scale[c].double() * (v * t.codes[c, col].double()).sum(1))
+        exact = (qrn[c, j].double() + bn[c, col].double()
+                 - 2.0 * scale[c].double() * (v * codes[c, col].double()).sum(1))
         gap = float((exact - d_r[bad].double()).abs().max())
-        check(gap <= 2 * tol, f"coded: {n_bad} columns differ beyond ties (gap {gap})")
+        check(gap <= 2 * tol, f"{name}: {n_bad} columns differ beyond ties (gap {gap})")
+    return err, tol, n_bad
+
+
+def coded_case(seg, q_np, rng, name, n_probe, kk, keep, card):
+    """Kernel B against its plain version on the segment's own table, with
+    the probe inversion of a real 4096-query batch (`coded_inputs`)."""
+    from vecgo_tpu_torch.ops.coded_group_scan import (
+        coded_group_scan, coded_group_scan_reference)
+
+    dev = torch.device("cuda")
+    t = seg.device_state(dev)["ivfq"]
+    k_pad, s = t.bnorm2.shape
+    q = torch.from_numpy(q_np).to(dev)
+    b, d = q.shape
+    args, qcap = coded_inputs(t, q, rng, n_probe, kk, keep)
+    qtab, bn = args[1], args[3]
+    d_k, i_k = coded_group_scan(*args)
+    ref = coded_group_scan_reference(*args)
+    torch.cuda.synchronize()
+    err, tol, n_bad = coded_check(name, args, (d_k, i_k), ref)
+    live = qtab < b
     ms = cuda_ms(lambda: coded_group_scan(*args), reps=20)
     plain_ms = cuda_ms(lambda: coded_group_scan_reference(*args), reps=2)
     # Work this batch needs: each live (cluster, query) pair scores the
-    # cluster's S slots at d (fp32 FMA on the SIMT units); bytes: the codes,
-    # norms, scales, centroids, queries and probe table once, outputs once.
+    # cluster's S slots at d, bf16 x int8 products that are exact in bf16
+    # (the tensor cores' bf16 peak); bytes: the codes, norms, scale and
+    # centroid of each probed cluster once (an unprobed cluster needs none),
+    # the queries and the probe table once, the outputs once.
     n_live = int(live.sum())
-    nbytes = (t.codes.numel() + t.bnorm2.numel() * 4 + t.scale.numel() * 4
-              + t.centroids.numel() * 4 + q.numel() * 4 + qtab.numel() * 4
-              + d_k.numel() * 4 + i_k.numel() * 4)
-    bound_ms, bound_by = bound(2.0 * n_live * s * q.shape[1], nbytes, False)
-    print(f"kernel coded_group_scan: B={q.shape[0]} K={k_pad} S={s} d={q.shape[1]} "
-          f"qcap={qcap} kk={kk} probes={n_probe} ({int(live.sum())} live (cluster, query) "
-          f"pairs): kernel {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
-          f"{bound_ms / ms:.1%}, plain {plain_ms:.3f} ms, max_abs_err {err:.3g} "
-          f"(tol {tol:.3g}), tie swaps {n_bad} [{card}]", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    probed = int(live.any(1).sum())
+    code_bytes = probed * s * d
+    out_bytes = d_k.numel() * 4 + i_k.numel() * 4
+    nbytes = (code_bytes + probed * (s * 4 + 4 + d * 4) + q.numel() * 4 + qtab.numel() * 4
+              + out_bytes)
+    bound_ms, bound_by = bound(2.0 * n_live * s * d, nbytes, True)
+    # The all-clusters count, for comparison with earlier records: every
+    # cluster's codes and norms, fp32 peak.
+    old_bytes = (t.codes.numel() + bn.numel() * 4 + t.scale.numel() * 4
+                 + t.centroids.numel() * 4 + q.numel() * 4 + qtab.numel() * 4 + out_bytes)
+    old_ms, old_by = bound(2.0 * n_live * s * d, old_bytes, False)
+    per = torch.bincount(live.sum(1))
+    print(f"kernel coded_group_scan {name}: B={b} K={k_pad} S={s} d={d} qcap={qcap} kk={kk} "
+          f"probes={n_probe}{f' slots kept {keep:.0%}' if keep < 1 else ''} ({n_live} live "
+          f"(cluster, query) pairs over {probed} probed clusters, at most "
+          f"{per.shape[0] - 1} a cluster): kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}), share {bound_ms / ms:.1%}; all-clusters bound {old_ms:.3f} ms "
+          f"({old_by}), share {old_ms / ms:.1%}; codes read {code_bytes / 1e6:.1f} MB at "
+          f"{code_bytes / (ms * 1e-3) / 1e12:.3f} TB/s; plain {plain_ms:.3f} ms, max_abs_err "
+          f"{err:.3g} (tol {tol:.3g}), tie swaps {n_bad} [{card}]", flush=True)
+    return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_ms_all_clusters": old_ms, "code_tbps":
+            code_bytes / (ms * 1e-3) / 1e12}
 
 
 def main() -> int:
@@ -541,7 +593,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     st = engine_phase(args, card)
     seg, graph_launches = graph_phase(st, card)
-    coded = coded_case(seg, st["queries"][1], card)
+    coded = [coded_case(seg, st["queries"][1], rng, *case, card) for case in CODED_CASES]
     st["db"].close()
 
     print(json.dumps({"kernels": [{
@@ -566,13 +618,16 @@ def main() -> int:
         "source": "vecgo_tpu_torch/csrc/coded_group_scan.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:247",
         "launches": graph_launches["coded_group_scan"],
-        "max_abs_err": coded["err"],
-        "ms": coded["ms"],
-        "plain_ms": coded["plain_ms"],
-        "bound_ms": coded["bound_ms"],
-        "bound_by": coded["bound_by"],
-        "share": coded["bound_ms"] / coded["ms"],
+        "max_abs_err": max(c["err"] for c in coded),
+        "ms": coded[0]["ms"],
+        "plain_ms": coded[0]["plain_ms"],
+        "bound_ms": coded[0]["bound_ms"],
+        "bound_by": coded[0]["bound_by"],
+        "share": coded[0]["bound_ms"] / coded[0]["ms"],
         "library_ms": None,
+        "cases": {c["name"]: {k: c[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                 "bound_ms_all_clusters", "code_tbps")}
+                  for c in coded},
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -113,26 +113,33 @@ def test_reference_matches_pallas_interpret(coded, kk, qcap, masked):
         assert np.isfinite(bn[np.arange(k_pad)[:, None, None], np.maximum(i_p, 0)][i_p >= 0]).all()
 
 
-@pytest.mark.parametrize("qcap,masked", [(24, False), (24, True), (4, False)])
-def test_ivf_scan_matches_xla_scan(coded, qcap, masked):
+@pytest.mark.parametrize("qcap,masked,n_probe", [(24, False, 4), (24, True, 4), (4, False, 4),
+                                                 (0, True, 20)])
+def test_ivf_scan_matches_xla_scan(coded, qcap, masked, n_probe):
     """The port's ivf_scan (probe selection, inversion, kernel B's plain
     version, scatter) returns the JAX package's XLA candidate sets, with
-    dump rows (qcap overflow) and masks."""
+    dump rows (qcap overflow) and masks; the last case is the segment's
+    default knobs (20 probes, default qcap)."""
     x, jt, tt, q, _ = coded
     mask = None
     if masked:
         mask = np.zeros(len(x), bool)
         mask[::2] = True
     jm = None if mask is None else jivf.slot_mask_from_rows(jt, jnp.asarray(mask))
-    d_j, r_j = jivf.ivf_scan(jnp.asarray(q), jt, n_probe=4, kk=8, qcap=qcap, group=4,
+    d_j, r_j = jivf.ivf_scan(jnp.asarray(q), jt, n_probe=n_probe, kk=8, qcap=qcap, group=4,
                              mask_flat=jm)
     tm = None if mask is None else tivf.slot_mask_from_rows(tt, torch.from_numpy(mask))
-    d_t, r_t = tivf.ivf_scan(torch.from_numpy(q), tt, n_probe=4, kk=8, qcap=qcap, mask_flat=tm)
+    d_t, r_t = tivf.ivf_scan(torch.from_numpy(q), tt, n_probe=n_probe, kk=8, qcap=qcap,
+                             mask_flat=tm)
     d_j, r_j, d_t, r_t = map(np.asarray, (d_j, r_j, d_t, r_t))
     for b in range(len(q)):
-        want = {(int(r), round(float(d), 3)) for r, d in zip(r_j[b], d_j[b]) if r >= 0}
-        got = {(int(r), round(float(d), 3)) for r, d in zip(r_t[b], d_t[b]) if r >= 0}
-        assert want == got, (b, want ^ got)
+        # The same (row, distance) pairs; distances within 1e-4 (f32 sums of
+        # the same products in another order; rows held twice by overlap
+        # memberships come once per cluster).
+        want = sorted((int(r), float(d)) for r, d in zip(r_j[b], d_j[b]) if r >= 0)
+        got = sorted((int(r), float(d)) for r, d in zip(r_t[b], d_t[b]) if r >= 0)
+        assert [r for r, _ in want] == [r for r, _ in got], (b, want, got)
+        assert max((abs(a - c) for (_, a), (_, c) in zip(want, got)), default=0.0) <= 1e-4
     if masked:
         assert (r_t[r_t >= 0] % 2 == 0).all()
 

@@ -353,6 +353,102 @@ def test_coded_kernel_matches_plain_version(cuda, b, k, s, d, qcap, kk, n_probe,
     assert not torch.isfinite(d_k[-2:]).any()  # clusters no query probes
 
 
+def _coded_case(cuda, case):
+    """Inputs for the redesign's edge cases: (args, kk, expected live pairs
+    of cluster 0 or None)."""
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+
+    if case.startswith("skew"):
+        # Cluster 0 probed by n queries: past the old 8-slot tiles, the m16
+        # query tiles, and (n >= 64) the 64-slot query groups; 180 > qcap.
+        n, qcap = int(case[4:]), 150
+        b, k, s, d, kk = 200, 12, 300, 128, 16
+    elif case == "kk_eq_s":
+        n, qcap, b, k, s, d, kk = 0, 40, 120, 10, 32, 64, 32
+    elif case == "masked_stages":
+        n, qcap, b, k, s, d, kk = 20, 32, 100, 6, 1024, 128, 16
+    elif case.startswith("d"):
+        d = int(case[1:])
+        n, qcap, b, k, s, kk = 20, 64, 150, 8, 200, 8
+    elif case in ("s37", "unaligned"):  # off the bulk-copy path: S % 4, misaligned tensors
+        n, qcap, b, k, s, d, kk = 20, 32, 100, 6, 37 if case == "s37" else 200, 32, 16
+    else:  # 20 probes, qcap 96, 80% of the slots kept
+        n, qcap, b, k, s, d, kk = 0, 96, 1024, 256, 512, 128, 8
+    r = np.random.default_rng(sum(map(ord, case)))
+    n_probe = 20 if case == "probes20" else 2
+    probes = np.stack([r.choice(np.arange(1, k), n_probe, replace=False) for _ in range(b)])
+    probes[:n, 0] = 0
+    q = torch.from_numpy(r.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    cent = torch.from_numpy(r.standard_normal((k, d)).astype(np.float32)).to(cuda)
+    codes = torch.from_numpy(r.integers(-127, 128, (k, s, d)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy((0.005 + 0.01 * r.random(k)).astype(np.float32)).to(cuda)
+    bn = torch.from_numpy((r.random((k, s)) * 4 * d * 0.01).astype(np.float32)).to(cuda)
+    if case == "masked_stages":
+        # Cluster 0 masked over whole 64-row units (rows 0-191, 320-767), not all.
+        bn[0, :192] = float("inf")
+        bn[0, 320:768] = float("inf")
+    if case == "probes20":
+        bn[torch.from_numpy(r.random((k, s)) >= 0.8).to(cuda)] = float("inf")
+    if case == "unaligned":  # views one element into larger buffers
+        cbuf = torch.empty(codes.numel() + 1, dtype=torch.int8, device=cuda)
+        cbuf[1:] = codes.reshape(-1)
+        codes = cbuf[1:].view(k, s, d)
+        bbuf = torch.empty(bn.numel() + 1, dtype=torch.float32, device=cuda)
+        bbuf[1:] = bn.reshape(-1)
+        bn = bbuf[1:].view(k, s)
+        assert codes.data_ptr() % 16 and bn.data_ptr() % 16
+    qtab, _ = ivf_ops._invert_probes(torch.from_numpy(probes).to(cuda), k, qcap)
+    return (q, qtab, codes, bn, scale, cent), kk, min(n, qcap) if n else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skew9", "skew17", "skew33", "skew64", "skew150", "skew180",
+                                  "kk_eq_s", "masked_stages", "d100", "d2048", "probes20",
+                                  "s37", "unaligned"])
+def test_coded_kernel_redesign_edges(cuda, case):
+    """Shapes where the redesigned kernel changes course: query tiles and
+    query groups of one heavily probed cluster, kk = S, whole masked units,
+    d off the 16-byte copies and at the 2048 limit, 20 probes at qcap 96,
+    and the element-load path (S not a multiple of 4, misaligned tensors)."""
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan, coded_group_scan_reference
+
+    args, kk, hot = _coded_case(cuda, case)
+    d_k, i_k = coded_group_scan(*args, kk)
+    d_r, i_r = coded_group_scan_reference(*args, kk)
+    torch.cuda.synchronize()
+    _check_coded(args, d_k, i_k, d_r, i_r)
+    if hot is not None:
+        assert int((args[1][0] < args[0].shape[0]).sum()) == hot
+        assert bool(torch.isfinite(d_k[0, :hot]).all())
+    if case == "masked_stages":
+        live = args[1][0] < args[0].shape[0]
+        cols = i_k[0][live]
+        assert bool((((cols >= 192) & (cols < 320)) | (cols >= 768)).all())
+
+
+@pytest.mark.cuda
+def test_ivf_scan_on_card_makes_no_host_sync(cuda):
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+
+    r = np.random.default_rng(9)
+    x = r.standard_normal((4000, 32)).astype(np.float32)
+    members = np.full((16, 512), -1, np.int32)
+    members[np.arange(4000) % 16, np.arange(4000) // 16] = np.arange(4000)
+    t = ivf_ops.device_table_coded(members, torch.from_numpy(x).to(cuda))
+    q = torch.from_numpy(x[:300] + 0.01).to(cuda)
+    mflat = ivf_ops.slot_mask_from_rows(t, torch.from_numpy(r.random(4000) < 0.8).to(cuda))
+    want = ivf_ops.ivf_scan(q, t, n_probe=4, kk=8, mask_flat=mflat)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ivf_ops.ivf_scan(q, t, n_probe=4, kk=8, mask_flat=mflat)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert bool((got[1] >= 0).any(1).all())
+
+
 @pytest.mark.cuda
 def test_coded_kernel_rejects_and_never_runs_plain_version(cuda, monkeypatch):
     from vecgo_tpu_torch.ops import coded_group_scan as cgs
@@ -375,6 +471,9 @@ def test_coded_kernel_rejects_and_never_runs_plain_version(cuda, monkeypatch):
         (q, qtab, codes[:, :4].contiguous(), bn, scale, cent, 8),  # kk > S
         (q, qtab, codes, bn, scale, cent.T.contiguous().T, 8),
     ]
+    # d = 8192: a 16-query tile of bf16 residuals passes the card's shared memory.
+    wide = _coded_inputs(cuda, 16, 4, 32, 8192, 16, 2, False, 4)
+    bad.append((*wide, 8))
     for args in bad:
         with pytest.raises(ValueError):
             cgs.coded_group_scan(*args)

@@ -17,21 +17,57 @@
 //
 // The TPU kernel walked cluster groups in grid order and needed the probing
 // queries materialised as [K, qcap, d] by an XLA gather. Here block
-// (cluster c, tile t) reads its own query ids from the inverted table
-// qtab [K, qcap] (query index, or B for an empty slot) and gathers the
-// queries itself; a tile with no real query exits after writing (+inf, -1).
+// (cluster c, query group g) reads its slots of the inverted table qtab
+// [K, qcap] (query index, or B for an empty slot), compacts the live query
+// ids and gathers and centres those queries itself. A group with no live
+// query writes (+inf, -1) and exits before it reads a code byte.
 //
-// What bounds it on the H100: at the main shapes (B = 4096, d = 128,
-// K ~ 3,000 clusters of S = 1024, 4 probes) a batch reads ~0.4 GB of codes
-// and does ~4.3 GFLOP, so the codes' bytes bound it (~0.12 ms at 3.35 TB/s);
-// the arithmetic is small (about 5 queries probe a cluster). The design
-// reads each cluster's codes once per 8-query tile, 4 bytes a thread,
-// coalesced, into shared memory (rows padded to an odd word count so that
-// the 64 row-owning lanes hit distinct banks), scores them on the SIMT f32
-// units, and keeps one warp per query whose kk <= 32 list lives in
-// registers, one entry per lane: a candidate is tested against the list's
-// last entry, and an insertion is one ballot plus one shuffle. 16-byte loads,
-// TMA and tensor cores are later steps.
+// What bounds it on the H100: the codes' bytes, each probed cluster's S x d
+// codes read once. At the serving shape (B = 4096, d = 128, K = 3,008
+// clusters of S = 1,024, 4 probes, kk 16) that is ~0.38 GB (0.12 ms at
+// 3.35 TB/s) against ~3.2 GFLOP of bf16 products (3 us at the tensor cores'
+// peak); at the segment's default knobs (20 probes, qcap 96, kk 8) the bytes
+// are about the same (~0.39 GB) and the products ~7.3 GFLOP. Measured, the
+// SMs' instruction throughput holds it back rather than memory: converting every
+// code byte to bf16 (2.75 instructions a byte) and the per-query selection
+// chains (PERF.md). The design, against each part:
+//
+// * One read of a cluster for all its queries. A block holds up to QG = 64
+//   query slots (fewer only for d > 704, where 64 bf16 query rows would not
+//   fit the query tile's budget, and never more than qcap rounded up to 16),
+//   so a cluster probed by up to 64 queries is read once a batch; one with
+//   more is read once per group of 64 (one block per group, adjacent).
+// * An asynchronous copy ring. The cluster's codes stream through STAGES = 3
+//   shared-memory stages of RT = 64 rows x TD = 128 bytes. One warp starts
+//   each unit as TMA bulk copies (`cp.async.bulk`, one copy of 8 KB when rows
+//   are 128 bytes, else one per row) onto the stage's mbarrier, with the
+//   tile's bn beside it, so two units are in flight while one is scored and
+//   no other thread spends an instruction on the copies. A d that is not a
+//   multiple of 16, an S that is not a multiple of 4, or a misaligned codes
+//   or bn pointer takes plain element loads into the same layout.
+// * The product on the tensor cores. `mma.sync` m16n8k16 bf16 x bf16 -> f32:
+//   A is the block's bf16 query residuals, built once per (cluster, query)
+//   into shared memory; B is the staged codes. Each warp owns 8 code rows
+//   of a unit and every query tile (16 queries), so each code byte is
+//   converted to bf16 once per block (a byte permute plus a magic-number
+//   subtraction, exact) and reused for every query. A lane reads 16
+//   consecutive code bytes of its row and feeds them to four k16 steps; the
+//   query residuals are stored in the matching permuted depth order, which
+//   leaves the dot product unchanged. The unit loop is specialised for 1-4
+//   query tiles. `wgmma` would multiply mostly padding here: a cluster has
+//   about 5-30 live queries.
+// * Selection in the epilogue. Each thread forms its scores from the
+//   accumulator fragments and tests them against its query's kk-th score
+//   (a bar in shared memory); only survivors are written to shared memory,
+//   with a 64-bit survivor mask per query. Then one warp per query folds
+//   the survivors of each 32-row half into the query's sorted 32-entry list
+//   (in registers for the whole scan when a block has at most 8 queries,
+//   else in shared memory between units): a half with few survivors inserts
+//   them one at a time (ballot + shuffle), a half with many (the list's
+//   fill) is bitonic-sorted in registers and merged in one bitonic step.
+// * One launch. Blocks run in cluster order, so a heavy cluster that starts
+//   late can leave the card idle behind it (PERF.md); ordering the clusters
+//   heaviest first would take more launches on a host-bound batch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,12 +76,46 @@
 
 namespace {
 
-constexpr int QT = 8;              // query slots per block, one warp each
-constexpr int THREADS = QT * 32;   // 256
-constexpr int ROWS = 64;           // code rows per staged chunk
-constexpr int GROUPS = THREADS / ROWS;  // query groups in the scoring pass
+constexpr int THREADS = 256;    // 8 warps
+constexpr int NWARPS = THREADS / 32;
+constexpr int RT = 64;          // code rows per unit: one n8 tile per warp
+constexpr int TD = 128;         // code bytes (depth) per unit
+constexpr int STAGES = 3;       // ring depth
+constexpr int QG_MAX = 64;      // query slots per block
+constexpr int QS_BUDGET = 96 * 1024;  // shared bytes for the bf16 query tile
+constexpr int BARS = (STAGES * 8 + 15) / 16 * 16;  // mbarrier bytes, 16-byte aligned
+constexpr int SORT_MIN = 8;     // survivors in a half above which it is sorted
 constexpr float BIG = 3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The launch layout of a (d, qcap, kk): depth padded to 64, the bf16 query
+// row (padded by 8 so ldmatrix rows hit distinct banks), query slots per
+// block, and the block's dynamic shared memory. The wrapper asks for it
+// (vecgo_coded_group_scan_layout) to check its limits.
+struct Layout {
+  int dp, qs, qg;
+  size_t smem;
+};
+
+__host__ __device__ inline Layout layout(int d, int qcap, int kk) {
+  Layout L;
+  L.dp = (d + 63) / 64 * 64;
+  L.qs = L.dp + 8;
+  int qg = qcap > 16 ? (qcap + 15) / 16 * 16 : 16;
+  qg = qg < QG_MAX ? qg : QG_MAX;
+  while (qg > 16 && (size_t)qg * L.qs * 2 > QS_BUDGET) qg -= 16;
+  L.qg = qg;
+  L.smem = (size_t)STAGES * RT * TD            // ring: codes
+           + (size_t)STAGES * RT * 4           // ring: bn of the unit's rows
+           + BARS                              // ring: one mbarrier a stage
+           + (size_t)qg * L.qs * 2             // bf16 query residuals
+           + (size_t)qg * RT * 4               // survivor scores
+           + (size_t)qg * kk * 8               // lists (d, i)
+           + (size_t)qg * 8                    // survivor masks
+           + (size_t)qg * 4 * 4                // |qr|^2, bar, slot, query
+           + 8;                                // live-slot masks
+  return L;
+}
 
 // (da, ia) ranks before (db, ib); an empty entry holds id -1, which as an
 // unsigned value ranks after every real column among equal scores.
@@ -53,148 +123,513 @@ __device__ __forceinline__ bool better(float da, int ia, float db, int ib) {
   return da < db || (da == db && (unsigned)ia < (unsigned)ib);
 }
 
-__device__ __forceinline__ float code_at(int packed, int byte) {
-  return (float)((int)((unsigned)packed << (24 - 8 * byte)) >> 24);  // int8, sign-extended
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dp = d rounded up to a multiple of 4; ws = words per staged code row (odd).
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One TMA bulk copy global -> shared, completing on the barrier.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Byte i of a word of biased codes (int8 ^ 0x80 = code + 128) as an exact
+// f32: the byte lands in the mantissa of 2^23, and 2^23 + 128 comes off.
+__device__ __forceinline__ float code_f32(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u + i)) - 8388736.f;
+}
+
+// Four int8 codes (one word) -> the two bf16x2 B registers of one k16 step:
+// bytes 0, 1 -> b0 (low half first), bytes 2, 3 -> b1. Exact: |code| <= 128.
+__device__ __forceinline__ void codes_bf16(uint32_t w, uint32_t& b0, uint32_t& b1) {
+  const uint32_t u = w ^ 0x80808080u;
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(code_f32(u, 0), code_f32(u, 1));
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(code_f32(u, 2), code_f32(u, 3));
+  b0 = *reinterpret_cast<const uint32_t*>(&lo);
+  b1 = *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+// Where depth p of a query residual sits in its bf16 row. A lane (group g,
+// thread tg) reads code bytes 16 tg .. 16 tg + 15 of each 64-byte block;
+// word s of those feeds k16 step s as B rows k = 2 tg, 2 tg + 1 (bytes 0, 1)
+// and 2 tg + 8, 2 tg + 9 (bytes 2, 3). The A operand must hold the same
+// depth at that (step, k).
+__device__ __forceinline__ int qcol(int p) {
+  const int pp = p & 63, tg = pp >> 4, s = (pp >> 2) & 3, h = (pp >> 1) & 1, j = pp & 1;
+  return (p & ~63) + 16 * s + 8 * h + 2 * tg + j;
+}
+
+// Bitonic compare-exchange across lanes at `stride`: the lane keeps the
+// lower entry when `keep_low`.
+__device__ __forceinline__ void cx_lanes(float& d, int& i, int stride, bool keep_low) {
+  const float od = __shfl_xor_sync(FULL, d, stride);
+  const int oi = __shfl_xor_sync(FULL, i, stride);
+  if (keep_low ? better(od, oi, d, i) : better(d, i, od, oi)) {
+    d = od;
+    i = oi;
+  }
+}
+
+// Sort 32 entries, one per lane, ascending.
+__device__ __forceinline__ void sort32(float& d, int& i, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      cx_lanes(d, i, stride, ((lane & stride) == 0) == ((lane & size) == 0));
+}
+
+// Fold sorted candidates (cd, ci) into the sorted list (ld, li): the lower of
+// list[lane] and candidates[31 - lane] are the 32 best of both and form a
+// bitonic sequence, which five steps sort.
+__device__ __forceinline__ void merge32(float& ld, int& li, float cd, int ci, int lane) {
+  const float rd = __shfl_sync(FULL, cd, 31 - lane);
+  const int ri = __shfl_sync(FULL, ci, 31 - lane);
+  if (better(rd, ri, ld, li)) {
+    ld = rd;
+    li = ri;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) cx_lanes(ld, li, stride, (lane & stride) == 0);
+}
+
+// The block's shared state, carved from dynamic shared memory.
+struct Smem {
+  unsigned char* ring;  // [STAGES][RT][TD] codes
+  float* bn_s;          // [STAGES][RT] bn of each unit's rows
+  uint64_t* bars;       // [STAGES] the ring's mbarriers
+  __nv_bfloat16* qs;    // [QG][QS] bf16 query residuals, permuted depth order
+  float* sc;            // [QG][RT] survivor scores of the current unit
+  float* ls_d;          // [QG][kk] lists (when a warp serves several queries)
+  int* ls_i;
+  uint8_t* sbits;       // [QG][8] survivor masks: bit r = unit row r
+  float* qn;            // [QG] |q - c|^2
+  float* thr;           // [QG] the list's kk-th score (the epilogue's bar)
+  int* slot_of;         // [QG] the query's slot in qtab
+  int* qid_of;          // [QG] the query's index in q
+  unsigned* live_mask;  // [2] live slots of the group
+};
+
+// The copy ring. Unit u (row tile u / nch, depth chunk u % nch) lands in
+// stage u % STAGES, whose mbarrier completes its (u / STAGES)-th phase when
+// the unit is in. With TMA, warp 0 starts the unit as bulk copies: one of
+// 64 x 128 bytes when rows are 128 bytes, else one per row, plus one for the
+// tile's bn with its last chunk; rows past S are not copied (the epilogue
+// drops them) and bytes past d meet zero query residuals. Otherwise (d not a
+// multiple of 16, or unaligned tensors) every thread loads its share with
+// plain loads and thread 0 arrives on the barrier itself; those stores are
+// ordered by the block barriers between copy and use.
+struct Ring {
+  const int8_t* cbase;
+  const float* bnc;
+  unsigned char* ring;
+  float* bn_s;
+  uint32_t bars;
+  int S, d, nch, units;
+  bool tma;
+  int u = 0, r0 = 0, ch = 0;  // the next unit to copy
+
+  __device__ Ring(const Smem& sm, const int8_t* cb, const float* bb, int S_, int d_, int DP,
+                  bool tma_)
+      : cbase(cb), bnc(bb), ring(sm.ring), bn_s(sm.bn_s), bars(smem_u32(sm.bars)), S(S_),
+        d(d_), nch((DP + TD - 1) / TD), units((S_ + RT - 1) / RT * ((DP + TD - 1) / TD)),
+        tma(tma_) {}
+
+  __device__ __forceinline__ void copy_next() {
+    const int tid = threadIdx.x, lane = tid & 31;
+    if (u < units) {
+      const int stage = u % STAGES, d0 = ch * TD;
+      const int rows = min(RT, S - r0), w = min(TD, d - d0);
+      const bool last = ch == nch - 1;
+      const uint32_t bar = bars + stage * 8;
+      unsigned char* st = ring + stage * RT * TD;
+      if (tma) {
+        if (tid < 32) {
+          if (lane == 0) mbar_expect_tx(bar, rows * w + (last ? rows * 4 : 0));
+          __syncwarp();
+          if (d == TD) {
+            if (lane == 0) bulk_copy(smem_u32(st), cbase + (size_t)r0 * d, rows * d, bar);
+          } else {
+            for (int r = lane; r < rows; r += 32)
+              bulk_copy(smem_u32(st + r * TD), cbase + (size_t)(r0 + r) * d + d0, w, bar);
+          }
+          if (last && lane == 0) bulk_copy(smem_u32(bn_s + stage * RT), bnc + r0, rows * 4, bar);
+        }
+      } else {
+        for (int e = tid; e < RT * TD / 4; e += THREADS) {
+          const int row = e / (TD / 4), col = d0 + 4 * (e % (TD / 4));
+          uint32_t v = 0;
+          if (row < rows)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              if (col + b < d) v |= (uint32_t)(uint8_t)cbase[(size_t)(r0 + row) * d + col + b] << (8 * b);
+          *reinterpret_cast<uint32_t*>(st + 4 * e) = v;
+        }
+        if (last && tid < RT) bn_s[stage * RT + tid] = tid < rows ? bnc[r0 + tid] : INFINITY;
+        if (tid == 0) mbar_arrive(bar);
+      }
+    }
+    ++u;
+    if (++ch == nch) {
+      ch = 0;
+      r0 += RT;
+    }
+  }
+
+  __device__ __forceinline__ void wait(int unit) const {
+    mbar_wait(bars + (unit % STAGES) * 8, (unit / STAGES) & 1);
+  }
+};
+
+// Fold query m's survivors of one unit (mask bit r = row r0 + r) into its
+// sorted 32-entry list (ld, li) held one entry per lane; (th_d, th_i) is the
+// list's kk-th entry. A half with many survivors is bitonic-sorted and
+// merged in one step; a sparse half inserts them one at a time. Inserts are
+// tested against the bar as it stood before the half, so a candidate may
+// land past kk, which leaves the first kk entries exact.
+__device__ __forceinline__ void fold(float& ld, int& li, float& th_d, int& th_i,
+                                     unsigned long long mask, const float* scm, int r0,
+                                     int kk, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    unsigned hm = (unsigned)(mask >> (32 * half));
+    if (!hm) continue;
+    const int base = 32 * half;
+    if (__popc(hm) > SORT_MIN) {
+      const bool in = (hm >> lane) & 1u;
+      float cd = in ? scm[base + lane] : INFINITY;
+      int ci = in ? r0 + base + lane : -1;
+      sort32(cd, ci, lane);
+      merge32(ld, li, cd, ci, lane);
+    } else {
+      do {
+        const int r = __ffs(hm) - 1;
+        hm &= hm - 1;
+        const float cd = scm[base + r];
+        const int ci = r0 + base + r;
+        if (!better(cd, ci, th_d, th_i)) continue;  // warp-uniform
+        const int pos = __popc(__ballot_sync(FULL, better(ld, li, cd, ci)));
+        const float up_d = __shfl_up_sync(FULL, ld, 1);
+        const int up_i = __shfl_up_sync(FULL, li, 1);
+        if (lane == pos) {
+          ld = cd;
+          li = ci;
+        } else if (lane > pos) {
+          ld = up_d;
+          li = up_i;
+        }
+      } while (hm);
+    }
+    th_d = __shfl_sync(FULL, ld, kk - 1);
+    th_i = __shfl_sync(FULL, li, kk - 1);
+  }
+}
+
+// The unit loop of one block, for MT query tiles of 16. ONE: at most 8 live
+// queries, warp w < nq owns query w and keeps its list in registers for the
+// whole scan; otherwise warp w serves queries w, w + 8, ... with their
+// lists in shared memory between units.
+template <int MT, bool ONE>
+__device__ __forceinline__ void scan_units(const Smem& sm, Ring& ring, float scl, int S,
+                                           int DP, int QS, int nq, int kk, float& my_ld,
+                                           int& my_li) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int nch = ring.nch, units = ring.units;
+  // This lane's B operand: 16 bytes of code row warp * 8 + g per 64-byte block.
+  const int b_off = (warp * 8 + g) * TD + 16 * tg;
+  const uint32_t a_base = smem_u32(sm.qs + (lane & 15) * QS + ((lane >> 4) << 3));
+  float th_d = INFINITY;  // ONE: this warp's query's bar
+  int th_i = -1;
+  float acc[MT][4];
+  int ch = 0, r0 = 0;
+
+#pragma unroll 1
+  for (int u = 0; u < units; ++u) {
+    ring.wait(u);
+    __syncthreads();  // the stage read two units ago is free; lists and bars are current
+    ring.copy_next();
+    const int stage = u % STAGES, d0 = ch * TD;
+    if (ch == 0) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[t][j] = 0.f;
+    }
+
+    // The product: 64-byte blocks of this unit's depth, four k16 steps each.
+    const unsigned char* st = sm.ring + stage * RT * TD + b_off;
+    const int nb = min(TD, DP - d0) / 64;
+#pragma unroll
+    for (int b = 0; b < TD / 64; ++b) {
+      if (b < nb) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(st + 64 * b);
+        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          uint32_t b0, b1;
+          codes_bf16(words[s], b0, b1);
+          const uint32_t a_addr = a_base + (uint32_t)(d0 + 64 * b + 16 * s) * 2;
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            uint32_t a0, a1, a2, a3;
+            ldmatrix_x4(a0, a1, a2, a3, a_addr + (uint32_t)(t * 16 * QS) * 2);
+            mma_bf16(acc[t], a0, a1, a2, a3, b0, b1);
+          }
+        }
+      }
+    }
+    if (++ch < nch) continue;
+    ch = 0;
+
+    // Epilogue: c0, c1 are query 16 t + g at rows 2 tg, 2 tg + 1 of the
+    // warp's 8; c2, c3 query 16 t + g + 8. Survivors go to shared memory and
+    // set their bit (row = bit index) in the query's 64-bit mask.
+    float bnr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = warp * 8 + 2 * tg + j;
+      bnr[j] = r0 + r < S ? sm.bn_s[stage * RT + r] : INFINITY;
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int h = 0; h < (ONE ? 1 : 2); ++h) {
+        const int m = 16 * t + g + 8 * h;
+        const bool live = m < nq;
+        const float th = live ? sm.thr[m] : 0.f, qnm = live ? sm.qn[m] : 0.f;
+        unsigned bits = 0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float s = qnm + bnr[j] - 2.f * (scl * acc[t][2 * h + j]);
+          if (live && s < th && s < BIG && s > -INFINITY) {  // s < th rules out NaN
+            sm.sc[m * RT + warp * 8 + 2 * tg + j] = s;
+            bits |= 1u << (2 * tg + j);
+          }
+        }
+        bits |= __shfl_xor_sync(FULL, bits, 1);
+        bits |= __shfl_xor_sync(FULL, bits, 2);
+        if (tg == 0) sm.sbits[m * 8 + warp] = (uint8_t)bits;
+      }
+    __syncthreads();
+
+    // Selection.
+    if (ONE) {
+      if (warp < nq) {
+        const unsigned long long mask =
+            *reinterpret_cast<const unsigned long long*>(sm.sbits + warp * 8);
+        if (mask) {
+          fold(my_ld, my_li, th_d, th_i, mask, sm.sc + warp * RT, r0, kk, lane);
+          if (lane == 0) sm.thr[warp] = th_d;
+        }
+      }
+    } else {
+      for (int m = warp; m < nq; m += NWARPS) {
+        const unsigned long long mask =
+            *reinterpret_cast<const unsigned long long*>(sm.sbits + m * 8);
+        if (!mask) continue;
+        // Entries past kk are not kept between units: +inf, as if empty.
+        float ld = lane < kk ? sm.ls_d[m * kk + lane] : INFINITY;
+        int li = lane < kk ? sm.ls_i[m * kk + lane] : -1;
+        float md = __shfl_sync(FULL, ld, kk - 1);
+        int mi = __shfl_sync(FULL, li, kk - 1);
+        fold(ld, li, md, mi, mask, sm.sc + m * RT, r0, kk, lane);
+        if (lane < kk) {
+          sm.ls_d[m * kk + lane] = ld;
+          sm.ls_i[m * kk + lane] = li;
+        }
+        if (lane == 0) sm.thr[m] = md;
+      }
+    }
+    r0 += RT;
+    // The next unit's __syncthreads orders these lists and bars before the
+    // next epilogue reads them.
+  }
+}
+
+// Block b scans query group b % ngroups of cluster b / ngroups.
+// MINB: the blocks an SM should hold, which caps the registers a thread
+// may use: 4 where shared memory lets 4 blocks share an SM, else 3 (more
+// registers, no spills).
+template <int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
                   const int8_t* __restrict__ codes, const float* __restrict__ bn,
                   const float* __restrict__ scale, const float* __restrict__ cent,
-                  int B, int qcap, int S, int d, int dp, int ws, int kk,
+                  int ngroups, int B, int qcap, int S, int d, int kk, Layout lay,
                   float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                         // [QT][dp] bf16-rounded residuals
-  float* qn = qs + QT * dp;                 // [QT] |q - c|^2
-  float* sc = qn + QT;                      // [QT][ROWS] chunk scores
-  int* cs = reinterpret_cast<int*>(sc + QT * ROWS);  // [ROWS][ws] packed codes
-  __shared__ int qidx[QT];
+  const int DP = lay.dp, QS = lay.qs, QG = lay.qg;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem sm;
+  sm.ring = smem;
+  sm.bn_s = reinterpret_cast<float*>(sm.ring + STAGES * RT * TD);
+  sm.bars = reinterpret_cast<uint64_t*>(sm.bn_s + STAGES * RT);
+  sm.qs = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(sm.bars) + BARS);
+  sm.sc = reinterpret_cast<float*>(sm.qs + (size_t)QG * QS);
+  sm.ls_d = sm.sc + QG * RT;
+  sm.ls_i = reinterpret_cast<int*>(sm.ls_d + QG * kk);
+  sm.sbits = reinterpret_cast<uint8_t*>(sm.ls_i + QG * kk);
+  sm.qn = reinterpret_cast<float*>(sm.sbits + QG * 8);
+  sm.thr = sm.qn + QG;
+  sm.slot_of = reinterpret_cast<int*>(sm.thr + QG);
+  sm.qid_of = sm.slot_of + QG;
+  sm.live_mask = reinterpret_cast<unsigned*>(sm.qid_of + QG);
 
-  const int c = blockIdx.x;
-  const int slot0 = blockIdx.y * QT;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const size_t cbase = (size_t)c * S;
+  const int c = blockIdx.x / ngroups;
+  const int slot0 = (blockIdx.x % ngroups) * QG;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  if (tid < QT) {
-    const int slot = slot0 + tid;
-    const int qi = slot < qcap ? qtab[(size_t)c * qcap + slot] : B;
-    qidx[tid] = (qi >= 0 && qi < B) ? qi : -1;
+  // Compact the group's live slots, keeping slot order.
+  const int my_slot = slot0 + tid;
+  int my_q = B;
+  if (tid < QG && my_slot < qcap) my_q = qtab[(size_t)c * qcap + my_slot];
+  const bool my_live = tid < QG && my_q >= 0 && my_q < B;
+  if (warp < 2) {
+    const unsigned m = __ballot_sync(FULL, my_live);
+    if (lane == 0) sm.live_mask[warp] = m;
+  }
+  if (tid < STAGES) mbar_init(smem_u32(sm.bars + tid), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  if (my_live) {
+    const int rank = __popc(sm.live_mask[warp] & ((1u << lane) - 1)) +
+                     (warp ? __popc(sm.live_mask[0]) : 0);
+    sm.slot_of[rank] = my_slot;
+    sm.qid_of[rank] = my_q;
+  }
+  const int nq = __popc(sm.live_mask[0]) + __popc(sm.live_mask[1]);
+  // Empty slots of the group come back as (+inf, -1).
+  auto write_empty = [&]() {
+    for (int e = tid; e < QG * kk; e += THREADS) {
+      const int j = e / kk, slot = slot0 + j;
+      const bool live = (sm.live_mask[j >> 5] >> (j & 31)) & 1u;
+      if (slot < qcap && !live) {
+        const size_t o = ((size_t)c * qcap + slot) * kk + e % kk;
+        out_d[o] = INFINITY;
+        out_i[o] = -1;
+      }
+    }
+  };
+  if (nq == 0) {  // block-uniform: no code byte is read
+    write_empty();
+    return;
+  }
+
+  // The first units' copies fly while the queries are gathered.
+  const bool tma = d % 16 == 0 && S % 4 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(bn) & 15) == 0;
+  Ring ring(sm, codes + (size_t)c * S * d, bn + (size_t)c * S, S, d, DP, tma);
+#pragma unroll 1
+  for (int u = 0; u < STAGES - 1; ++u) ring.copy_next();
+  write_empty();
+  __syncthreads();  // slot_of, qid_of
+
+  // Warp w centres queries w, w + 8, ...: bf16 residuals in permuted depth
+  // order (zero past d and in the padding rows of the last query tile),
+  // |q - c|^2 in f32; bars and lists start empty.
+  const int mt = (nq + 15) >> 4;  // query tiles of 16
+  const float* cc = cent + (size_t)c * d;
+  for (int m = warp; m < mt * 16; m += NWARPS) {
+    const bool live = m < nq;
+    const float* qq = q + (size_t)(live ? sm.qid_of[m] : 0) * d;
+    float s = 0.f;
+    for (int p0 = 0; p0 < DP; p0 += 128) {  // four loads in flight per lane
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + 32 * i + lane;
+        v[i] = live && p < d ? __ldg(qq + p) - __ldg(cc + p) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + 32 * i + lane;
+        s = fmaf(v[i], v[i], s);
+        if (p < DP) sm.qs[m * QS + qcol(p)] = __float2bfloat16(v[i]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    if (live) {
+      if (lane < kk) {
+        sm.ls_d[m * kk + lane] = INFINITY;
+        sm.ls_i[m * kk + lane] = -1;
+      }
+      if (lane == 0) {
+        sm.qn[m] = s;
+        sm.thr[m] = INFINITY;
+      }
+    }
+  }
+
+  const float scl = scale[c];
+  float my_ld = INFINITY;  // the one-query-per-warp mode's list entry
+  int my_li = -1;
+  const bool one = nq <= NWARPS;
+  if (one)
+    scan_units<1, true>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 1)
+    scan_units<1, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 2)
+    scan_units<2, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 3)
+    scan_units<3, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else
+    scan_units<4, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  if (one && warp < nq && lane < kk) {  // the register lists to shared memory
+    sm.ls_d[warp * kk + lane] = my_ld;
+    sm.ls_i[warp * kk + lane] = my_li;
   }
   __syncthreads();
-  int nact = 0;
-#pragma unroll
-  for (int j = 0; j < QT; ++j) nact += qidx[j] >= 0;
 
-  const int my_q = qidx[warp];
-  float ld = INFINITY;  // this lane's list entry (lanes < kk)
-  int li = -1;
-
-  if (nact > 0) {
-    if (my_q >= 0) {
-      float s = 0.f;
-      for (int i = lane; i < dp; i += 32) {
-        const float v = i < d ? q[(size_t)my_q * d + i] - cent[(size_t)c * d + i] : 0.f;
-        s = fmaf(v, v, s);
-        qs[warp * dp + i] = __bfloat162float(__float2bfloat16(v));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-      if (lane == 0) qn[warp] = s;
-    }
-    const float scl = scale[c];
-    const int wd = dp / 4;
-    float th_d = INFINITY;  // the list's kk-th entry: the bar to beat
-    int th_i = -1;
-
-    for (int r0 = 0; r0 < S; r0 += ROWS) {
-      // Stage ROWS code rows, 4 bytes a thread, zero past d and past S.
-      for (int e = tid; e < ROWS * wd; e += THREADS) {
-        const int row = e / wd, w = e % wd;
-        int v = 0;
-        if (r0 + row < S) {
-          const int8_t* src = codes + (cbase + r0 + row) * d;
-          if ((d & 3) == 0) {
-            v = reinterpret_cast<const int*>(src)[w];
-          } else {
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-              if (4 * w + b < d) v |= (int)(uint8_t)src[4 * w + b] << (8 * b);
-          }
-        }
-        cs[row * ws + w] = v;
-      }
-      __syncthreads();
-
-      // Score: thread -> one row of the chunk for every GROUPS-th query slot.
-      {
-        const int r = tid % ROWS;
-        const bool row_ok = r0 + r < S;
-        const float bnr = row_ok ? bn[cbase + r0 + r] : INFINITY;
-        for (int j = tid / ROWS; j < QT; j += GROUPS) {
-          float s = INFINITY;
-          if (qidx[j] >= 0 && row_ok) {
-            const float4* qv = reinterpret_cast<const float4*>(qs + j * dp);
-            const int* cr = cs + r * ws;
-            float acc = 0.f;
-            for (int w = 0; w < wd; ++w) {
-              const float4 a = qv[w];
-              const int p = cr[w];
-              acc = fmaf(a.x, code_at(p, 0), acc);
-              acc = fmaf(a.y, code_at(p, 1), acc);
-              acc = fmaf(a.z, code_at(p, 2), acc);
-              acc = fmaf(a.w, code_at(p, 3), acc);
-            }
-            s = qn[j] + bnr - 2.f * (scl * acc);
-          }
-          sc[j * ROWS + r] = s;
-        }
-      }
-      __syncthreads();
-
-      // Select: warp `warp` folds the chunk into its query's list.
-      if (my_q >= 0) {
-#pragma unroll
-        for (int half = 0; half < ROWS / 32; ++half) {
-          const int r = half * 32 + lane;
-          const float s = sc[warp * ROWS + r];
-          const int col = r0 + r;
-          const bool pass = r0 + r < S && isfinite(s) && s < BIG &&
-                            better(s, col, th_d, th_i);
-          unsigned m = __ballot_sync(FULL, pass);
-          while (m) {
-            const int src = __ffs(m) - 1;
-            m &= m - 1;
-            const float cd = __shfl_sync(FULL, s, src);
-            const int ci = __shfl_sync(FULL, col, src);
-            if (!better(cd, ci, th_d, th_i)) continue;  // warp-uniform
-            const bool before = lane < kk && better(ld, li, cd, ci);
-            const int pos = __popc(__ballot_sync(FULL, before));
-            const float up_d = __shfl_up_sync(FULL, ld, 1);
-            const int up_i = __shfl_up_sync(FULL, li, 1);
-            if (lane == pos) {
-              ld = cd;
-              li = ci;
-            } else if (lane > pos) {
-              ld = up_d;
-              li = up_i;
-            }
-            th_d = __shfl_sync(FULL, ld, kk - 1);
-            th_i = __shfl_sync(FULL, li, kk - 1);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const int slot = slot0 + warp;
-  if (slot < qcap && lane < kk) {
-    const size_t o = ((size_t)c * qcap + slot) * kk + lane;
-    const bool found = li >= 0;
-    out_d[o] = found ? ld : INFINITY;
-    out_i[o] = found ? li : -1;
+  for (int e = tid; e < nq * kk; e += THREADS) {
+    const int m = e / kk, j = e % kk;
+    const int li = sm.ls_i[m * kk + j];
+    const size_t o = ((size_t)c * qcap + sm.slot_of[m]) * kk + j;
+    out_d[o] = li >= 0 ? sm.ls_d[m * kk + j] : INFINITY;
+    out_i[o] = li >= 0 ? li : -1;
   }
 }
 
@@ -202,28 +637,51 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
 
 extern "C" {
 
+// The launch layout of a (d, qcap, kk): query slots per block and dynamic
+// shared memory in bytes. Host arithmetic only.
+int vecgo_coded_group_scan_layout(int d, int qcap, int kk, int* qg, int* smem) {
+  const Layout L = layout(d, qcap, kk);
+  *qg = L.qg;
+  *smem = (int)L.smem;
+  return 0;
+}
+
+// Lets the kernel use the current device's whole opt-in shared memory; the
+// caller asks once per device. Returns a CUDA error code.
+int vecgo_coded_group_scan_prepare(void) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(coded_scan_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(coded_scan_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  return (int)e;
+}
+
 // q [B, d] f32; qtab [K, qcap] int32 (query index, B = empty slot); codes
 // [K, S, d] int8; bn [K, S] f32 (+inf = padded or masked); scale [K] f32;
 // cent [K, d] f32. Writes out_d [K, qcap, kk] f32 and out_i [K, qcap, kk]
-// int32 (in-cluster column, -1 empty). 1 <= kk <= min(32, S). Returns the
-// CUDA error code of the launch (0 on success).
+// int32 (in-cluster column, -1 empty). 1 <= kk <= min(32, S);
+// K * ceil(qcap / query slots) < 2^31; the layout's shared memory must fit
+// the device (vecgo_coded_group_scan_prepare run on it). Returns the CUDA
+// error code of the launch (0 on success).
 int vecgo_coded_group_scan(const void* q, const void* qtab, const void* codes,
                            const void* bn, const void* scale, const void* cent,
                            int B, int K, int qcap, int S, int d, int kk,
                            void* out_d, void* out_i, void* stream) {
-  const int dp = (d + 3) / 4 * 4;
-  const int ws = (dp / 4) | 1;
-  const size_t smem = (size_t)(QT * dp + QT + QT * ROWS) * sizeof(float) +
-                      (size_t)ROWS * ws * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      coded_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(K, (qcap + QT - 1) / QT);
-  coded_scan_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const Layout L = layout(d, qcap, kk);
+  const int ngroups = (qcap + L.qg - 1) / L.qg;
+  // An SM has 228 KB of shared memory, 1 KB of it reserved per block.
+  auto kernel = 4 * (L.smem + 1024) <= 228 * 1024 ? coded_scan_kernel<4> : coded_scan_kernel<3>;
+  kernel<<<(unsigned)K * ngroups, THREADS, L.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int*>(qtab),
       static_cast<const int8_t*>(codes), static_cast<const float*>(bn),
-      static_cast<const float*>(scale), static_cast<const float*>(cent), B, qcap,
-      S, d, dp, ws, kk, static_cast<float*>(out_d), static_cast<int*>(out_i));
+      static_cast<const float*>(scale), static_cast<const float*>(cent), ngroups, B, qcap, S,
+      d, kk, L, static_cast<float*>(out_d), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 

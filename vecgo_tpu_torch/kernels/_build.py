@@ -55,6 +55,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vecgo_scan_topk_plan.restype = i
     lib.vecgo_coded_group_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.vecgo_coded_group_scan.restype = i
+    lib.vecgo_coded_group_scan_layout.argtypes = [i, i, i, p, p]
+    lib.vecgo_coded_group_scan_layout.restype = i
+    lib.vecgo_coded_group_scan_prepare.argtypes = []
+    lib.vecgo_coded_group_scan_prepare.restype = i
     lib.vecgo_cuda_error_string.argtypes = [i]
     lib.vecgo_cuda_error_string.restype = ctypes.c_char_p
     return lib

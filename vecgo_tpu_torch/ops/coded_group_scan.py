@@ -9,25 +9,27 @@ it launches `csrc/coded_group_scan.cu` (or raises); on a CPU tensor it runs
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 MAX_KK = 32  # one list entry per lane of a warp
 _BIG = 3.0e38
-# Kernel layout (must match csrc/coded_group_scan.cu).
-_QT = 8
-_ROWS = 64
-_MAX_SMEM = 232_448
-_MAX_GRID_Y = 65535
+_MAX_SMEM = 232_448  # shared memory a block may opt into (sm_90)
+_MAX_GRID_X = 2**31 - 1
 # Reference blocks hold at most this many scores ([clusters, qcap, S] f32).
 _REF_BLOCK_ELEMS = 1 << 26
+# Devices on which the kernel may use the whole opt-in shared memory.
+_prepared: set = set()
 
 
-def _smem_bytes(d: int) -> int:
-    dp = -(-d // 4) * 4
-    ws = (dp // 4) | 1
-    return (_QT * dp + _QT + _QT * _ROWS) * 4 + _ROWS * ws * 4
+def _layout(lib, d: int, qcap: int, kk: int):
+    """(query slots per block, dynamic shared memory bytes) of the kernel at
+    this (d, qcap, kk), as the library computes them."""
+    qg, smem = ctypes.c_int(), ctypes.c_int()
+    lib.vecgo_coded_group_scan_layout(d, qcap, kk, ctypes.byref(qg), ctypes.byref(smem))
+    return qg.value, smem.value
 
 
 def _check(q, qtab, codes, bn, scale, cent, kk):
@@ -73,15 +75,17 @@ def coded_group_scan(q, qtab, codes, bn, scale, cent, kk: int):
     b, d = q.shape
     k, qcap = qtab.shape
     s = codes.shape[1]
-    if _smem_bytes(d) > _MAX_SMEM:
-        raise ValueError(f"coded_group_scan supports d <= 2048, got d={d}")
-    if -(-qcap // _QT) > _MAX_GRID_Y:
-        raise ValueError(f"coded_group_scan supports qcap <= {_MAX_GRID_Y * _QT}, got {qcap}")
-    if d % 4 == 0 and codes.data_ptr() % 4:
-        raise ValueError("codes must be 4-byte aligned")
     from vecgo_tpu_torch.kernels import _build
 
     lib = _build.library()
+    qg, smem = _layout(lib, d, qcap, kk)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"coded_group_scan: d={d} needs {smem} bytes of shared memory "
+                         f"(at most {_MAX_SMEM})")
+    if k * -(-qcap // qg) > _MAX_GRID_X:
+        raise ValueError(f"coded_group_scan supports K * ceil(qcap / {qg}) <= {_MAX_GRID_X}, "
+                         f"got K={k}, qcap={qcap}")
+    _prepare(lib, q.device)
     out_d = torch.empty((k, qcap, kk), dtype=torch.float32, device=q.device)
     out_i = torch.empty((k, qcap, kk), dtype=torch.int32, device=q.device)
     if k == 0 or qcap == 0:
@@ -99,6 +103,16 @@ def coded_group_scan(q, qtab, codes, bn, scale, cent, kk: int):
 
 
 coded_group_scan.launches = 0
+
+
+def _prepare(lib, device) -> None:
+    """Let the kernel use the device's opt-in shared memory, once per device."""
+    if device.index not in _prepared:
+        from vecgo_tpu_torch.kernels import _build
+
+        with torch.cuda.device(device):
+            _build.check(lib.vecgo_coded_group_scan_prepare(), "coded_group_scan prepare")
+        _prepared.add(device.index)
 
 
 def coded_group_scan_reference(q, qtab, codes, bn, scale, cent, kk: int):

@@ -155,12 +155,14 @@ def _invert_probes(probes: torch.Tensor, k_pad: int, qcap: int):
     boundary[1:] = cl_s[1:] != cl_s[:-1]
     run_start = torch.cummax(torch.where(boundary, pos_all, 0), 0).values
     pos = pos_all - run_start
-    keep = pos < qcap
-    qtab = torch.full((k_pad, qcap), b, dtype=torch.int32, device=dev)
-    qslot = torch.zeros((k_pad, qcap), dtype=torch.int32, device=dev)
-    qtab[cl_s[keep], pos[keep]] = qid_s[keep].to(torch.int32)
-    qslot[cl_s[keep], pos[keep]] = sl_s[keep].to(torch.int32)
-    return qtab, qslot
+    # Fixed shapes, no host sync: pairs past qcap land in a dump column
+    # (qcap), which is dropped.
+    col = pos.clamp_max(qcap)
+    qtab = torch.full((k_pad, qcap + 1), b, dtype=torch.int32, device=dev)
+    qslot = torch.zeros((k_pad, qcap + 1), dtype=torch.int32, device=dev)
+    qtab[cl_s, col] = qid_s.to(torch.int32)
+    qslot[cl_s, col] = sl_s.to(torch.int32)
+    return qtab[:, :qcap].contiguous(), qslot[:, :qcap].contiguous()
 
 
 def default_qcap(b: int, n_probe: int, k_pad: int) -> int:
@@ -190,14 +192,16 @@ def ivf_scan(q: torch.Tensor, table: IVFCodedTable, *, n_probe: int, kk: int,
                               table.centroids, kk)
     base = (torch.arange(k_pad, device=q.device) * s)[:, None, None]
     lrow = torch.where(lc >= 0, base + lc, -1)
-    live = qtab < b
-    qi, qs = qtab[live].long(), qslot[live].long()
-    out_d = torch.full((b, n_probe, kk), math.inf, dtype=torch.float32, device=q.device)
-    out_r = torch.full((b, n_probe, kk), -1, dtype=torch.int64, device=q.device)
-    out_d[qi, qs] = ld[live]
-    out_r[qi, qs] = lrow[live]
-    out_d = out_d.reshape(b, n_probe * kk)
-    out_r = out_r.reshape(b, n_probe * kk)
+    # Scatter every (cluster, slot) pair into [B + 1, n_probe, kk] with no
+    # host sync: empty slots all land in the extra row B, which is dropped;
+    # live (query, probe slot) pairs are unique.
+    qi = torch.where(qtab < b, qtab, b).long()
+    out_d = torch.full((b + 1, n_probe, kk), math.inf, dtype=torch.float32, device=q.device)
+    out_r = torch.full((b + 1, n_probe, kk), -1, dtype=torch.int64, device=q.device)
+    out_d[qi, qslot.long()] = ld
+    out_r[qi, qslot.long()] = lrow
+    out_d = out_d[:b].reshape(b, n_probe * kk)
+    out_r = out_r[:b].reshape(b, n_probe * kk)
     seg_rows = torch.where(out_r >= 0, table.rows.reshape(-1)[out_r.clamp_min(0)].long(), -1)
     return torch.where(seg_rows >= 0, out_d, math.inf), seg_rows
 
