@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat and graph engine paths once on one CUDA card.
+"""Drive the PyTorch port's flat, graph, quantized and streamed engine paths
+once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -11,7 +12,11 @@
    memtable chunks at pools 74 and 82, wide rows), plus k = 256; each case
    prints its time beside its bound (the larger of operations over the
    card's peak for their type and bytes over 3.35 TB/s), its share of that
-   bound, and the product alone through torch.mm (context only).
+   bound, and the product alone through torch.mm (context only). Phase 5
+   adds the same comparison on what its paths hand the kernel: a 131,072-row
+   block of each quantizer's and each stream transport's codes, decoded to
+   bf16, at that path's k (100, 20, 128) and mask, and one probed
+   partition's rows for the queries that probe it.
 3. Flat engine phase: Open -> insert_batch (1M clustered 128-d rows with
    metadata) -> commit -> 50k more rows left in the memtable -> 1,000
    deletes -> search_arrays over 4096-query batches, unfiltered and at
@@ -26,7 +31,8 @@
    and the pool rescore, at 10% selectivity (brute force over the codes) and
    at 80% (the graph with a mask), and one search_arrays_stream pass; recall@10
    against the exact answer over the visible rows (floor 0.95), deleted ids
-   absent, every live id readable, both kernels launched by the path.
+   absent, every live id readable, both kernels launched by the path, the
+   segment's device_bytes() against what building its state allocates.
    Kernel B (`coded_group_scan`) is then held against its plain version on the
    segment's own table with the probe inversion of a real batch, at the
    serving profile (4 probes, kk 16) and at the segment's default knobs (20
@@ -35,8 +41,34 @@
    (every cluster's bytes, fp32 peak: the count the first port used) and the
    code bytes' achieved TB/s.
 
-With --profile, the flat phase's unfiltered case and the graph phase's
-serving case also print a breakdown of one sync batch: its wall time (the
+5. Quantized and beyond-device phase, over the flat phase's 1M rows:
+   a. Open with quantizer="sq8" and flush_ivf_partitions=True -> insert_batch
+      with metadata -> commit (128 partitions) -> 1,000 deletes ->
+      search_arrays at refine_factor=10 unfiltered, at 10% selectivity and
+      with nprobes=16 (recall floors 0.99, 0.99, 0.90); nprobes=128 returns
+      the unprobed answer; deleted ids absent, live ids readable; the
+      device state holds the codes only (allocated bytes against
+      device_bytes()); the whole routed scan, full and probed, agrees rank
+      by rank with the plain score-matrix route.
+   b. INT4, PQ (m 16), OPQ (m 16, 3 iterations), BQ and RaBitQ at the segment
+      level (FlatWriter -> FlatSegment.open -> search with a pool of 100 ->
+      rerank): reranked recall@10 floors, train, encode and scan times, code
+      bytes per vector, and the plain score-matrix route's time beside the
+      scan_topk route's where both exist (the two pools agree rank by rank
+      and rerank to the same recall; the plain route's pool of 1,000 recovers
+      the true top 10); BQ's two Hamming scorers agree.
+   c. The flat phase's unquantized 1M-row segment reopened (time travel)
+      under a device budget below its size: flat_stream over the SQ8 and the
+      PQ transport (recall floor 0.99, ids against the resident run and,
+      where they differ, against the exact answer and a wider pool; the
+      routed stream against the plain route; nothing resident, peak device
+      memory against a block-sized bound, QPS beside the measured H2D rate
+      of a pinned copy); then the graph phase's
+      database under the same budget: graph_stream, recall floor 0.99.
+
+With --profile, the flat phase's unfiltered case, the graph phase's serving
+case, the SQ8 engine path (unfiltered and probed), both streamed
+transports and graph_stream also print a breakdown of one sync batch: its wall time (the
 median of 7 sync batches), the device's busy time in 3 batches under
 torch.profiler (the union of kernel and copy intervals), the host's share
 (wall - busy) and the largest device items.
@@ -136,9 +168,58 @@ def mm_ms(q, xs) -> float:
     return cuda_ms(run, reps=3)
 
 
-def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
-    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+def scan_case(name, q, xs, xn, k, metric, mask, card, note=""):
+    """`scan_topk` against its plain version on these tensors: the same +inf
+    slots, distances within REL_TOL of |q|^2 + |x|^2, ids equal except where
+    the kernel's row scores within twice that of the plain version's; then
+    the kernel's time beside its bound, the plain version's time and the
+    product alone. q [B, d] f32, xs [N, d] bf16 or f32, xn [N] f32 (l2)."""
+    from vecgo_tpu_torch.ops.scan_topk import metric_code, scan_topk, scan_topk_reference
 
+    code = metric_code(metric)
+    (b, d), n = q.shape, xs.shape[0]
+    args = (q, xs, xn, k, metric, mask)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    qn = (q * q).sum(1)
+    tol = REL_TOL * float(qn.max() + xn.max()) if code == 0 else REL_TOL * 4
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), f"{name}: +inf slots differ")
+    fin = torch.isfinite(d_r)
+    err = float((d_k - d_r).abs()[fin].max())
+    check(err <= tol, f"{name}: max |d_kernel - d_plain| = {err} > {tol}")
+    # Ids may differ only where the kernel picked a row whose exact score
+    # ties the plain version's within the tolerance.
+    bad = (i_k != i_r) & fin
+    if bad.any():
+        bq, bj = bad.nonzero(as_tuple=True)
+        rows = i_k[bq, bj].long()
+        qq = q[bq].to(xs.dtype).double()
+        xx = xs[rows].double()
+        dot = (qq * xx).sum(1)
+        exact = (qn[bq].double() + xn[rows].double() - 2 * dot, -dot, 1 - dot)[code]
+        gap = float((exact - d_r[bq, bj].double()).abs().max())
+        check(gap <= 2 * tol, f"{name}: {int(bad.sum())} ids differ beyond ties (gap {gap})")
+    if mask is not None:
+        check(bool(mask[i_k[fin].long()].all()), f"{name}: a masked row was returned")
+    ms = cuda_ms(lambda: scan_topk(*args), reps=5)
+    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    mm = mm_ms(q, xs)
+    nbytes = (b * d * 4 + n * d * xs.element_size() + n * 4 * (code == 0)
+              + (n if mask is not None else 0) + b * k * 8)
+    bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, xs.dtype == torch.bfloat16)
+    print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(xs.dtype)[6:]} {('l2', 'dot', 'cos')[code]}"
+          f"{note}: kernel {ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}, "
+          f"plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), tie swaps {int(bad.sum())} [{card}]",
+          flush=True)
+    return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "mm_ms": mm}
+
+
+def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
+    """`scan_case` on clustered rows made here."""
     dev = torch.device("cuda")
     centers = rng.standard_normal((N_CLUSTERS, d)).astype(np.float32)
     x = torch.from_numpy(clustered(rng, n, centers)).to(dev)
@@ -152,45 +233,32 @@ def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
     mask = None
     if mask_frac:
         mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
-    args = (q, xs, xn, k, metric, mask)
-    d_k, i_k = scan_topk(*args)
-    d_r, i_r = scan_topk_reference(*args)
-    torch.cuda.synchronize()
-    qn = (q * q).sum(1)
-    tol = REL_TOL * float(qn.max() + xn.max()) if metric == "l2" else REL_TOL * 4
-    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), f"{name}: +inf slots differ")
-    fin = torch.isfinite(d_r)
-    err = float((d_k - d_r).abs()[fin].max())
-    check(err <= tol, f"{name}: max |d_kernel - d_plain| = {err} > {tol}")
-    # Ids may differ only where the kernel picked a row whose exact score
-    # ties the plain version's within the tolerance.
-    bad = (i_k != i_r) & fin
-    if bad.any():
-        bq, bj = bad.nonzero(as_tuple=True)
-        rows = i_k[bq, bj].long()
-        qq = q[bq].to(dtype).double()
-        xx = xs[rows].double()
-        dot = (qq * xx).sum(1)
-        exact = {"l2": qn[bq].double() + xn[rows].double() - 2 * dot, "dot": -dot,
-                 "cos": 1 - dot}[metric]
-        gap = float((exact - d_r[bq, bj].double()).abs().max())
-        check(gap <= 2 * tol, f"{name}: {int(bad.sum())} ids differ beyond ties (gap {gap})")
-    if mask is not None:
-        check(bool(mask[i_k[fin].long()].all()), f"{name}: a masked row was returned")
-    ms = cuda_ms(lambda: scan_topk(*args), reps=5)
-    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
-    mm = mm_ms(q, xs)
-    nbytes = (b * d * 4 + n * d * xs.element_size() + n * 4 * (metric == "l2")
-              + (n if mask is not None else 0) + b * k * 8)
-    bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, dtype == torch.bfloat16)
-    print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(dtype)[6:]} {metric}"
-          f"{f' mask {mask_frac:.0%} out' if mask_frac else ''}: kernel {ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}, "
-          f"plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
-          f"max_abs_err {err:.3g} (tol {tol:.3g}), tie swaps {int(bad.sum())} [{card}]",
-          flush=True)
-    return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "mm_ms": mm}
+    return scan_case(name, q, xs, xn, k, metric, mask, card,
+                     f" mask {mask_frac:.0%} out" if mask_frac else "")
+
+
+def path_block_case(name, quant, metric, q, blk, k, mask, card, note=""):
+    """`scan_case` on what `ops/topk.BlockScanner` hands the kernel for one
+    block of a quantizer's codes: the transformed query batch and the block
+    decoded to its transient bf16 table, at the path's own k and mask."""
+    qp, _, kmetric = quant.scan_form(q, metric)
+    table, rn = quant.scan_table(blk)
+    return scan_case(name, qp, table.contiguous(), rn.contiguous(), k, kmetric, mask, card, note)
+
+
+def routes_agree(name, q, rn, routed, plain):
+    """Hold a whole routed scan (d, rows) against the plain score-matrix
+    route's on the same inputs. Both sum the same bf16 products in another
+    order, so the sorted distances agree at every rank within REL_TOL of
+    |q|^2 + |x^|^2 (rn: the decoded rows' norms); rows may differ only
+    there, at ties. Returns (largest gap, tolerance, rows that differ)."""
+    (d_r, i_r), (d_p, i_p) = routed, plain
+    tol = REL_TOL * float((q * q).sum(1).max() + rn.max())
+    check(torch.equal(torch.isfinite(d_r), torch.isfinite(d_p)), f"{name}: +inf slots differ")
+    fin = torch.isfinite(d_p)
+    gap = float((d_r - d_p).abs()[fin].max())
+    check(gap <= tol, f"{name}: routed and plain distances differ by {gap} > {tol}")
+    return gap, tol, int(((i_r != i_p) & fin).sum())
 
 
 def sync_qps(db, queries, kw) -> float:
@@ -264,12 +332,13 @@ def engine_phase(args, card):
     metas2 = [{"u": int(v)} for v in u2]
 
     scan_topk.launches = 0
-    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
+    backend = vg.Memory()
+    db = vg.Open(backend, vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
     t0 = time.perf_counter()
     ids1 = np.asarray(db.insert_batch(x1, metas1), np.int64)
     ingest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    db.commit()
+    flat_version = db.commit()
     commit_s = time.perf_counter() - t0
     ids2 = np.asarray(db.insert_batch(x2, metas2), np.int64)
     all_ids = np.concatenate([ids1, ids2])
@@ -334,7 +403,8 @@ def engine_phase(args, card):
           f"scan_topk launches {launches} [{card}]", flush=True)
     return {"db": db, "rng": rng, "centers": centers, "queries": queries, "x_all": x_all,
             "ids": all_ids, "u": u_all, "deleted": deleted, "launches": launches,
-            "profile": args.profile}
+            "profile": args.profile, "backend": backend, "flat_version": flat_version,
+            "x1": x1, "u1": u1, "metas1": metas1}
 
 
 def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
@@ -351,6 +421,8 @@ def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
 
 def graph_phase(st, card):
     """Compact the flat phase's database into one Vamana segment and serve it."""
+    import gc
+
     import vecgo_tpu_torch as vg
     from vecgo_tpu_torch.metadata import isin
     from vecgo_tpu_torch.index.vamana import VamanaSegment
@@ -444,6 +516,26 @@ def graph_phase(st, card):
         check(n > 0, f"the graph path launched {name}")
     print(f"graph peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches} [{card}]", flush=True)
+    # The planner admits a graph segment by device_bytes(): hold it against
+    # what the device state takes, by its tensors' sizes and by the allocator
+    # (the state is dropped and built again between two readings).
+    state = seg.device_state(dev)
+    held = sum(t.numel() * t.element_size()
+               for t in (state["graph"], *state["ivfq"]) if t is not None)
+    del state
+    seg.release_device()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    seg.device_state(dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    want = seg.device_bytes()
+    print(f"graph device state: device_bytes() {want}, its tensors {held} bytes, allocated by "
+          f"building it {grown} bytes [{card}]", flush=True)
+    check(abs(held - want) <= want // 100, f"device_bytes() {want} against {held} bytes of tensors")
+    check(abs(grown - want) <= want // 100, f"device_bytes() {want} against {grown} allocated")
+    st.update(graph_ids=all_ids, graph_deleted=deleted, graph_x=x_all)
     return seg, launches
 
 
@@ -556,11 +648,550 @@ def coded_case(seg, q_np, rng, name, n_probe, kk, keep, card):
             code_bytes / (ms * 1e-3) / 1e12}
 
 
+# The new phase times with fewer windows than the flat and graph phases.
+TIER_WINDOWS = 3
+QUANT_RECALL_FLOOR = 0.99  # SQ8 at refine_factor 10, the streamed tier
+PROBED_RECALL_FLOOR = 0.90  # 16 of 128 partitions
+# Reranked recall@10 floors with a pool of 100, on the corpus they were set
+# for (tests/test_quantization.py: 4096 x 64-d, 32 clusters, spread 0.08).
+SEGMENT_FLOORS = {"int4": 0.90, "pq": 0.90, "opq": 0.90, "bq": 0.75, "rabitq": 0.75}
+# The same pool over the 1M x 128-d corpus: a query's cluster holds ~1,000
+# near-equidistant rows there (sigma 0.35 in 128 dimensions), which 16-byte
+# and 1-bit codes cannot rank, so a pool of 100 holds few of the true top 10.
+# These are regression floors under the first measured values (PERF.md), not
+# quality targets.
+SEGMENT_FLOORS_1M = {"int4": 0.95, "pq": 0.25, "opq": 0.25, "bq": 0.35, "rabitq": 0.33}
+# What the low floors above rest on: a pool of WIDE_POOL rows by the same
+# codes (the plain score matrix; the kernel takes at most 256) recovers the
+# true top 10, over the first WIDE_QUERIES queries.
+WIDE_POOL, WIDE_QUERIES = 1000, 512
+WIDE_POOL_FLOOR = 0.95
+STREAM_BUDGET = 64 << 20  # device budget of the streamed cases (bytes)
+BLOCK_ROWS = 131072  # rows a quantized or streamed scan hands the kernel at once
+
+
+def median_qps(db, queries, kw, windows=TIER_WINDOWS):
+    w = sorted(sync_qps(db, queries, kw) for _ in range(windows))
+    return w[len(w) // 2], w[0], w[-1]
+
+
+def h2d_gbps() -> float:
+    """Rate of one pinned 256 MiB host-to-device copy (GB/s)."""
+    host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    devb = torch.empty(host.numel(), dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: devb.copy_(host, non_blocking=True), reps=5)
+    return host.numel() / (ms * 1e-3) / 1e9
+
+
+class PlainOnly:
+    """A quantizer whose blocks always take the plain score-matrix route
+    (to time that route beside the scan_topk route)."""
+
+    def __init__(self, quant):
+        self.quant = quant
+
+    def scan_form(self, q, metric):
+        return None
+
+    def score(self, q, enc, metric):
+        return self.quant.score(q, enc, metric)
+
+
+def probed_plain(seg, q, state, probes, k, mask):
+    """The plain version of a probed scan, as the JAX scorer masks it: the
+    [B, rows] score matrix of the codes with +inf wherever the row's
+    partition is none of the query's probes; top-k per 16,384-row block,
+    merged."""
+    from vecgo_tpu_torch.ops import topk as T
+
+    part = torch.from_numpy(np.asarray(seg.ivf_part)).to(q.device)
+    best_d = torch.full((q.shape[0], k), torch.inf, device=q.device)
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=q.device)
+    for s in range(0, seg.n, 16384):
+        e = min(seg.n, s + 16384)
+        sc = seg.quant.score(q, {name: t[s:e] for name, t in state.items()}, seg.metric)
+        ok = (part[s:e][None, :, None] == probes[:, None, :]).any(-1) & mask[s:e][None, :]
+        d, i = torch.topk(torch.where(ok, sc, torch.inf), k, dim=1, largest=False)
+        best_d, best_i = T.merge_topk_sorted(best_d, best_i, d, i + s, k)
+    return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
+
+
+def quantized_engine_case(st, card):
+    """5a: the SQ8 + flat IVF engine path over the flat phase's 1M rows."""
+    import gc
+
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.metadata import isin
+    from vecgo_tpu_torch.ops import topk as T
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    dev = torch.device("cuda")
+    rng, x1, u1 = st["rng"], st["x1"], st["u1"]
+    q_np = st["queries"][0]
+    q0 = torch.from_numpy(q_np).to(dev)
+    scan_topk.launches = 0
+    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62, quantizer="sq8",
+                                        flush_ivf_partitions=True), device="cuda")
+    t0 = time.perf_counter()
+    ids = np.asarray(db.insert_batch(x1, st["metas1"]), np.int64)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.commit()
+    commit_s = time.perf_counter() - t0
+    (h,) = db.engine._segments
+    seg = h.segment
+    parts = int(seg.meta["ivf"]["partitions"])
+    check(seg.quant.kind == "sq8" and parts == N // 8192, f"sq8 segment with {parts} partitions")
+    deleted = rng.choice(ids, 1000, replace=False)
+    for i in deleted:
+        check(db.delete(int(i)), f"delete {i}")
+    print(f"quantized ingest: {N} rows in {ingest_s:.3f} s; commit (k-means over {parts} "
+          f"partitions, SQ8 encode) {commit_s:.3f} s [{card}]", flush=True)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    check(seg._dev is None, "the device state is built at the first search")
+    before = torch.cuda.memory_allocated()
+    x_dev = torch.from_numpy(x1).to(dev)
+    live = ~np.isin(ids, deleted)
+    answers = {}
+    cases = (("unfiltered", dict(refine_factor=10), None, QUANT_RECALL_FLOOR),
+             ("sel10", dict(refine_factor=10, filter=isin("u", list(range(10)))), 10,
+              QUANT_RECALL_FLOOR),
+             ("nprobes16", dict(refine_factor=10, nprobes=16), None, PROBED_RECALL_FLOOR))
+    launches = {}
+    for name, kw, sel, floor in cases:
+        scan_topk.launches = 0
+        got, dist = db.search_arrays(q_np, k=K, **kw)
+        launches[name] = scan_topk.launches
+        check(got.shape == (BATCH, K) and np.isfinite(dist).all(), f"sq8 {name}: shape/finite")
+        check(not np.isin(got, deleted).any(), f"sq8 {name}: a deleted id was returned")
+        vis = live if sel is None else live & (u1 < sel)
+        recall = recall_vs_exact(got, q0, x_dev, vis, ids)
+        qps, lo, hi = median_qps(db, q_np, kw)
+        answers[name] = got
+        print(f"quantized search_arrays {name} (sq8 codes, pool {10 * K}, host rerank): "
+              f"{qps:.0f} QPS (B={BATCH}; median of {TIER_WINDOWS} windows, range {lo:.0f}-"
+              f"{hi:.0f}), recall@10 {recall:.5f} (floor {floor}), scan_topk launches a batch "
+              f"{launches[name]} [{card}]", flush=True)
+        check(recall >= floor, f"sq8 {name}: recall {recall} < {floor}")
+        check(launches[name] > 0, f"sq8 {name}: the scan went through scan_topk")
+        if st["profile"] and name != "sel10":
+            profile_batch(db, q_np, kw, f"quantized sq8 {name}", card)
+        if name == "unfiltered":
+            # The device state: codes and norms as stored, nothing decoded.
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before - x_dev.numel() * 4
+            want = seg.device_bytes()
+            state = sum(t.numel() * t.element_size() for t in seg._dev.values())
+            print(f"quantized device state: {state} bytes in {sorted(seg._dev)} "
+                  f"(device_bytes() {want}; allocated since the commit {held}; an f32 table "
+                  f"would add {N * DIM * 4}) [{card}]", flush=True)
+            check(state == want, f"device_bytes() {want} != the state's {state} bytes")
+            check(set(seg._dev) == {"codes", "rnorm2"}, "the state holds codes and norms only")
+            check(want <= held <= want + (64 << 20),
+                  f"allocated {held} bytes against device_bytes() {want}")
+    full, _ = db.search_arrays(q_np, k=K, refine_factor=10, nprobes=parts)
+    check(np.array_equal(full, answers["unfiltered"]),
+          "probing every partition returns the unprobed answer")
+
+    # The kernel at this path's shapes, on the segment's own codes: one
+    # 131,072-row block at the pool of 100 under the tombstone mask, and one
+    # probed partition's row range for the queries that probe it.
+    state = seg.device_state(dev)
+    pool = 10 * K
+    alive = torch.from_numpy(~np.isin(np.asarray(seg.ids), deleted)).to(dev)
+    kernel_cases = [path_block_case(
+        "sq8-block-k100", seg.quant, seg.metric, q0,
+        {name: t[:BLOCK_ROWS] for name, t in state.items()}, pool,
+        alive[:BLOCK_ROWS].contiguous(), card, " (the engine segment's sq8 codes, tombstones)")]
+    probes = seg._probes(q0, 16)
+    part = int(torch.bincount(probes.reshape(-1)).argmax())  # the most probed one
+    r0, r1 = (int(v) for v in seg._part_bounds[part : part + 2])
+    probing = (probes == part).any(1).nonzero().squeeze(1)
+    kernel_cases.append(path_block_case(
+        "sq8-probed-k100", seg.quant, seg.metric, q0[probing].contiguous(),
+        {name: t[r0:r1] for name, t in state.items()}, pool, alive[r0:r1].contiguous(), card,
+        f" (partition {part}, the {len(probing)} queries that probe it, tombstones)"))
+    # The whole routed scans against the plain score-matrix route: the full
+    # scan, and the probed scan (probe inversion, row ranges, merge) against
+    # the score matrix masked per query by partition, on the first 256 queries.
+    routed = seg.search(q0, pool, mask=alive)
+    plain = T.blockwise_topk_scored(q0, state, N, pool,
+                                    T.BlockScanner(PlainOnly(seg.quant), seg.metric), mask=alive)
+    gap, tol, swaps = routes_agree("sq8 full scan", q0, state["rnorm2"], routed, plain)
+    qh = q0[:256].contiguous()
+    routed_p = seg.search(qh, pool, mask=alive, nprobes=16)
+    plain_p = probed_plain(seg, qh, state, probes[:256], pool, alive)
+    gap_p, _, swaps_p = routes_agree("sq8 probed scan", qh, state["rnorm2"], routed_p, plain_p)
+    print(f"quantized routes: scan_topk route against the plain score matrix at pool {pool}: "
+          f"full scan largest rank-wise gap {gap:.3g}, {swaps} of {routed[1].numel()} rows differ "
+          f"(ties); nprobes 16 over 256 queries gap {gap_p:.3g}, {swaps_p} of "
+          f"{routed_p[1].numel()} rows differ (tol {tol:.3g}) [{card}]", flush=True)
+    del state, routed, plain, routed_p, plain_p
+    t0 = time.perf_counter()
+    for i in ids[live]:
+        db.get(int(i))
+    for i in deleted:
+        try:
+            db.get(int(i))
+        except vg.ErrNotFound:
+            continue
+        raise RuntimeError(f"check failed: deleted id {i} still readable")
+    print(f"quantized get: {int(live.sum())} live ids readable, 1000 deleted ids gone "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    db.close()
+    seg.release_device()
+    return launches, x_dev, kernel_cases
+
+
+def quantizer_floors_case(card):
+    """The quantizers trained on the card, held to the recall floors of
+    tests/test_quantization.py on that test's corpus (4096 x 64-d rows around
+    32 centres, spread 0.08; 16 queries; a pool of 100, exact rerank)."""
+    from vecgo_tpu_torch import quantization as Q
+    from vecgo_tpu_torch.index.common import enc_tensor
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk_reference
+
+    dev = torch.device("cuda")
+    n, d, b = 4096, 64, 16
+    r = np.random.default_rng(11)
+    centers = r.random((32, d), dtype=np.float32)
+    x = centers[r.integers(0, 32, size=n)] + r.standard_normal((n, d)).astype(np.float32) * 0.08
+    q = x[:b] + np.random.default_rng(12).standard_normal((b, d)).astype(np.float32) * 0.02
+    xd, qd = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    _, truth = scan_topk_reference(qd, xd, (xd * xd).sum(1), K, "l2", None)
+    out = []
+    for kind, qparams in (("sq8", {}), ("int4", {}), ("pq", {"m": 8}),
+                          ("opq", {"m": 8, "opq_iters": 3}), ("bq", {}), ("rabitq", {})):
+        quant = Q.create(kind, device=dev, dim=d, **qparams)
+        quant.train(x)
+        enc = {k: enc_tensor(v, dev) for k, v in quant.encode(x).items()}
+        scores = quant.score(qd, enc, Metric.L2)
+        pool = scores.argsort(1)[:, :100]
+        exact = ((qd[:, None, :] - xd[pool]) ** 2).sum(-1)
+        top = pool.gather(1, exact.argsort(1)[:, :K])
+        recall = float(np.mean([len(set(a) & set(t)) / K for a, t in
+                                zip(top.cpu().tolist(), truth.cpu().tolist())]))
+        floor = SEGMENT_FLOORS.get(kind, QUANT_RECALL_FLOOR)
+        out.append(f"{kind} {recall:.4f} (floor {floor})")
+        check(recall >= floor, f"{kind} trained on the card: reranked recall {recall} < {floor}")
+    print(f"quantizers trained on the card, 4096 x 64-d test corpus, pool 100, reranked "
+          f"recall@10: {'; '.join(out)} [{card}]", flush=True)
+
+
+def segment_quantizers_case(st, x_dev, card):
+    """5b: the other quantizers at the segment level over the same rows."""
+    import gc
+
+    from vecgo_tpu_torch import quantization as Q
+    from vecgo_tpu_torch.index.flat import FlatSegment, FlatWriter
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops import hamming as H
+    from vecgo_tpu_torch.ops import topk as T
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    dev = torch.device("cuda")
+    x1 = st["x1"]
+    ids = np.arange(N, dtype=np.int64)
+    q_np = st["queries"][0]
+    q0 = torch.from_numpy(q_np).to(dev)
+    every = np.ones(N, bool)
+    xn_dev = (x_dev * x_dev).sum(1)
+    launches = 0
+    cases = []
+    sample = x1[np.random.default_rng(42).choice(N, 65536, replace=False)]
+    for kind, qparams in (("int4", {}), ("pq", {"m": 16}), ("opq", {"m": 16, "opq_iters": 3}),
+                          ("bq", {}), ("rabitq", {})):
+        quant = Q.create(kind, device=dev, dim=DIM, **qparams)
+        t0 = time.perf_counter()
+        quant.train(sample)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = quant.encode(x1)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        code_bytes = sum(a.nbytes for a in enc.values()) // N
+        check(code_bytes == quant.code_bytes_per_vector(),
+              f"{kind}: {code_bytes} stored bytes a vector != code_bytes_per_vector()")
+        del enc
+        t0 = time.perf_counter()
+        w = FlatWriter(DIM, Metric.L2, quantizer=kind, qparams=qparams, device=dev)
+        w.add_batch(x1, ids)
+        seg = FlatSegment.open(w.finish())
+        write_s = time.perf_counter() - t0
+        del w
+        check(seg.quant.kind == kind and seg.n == N, f"{kind}: segment opened")
+        scan_topk.launches = 0
+        d_s, rows = seg.search(q0, 100)
+        routed = scan_topk.launches > 0
+        launches += scan_topk.launches
+        d = seg.rerank(q0, rows)
+        _, top = T.topk_smallest_with_ids(d, rows, K)
+        recall = recall_vs_exact(top.cpu().numpy(), q0, x_dev, every, ids)
+        scan_ms = cuda_ms(lambda: seg.search(q0, 100), reps=2)
+        t0 = time.perf_counter()
+        seg.rerank(q0, rows)
+        torch.cuda.synchronize()
+        rerank_ms = (time.perf_counter() - t0) * 1e3
+        state = seg.device_state(dev)
+        plain = T.BlockScanner(PlainOnly(seg.quant), Metric.L2)
+        d_p, rows_p = T.blockwise_topk_scored(q0, state, N, 100, plain)
+        plain_ms = cuda_ms(lambda: T.blockwise_topk_scored(q0, state, N, 100, plain), reps=1)
+        least_ms = sum(a.nbytes for a in seg.enc_host.values()) / HBM_BPS * 1e3
+        route = f"plain score-matrix route {scan_ms:.3f} ms (no scan_topk form)"
+        if routed:
+            # The kernel on a block of these codes, then the whole routed scan
+            # against the plain route: the same pool up to ties, so the same
+            # reranked recall.
+            cases.append(path_block_case(
+                f"{kind}-block-k100", seg.quant, Metric.L2, q0,
+                {name: t[:BLOCK_ROWS] for name, t in state.items()}, 100, None, card,
+                f" (a block of the segment's {kind} codes)"))
+            gap, tol, swaps = routes_agree(f"{kind} full scan", q0, state["rnorm2"],
+                                           (d_s, rows), (d_p, rows_p))
+            _, top_p = T.topk_smallest_with_ids(T.rerank_exact(q0, rows_p, x_dev, xn_dev, Metric.L2),
+                                                rows_p, K)
+            recall_p = recall_vs_exact(top_p.cpu().numpy(), q0, x_dev, every, ids)
+            check(abs(recall - recall_p) <= 0.002,
+                  f"{kind}: reranked recall {recall} by the scan_topk route, {recall_p} by the plain")
+            route = (f"scan_topk route {scan_ms:.3f} ms, plain score-matrix route {plain_ms:.3f} "
+                     f"ms; the routes' pools agree rank by rank within {gap:.3g} (tol {tol:.3g}, "
+                     f"{swaps} rows differ at ties), reranked recall@10 by the plain route "
+                     f"{recall_p:.5f}")
+        # The low recall of a 100-row pool on this corpus is the codes'
+        # resolution, not the scan: the plain score matrix's pool of 1,000
+        # (wider than the kernel takes) holds the true top 10.
+        qw = q0[:WIDE_QUERIES].contiguous()
+        _, rows_w = T.blockwise_topk_scored(qw, state, N, WIDE_POOL, plain)
+        _, top_w = T.topk_smallest_with_ids(T.rerank_exact(qw, rows_w, x_dev, xn_dev, Metric.L2),
+                                            rows_w, K)
+        recall_w = recall_vs_exact(top_w.cpu().numpy(), qw, x_dev, every, ids)
+        print(f"segment {kind} {qparams or ''}: {code_bytes} B/vector, train {train_s:.3f} s "
+              f"(65,536 rows), encode {encode_s:.3f} s, write+open {write_s:.3f} s; scan "
+              f"B={BATCH} pool 100: {route}; its codes once over 3.35 TB/s {least_ms:.3f} ms; "
+              f"host rerank of the pool {rerank_ms:.1f} ms; reranked recall@10 {recall:.5f} "
+              f"(regression floor {SEGMENT_FLOORS_1M[kind]}); with the plain route's pool of "
+              f"{WIDE_POOL} over {WIDE_QUERIES} queries {recall_w:.5f} (floor "
+              f"{WIDE_POOL_FLOOR}) [{card}]", flush=True)
+        check(recall >= SEGMENT_FLOORS_1M[kind], f"{kind}: reranked recall {recall}")
+        check(recall_w >= WIDE_POOL_FLOOR, f"{kind}: pool {WIDE_POOL} recall {recall_w}")
+        if kind == "bq":
+            qp = torch.from_numpy(seg.quant.encode_query(q_np[:64]).view(np.int32)).to(dev)
+            blk = state["codes"][:8192]
+            a = H.hamming_scores(qp, blk, DIM)
+            b = H.hamming_scores_popcount(qp, blk)
+            check(torch.equal(a, b), "bq: hamming_scores equals hamming_scores_popcount")
+            check(torch.equal(a, seg.quant.score(qp, {"codes": blk}, Metric.HAMMING)),
+                  "bq: Metric.HAMMING scores with hamming_scores")
+            check(bool((a >= 0).all() and (a <= DIM).all()), "bq hamming: distances in [0, d]")
+            print(f"segment bq hamming: both scorers agree on 64 x 8192 codes; nearest "
+                  f"Hamming distance {float(a.min(1).values.mean()):.2f} of {DIM} bits on "
+                  f"average [{card}]", flush=True)
+        seg.release_device()
+        del seg, state, rows, d, d_s, d_p, rows_p, rows_w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, cases
+
+
+def streamed_case(st, x_dev, card):
+    """5c: the flat phase's segment and the graph phase's database under a
+    device budget below their sizes."""
+    import gc
+
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.index.common import enc_tensor
+    from vecgo_tpu_torch.ops import topk as T
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+
+    dev = torch.device("cuda")
+    q_np = st["queries"][0]
+    q0 = torch.from_numpy(q_np).to(dev)
+    ids1 = st["ids"][:N]
+    cases = []
+    every = np.ones(N, bool)
+    gbps = h2d_gbps()
+    print(f"pinned host-to-device copy, 256 MiB: {gbps:.2f} GB/s [{card}]", flush=True)
+
+    resident = vg.Open(st["backend"], vg.Create(dim=0), version=st["flat_version"], device="cuda")
+    want, want_d = resident.search_arrays(q_np, k=K)
+    seg_bytes = resident.engine._segments[0].segment.device_bytes()
+    resident.close()
+    resident.engine._segments[0].segment.release_device()
+    check(seg_bytes > STREAM_BUDGET, "the budget is below the segment's device_bytes()")
+    launches = {}
+    block_rows = BLOCK_ROWS
+    # The engine's pools at k = 10 and the default refine_factor of 2: the
+    # SQ8 transport keeps 2k rows, the PQ transport max(4 * 2k, 128).
+    _, gt_rows = scan_topk_reference(q0, x_dev, (x_dev * x_dev).sum(1), K, "l2", None)
+    gt = ids1[gt_rows.cpu().numpy()]
+    for transport, pool in (("sq8", 2 * K), ("pq", 128)):
+        db = vg.Open(st["backend"], vg.Create(dim=0, hbm_budget_bytes=STREAM_BUDGET,
+                                              stream_transport=transport),
+                     version=st["flat_version"], device="cuda")
+        seg = db.engine._segments[0].segment
+        t0 = time.perf_counter()
+        enc_host, _ = seg.stream_state(transport, dev)
+        torch.cuda.synchronize()
+        state_s = time.perf_counter() - t0
+        row_bytes = sum(a.nbytes for a in enc_host.values()) // N
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        scan_topk.launches = 0
+        got, dist = db.search_arrays(q_np, k=K)
+        torch.cuda.synchronize()
+        launches[transport] = scan_topk.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        check(got.shape == (BATCH, K) and np.isfinite(dist).all(), f"stream {transport}: shape")
+        # The kernel on a block of the transport's codes at this pool, then
+        # the whole streamed scan by both routes: the same pool rank by rank,
+        # so whatever separates the streamed answer from the resident one is
+        # the transport's codes and its pool, not the kernel's route.
+        scanner = seg.stream_state(transport, dev)[1]
+        cases.append(path_block_case(
+            f"stream-{transport}-k{pool}", scanner.quant, scanner.metric, q0,
+            {name: enc_tensor(arr[:BLOCK_ROWS], dev) for name, arr in enc_host.items()},
+            pool, None, card, f" (a block of the {transport} transport's codes)"))
+        routed = T.streaming_topk_scored(q0, enc_host, N, pool, scanner)
+        plain = T.streaming_topk_scored(
+            q0, enc_host, N, pool, T.BlockScanner(PlainOnly(scanner.quant), scanner.metric))
+        gap, tol, swaps = routes_agree(f"stream {transport}", q0,
+                                       torch.from_numpy(enc_host["rnorm2"].max(keepdims=True)),
+                                       routed, plain)
+        _, top_p = T.topk_smallest_with_ids(seg.rerank_host(q0, plain[1]), plain[1], K)
+        got_p = np.asarray(seg.ids)[top_p.cpu().numpy()]
+        routes_same = float((got_p == got).all(1).mean())
+        plain_same = float((got_p == want).all(1).mean())
+        del routed, plain
+        recall = recall_vs_exact(got, q0, x_dev, every, ids1)
+        # Both pools are reranked exactly, so a query's answer differs from
+        # the resident run's only where one pool missed a row at its edge or
+        # two rows tie.
+        same = (got == want).all(1)
+        edge_gap = float(np.abs(np.sort(dist[~same], 1) - np.sort(want_d[~same], 1)).max()
+                         ) if (~same).any() else 0.0
+        hbm = db.stats()["hbm"]
+        check(hbm["resident"] == 0 and hbm["used_bytes"] == 0, f"nothing resident: {hbm}")
+        # Two staging blocks, one decoded bf16 block, scan_topk's scratch and
+        # lists, and the rerank's [B, pool, d] tile with its product.
+        bound = (2 * block_rows * row_bytes + block_rows * DIM * 2 + 3 * BATCH * pool * DIM * 4
+                 + (128 << 20))
+        # Where the streamed and the resident answers differ, one of them
+        # missed a row of the exact answer at its pool's edge (the resident
+        # scan pools k + 8 rows by bf16 scores, the stream `pool` rows by its
+        # codes): a pool four times as wide over the same codes (the plain
+        # route: it passes the kernel's 256) returns the exact rows there.
+        differ = np.flatnonzero(~same)
+        witness, pool_miss = "no query differs", True
+        if len(differ):
+            qd = q0[torch.from_numpy(differ).to(dev)].contiguous()
+            _, rows_w = T.streaming_topk_scored(
+                qd, enc_host, N, 4 * pool, T.BlockScanner(PlainOnly(scanner.quant), scanner.metric))
+            _, top_w = T.topk_smallest_with_ids(seg.rerank_host(qd, rows_w), rows_w, K)
+            wide = np.asarray(seg.ids)[top_w.cpu().numpy()]
+            exact = np.sort(gt[differ], 1)  # as sets: near-equal rows may swap places
+            stream_exact = int((np.sort(got[differ], 1) == exact).all(1).sum())
+            resident_exact = int((np.sort(want[differ], 1) == exact).all(1).sum())
+            wide_exact = int((np.sort(wide, 1) == exact).all(1).sum())
+            witness = (f"of the {len(differ)} queries that differ the streamed answer is the "
+                       f"exact one on {stream_exact}, the resident one on {resident_exact}, and "
+                       f"a pool of {4 * pool} over the same codes on {wide_exact}")
+            pool_miss = wide_exact == len(differ) <= stream_exact + resident_exact
+        qps, lo, hi = median_qps(db, q_np, {})
+        mbs = qps / BATCH * N * row_bytes / 1e9
+        print(f"stream flat_stream transport {transport} ({row_bytes} B/row, pool {pool}, "
+              f"transport built in {state_s:.3f} s): {qps:.0f} QPS (B={BATCH}; median of "
+              f"{TIER_WINDOWS} windows, range {lo:.0f}-{hi:.0f}) = {mbs:.2f} GB/s of codes "
+              f"against {gbps:.2f} GB/s pinned H2D; recall@10 {recall:.5f}; rows equal to the "
+              f"resident run's {same.mean():.5f} (largest distance gap elsewhere {edge_gap:.3g})"
+              f"; {witness}; by the plain score-matrix route over the same codes {plain_same:.5f}, "
+              f"the two routes' answers equal on {routes_same:.5f} of the queries and their "
+              f"pools rank by rank within {gap:.3g} (tol {tol:.3g}, {swaps} rows differ at "
+              f"ties); "
+              f"peak device memory {peak / 2**20:.1f} MiB (bound {bound / 2**20:.1f} MiB; the "
+              f"resident state is {seg_bytes / 2**20:.1f} MiB); scan_topk launches a batch "
+              f"{launches[transport]}; hbm {hbm} [{card}]", flush=True)
+        check(recall >= QUANT_RECALL_FLOOR, f"stream {transport}: recall {recall}")
+        check(peak <= bound, f"stream {transport}: peak {peak} > block-sized bound {bound}")
+        check(launches[transport] > 0, f"stream {transport}: launched scan_topk")
+        if st["profile"]:
+            profile_batch(db, q_np, {}, f"flat_stream {transport}", card)
+        # The PQ pool ranks by coarser codes, so it misses an edge row more often.
+        same_floor = 0.999 if transport == "sq8" else 0.99
+        check(same.mean() >= same_floor, f"stream {transport}: {same.mean():.5f} of the "
+                                         f"queries return the resident run's rows")
+        check(routes_same >= 0.999, f"stream {transport}: the routes agree on {routes_same}")
+        check(pool_miss, f"stream {transport}: every differing query is one side's pool miss "
+                         f"that a pool of {4 * pool} repairs ({witness})")
+        db.close()
+        seg._streams.clear()
+        del enc_host
+    del x_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The graph phase's database (one Vamana segment and a small flat one).
+    all_ids, deleted, x_all = st["graph_ids"], st["graph_deleted"], st["graph_x"]
+    live = ~np.isin(all_ids, deleted)
+    scan_topk.launches = 0
+    coded_group_scan.launches = 0
+    db = vg.Open(st["backend"], vg.Create(dim=0, hbm_budget_bytes=STREAM_BUDGET), device="cuda")
+    kinds = {type(h.segment).__name__: h.segment.device_bytes() for h in db.engine._segments}
+    t0 = time.perf_counter()
+    got, dist = db.search_arrays(q_np, k=K)
+    first_s = time.perf_counter() - t0
+    check(got.shape == (BATCH, K) and np.isfinite(dist).all(), "graph_stream: shape/finite")
+    check(not np.isin(got, deleted).any(), "graph_stream: a deleted id was returned")
+    recall = recall_vs_exact(got, q0, x_all, live, all_ids)
+    stats = db.engine.search_batch(q_np[:1], k=K, with_stats=True)[0].stats
+    qps, lo, hi = median_qps(db, q_np, {})
+    hbm = db.stats()["hbm"]
+    print(f"stream graph_stream (sq8 transport over the Vamana segment's rows; segments "
+          f"{kinds}; first batch with the transport's build {first_s:.3f} s): {qps:.0f} QPS "
+          f"(B={BATCH}; median of {TIER_WINDOWS} windows, range {lo:.0f}-{hi:.0f}), recall@10 "
+          f"{recall:.5f}, plan '{stats.strategy}', hbm {hbm}, launches scan_topk "
+          f"{scan_topk.launches} coded_group_scan {coded_group_scan.launches} [{card}]",
+          flush=True)
+    check(recall >= QUANT_RECALL_FLOOR, f"graph_stream: recall {recall}")
+    check("graph=0" in stats.strategy, f"the graph segment streams: {stats.strategy}")
+    check(coded_group_scan.launches == 0, "a streamed graph segment runs no resident kernel B")
+    launches["graph"] = scan_topk.launches
+    if st["profile"]:
+        profile_batch(db, q_np, {}, "graph_stream", card)
+    db.close()
+    return launches, cases
+
+
+def tiers_phase(st, card):
+    """Phase 5: quantized flat segments, flat IVF probing and the
+    beyond-device streaming tier. Returns scan_topk's launches by sub-path
+    and the kernel's cases at these paths' shapes."""
+    quantized, x_dev, cases = quantized_engine_case(st, card)
+    quantizer_floors_case(card)
+    segments, segment_cases = segment_quantizers_case(st, x_dev, card)
+    streamed, stream_cases = streamed_case(st, x_dev, card)
+    by_path = {f"quantized_{k}": v for k, v in quantized.items()}
+    by_path["segment_quantizers"] = segments
+    by_path.update({f"stream_{k}": v for k, v in streamed.items()})
+    print(f"tiers peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"scan_topk launches {by_path} [{card}]", flush=True)
+    return by_path, cases + segment_cases + stream_cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler breakdown of a flat and a graph batch")
+                    help="print a torch.profiler breakdown of a flat, a graph, a quantized "
+                         "and a streamed batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -594,15 +1225,26 @@ def main() -> int:
     st = engine_phase(args, card)
     seg, graph_launches = graph_phase(st, card)
     coded = [coded_case(seg, st["queries"][1], rng, *case, card) for case in CODED_CASES]
+    # The memtable's rows become a segment, so the reopened database of the
+    # streamed case holds every row the graph phase searched.
+    st["db"].commit()
     st["db"].close()
+    seg.release_device()
+    del seg
+    st.pop("db")
+    st.pop("x_all")
+    torch.cuda.empty_cache()
+    tier_launches, tier_cases = tiers_phase(st, card)
+    cases += tier_cases
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
         "route": "cuda",
         "source": "vecgo_tpu_torch/csrc/scan_topk.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
-        "launches": st["launches"] + graph_launches["scan_topk"],
-        "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"]},
+        "launches": st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values()),
+        "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"],
+                             **tier_launches},
         "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

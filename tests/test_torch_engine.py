@@ -153,15 +153,20 @@ def test_not_ported_paths_raise_with_their_roadmap_item():
         db.hybrid_search(np.ones(4, np.float32), "text")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vg.Open(vg.Memory(), vg.Create(dim=4, lexical=True, device="cpu"))
+    # Quantized profiles were item 2 of the queue: they commit and search now.
     q = vg.Open(vg.Memory(), vg.Create(dim=4, quantizer="sq8", device="cpu"))
-    q.insert_batch(np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        q.commit()
+    ids = q.insert_batch(np.eye(4, dtype=np.float32))
+    q.commit()
+    assert q.engine._segments[0].segment.quant.kind == "sq8"
+    assert [c.id for c in q.search(np.eye(4, dtype=np.float32)[2], k=1)] == [ids[2]]
 
 
 def test_option_the_port_does_not_honour_raises_when_set():
-    """`stream_transport` keeps the JAX engine's signature; its default is the
-    only value the port honours, so any other raises instead of being ignored."""
+    """`stream_transport` was the one option whose other value raised; both
+    the JAX engine's values are honoured now (tests/test_torch_streaming.py
+    drives them), and no `EngineOptions` field is left that raises when set
+    except `lexical` (port queue item 4)."""
     assert vg.Create(dim=4, device="cpu").stream_transport == "sq8"
-    with pytest.raises(NotImplementedError, match="item 2"):
-        vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", stream_transport="pq"))
+    assert vg.Create(dim=4, device="cpu", stream_transport="pq").stream_transport == "pq"
+    with pytest.raises(NotImplementedError, match="item 4"):
+        vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", lexical=True))

@@ -102,10 +102,18 @@ def test_segment_from_jax_searches_the_same():
 
 
 def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatWriter(D, quantizer="sq8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatWriter(D, ivf_partitions=4)
-    seg = FlatSegment.open(_write(FlatWriter, Metric.L2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        seg.search_streaming(torch.zeros(1, D), 5)
+    """What raised before flat IVF, the quantizers and streaming were ported
+    now works; a segment's cluster cache is a graph segment's and still to
+    come (tests/test_torch_graph_segment.py holds that)."""
+    x, ids, docs, pays, lsns = _rows()
+    w = FlatWriter(D, quantizer="sq8", ivf_partitions=4, device="cpu")
+    w.add_batch(x, ids, docs, pays, lsns)
+    seg = FlatSegment.open(w.finish())
+    assert seg.quant.kind == "sq8" and seg.meta["ivf"]["partitions"] == 4
+    q = torch.from_numpy(_queries(Metric.L2))
+    d, rows = seg.search(q, 5)
+    d_s, rows_s = seg.search_streaming(q, 5, block_rows=512)
+    np.testing.assert_array_equal(rows_s.numpy(), rows.numpy())
+    np.testing.assert_allclose(d_s.numpy(), d.numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="unknown quantizer"):
+        FlatWriter(D, quantizer="sq9").finish()

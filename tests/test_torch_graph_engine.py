@@ -148,16 +148,27 @@ def test_flat_compaction_matches_jax_row_for_row():
 
 
 def test_partitioned_flat_compaction_and_auto_compact_default():
-    """16,384 to 32,767 live rows would compact into a partitioned (flat IVF)
-    segment, which waits for port queue item 2; so auto_compact stays off."""
+    """16,384 to 32,767 live rows compact into a partitioned (flat IVF)
+    segment, so auto_compact is on by default, as in the JAX engine: the
+    fourth commit compacts by itself, and probing every partition gives the
+    unprobed answer."""
     r = np.random.default_rng(46)
-    db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", flush_threshold=10**9))
-    for _ in range(2):
-        db.insert_batch(r.standard_normal((8500, 4)).astype(np.float32))
-        db.commit()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        db.compact([h.seg_id for h in db.engine._segments])
-    assert len(db.engine._segments) == 2  # nothing swapped
-    assert EngineOptions(device="cpu").auto_compact is False
+    x = r.standard_normal((4 * 4300, 4)).astype(np.float32)
+    assert EngineOptions(device="cpu").auto_compact is True
     assert JaxEngineOptions().auto_compact is True
-    assert "16,384" in EngineOptions.__doc__ and "item 2" in EngineOptions.__doc__
+    db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", flush_threshold=10**9))
+    ids = []
+    for i in range(4):
+        ids += db.insert_batch(x[i * 4300 : (i + 1) * 4300])
+        db.commit()
+    (h,) = db.engine._segments  # the size-tiered policy merged the four
+    assert type(h.segment) is FlatSegment and h.segment.n == len(x)
+    assert h.segment.meta["ivf"]["partitions"] == len(x) // 8192 == 2
+    assert (np.diff(h.segment.ivf_part) >= 0).all()
+    q = x[:9] + 0.001
+    got, _ = db.search_arrays(q, k=5)
+    _, ti = tu.brute_force_knn(q, x, 5, "l2")
+    np.testing.assert_array_equal(got, np.asarray(ids)[ti])
+    np.testing.assert_array_equal(db.search_arrays(q, k=5, nprobes=2)[0], got)
+    one, _ = db.search_arrays(q, k=5, nprobes=1)
+    assert (one[:, 0] == got[:, 0]).all()  # a row's own partition is its nearest

@@ -48,6 +48,10 @@ def test_port_never_imports_the_jax_package():
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m == "vecgo_tpu" or m.startswith("vecgo_tpu.") or m == "jax" or m.startswith("jax.")]
     assert len(files) > 30 and not bad, bad
+    rel = {os.path.relpath(f, os.path.join(REPO, "vecgo_tpu_torch")) for f in files}
+    for new in ("ops/hamming.py", "quantization/scalar.py", "quantization/pq.py",
+                "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py"):
+        assert new in rel, new  # the quantizers and their ops are covered
 
 
 def _docs(n=500, seed=3):

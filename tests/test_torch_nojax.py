@@ -3,8 +3,9 @@
 Runs in a subprocess, because this test process has jax loaded already
 (tests/conftest.py imports it). The child imports every module of
 vecgo_tpu_torch, drives a small slice of the flat path and of the graph path
-(compaction into a Vamana segment, filtered and unfiltered search) on the
-CPU and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
+(compaction into a Vamana segment, filtered and unfiltered search), a
+quantized and partitioned flat segment with probing, and a streamed search
+under a device budget over both transports, on the CPU, and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
 a CUDA device it also checks that the default device ("cuda") is refused.
 """
 
@@ -58,6 +59,37 @@ CHILD = textwrap.dedent(
     got, _ = db.search_arrays(y[:4], k=3, filter=eq("c", 1))
     assert got.shape == (4, 3) and ids[1] not in got
     db.close()
+
+    # Quantized + partitioned flat segments, probing, and the streamed tier.
+    import vecgo_tpu_torch.ops.hamming  # noqa: F401
+    import vecgo_tpu_torch.quantization.binary  # noqa: F401
+    import vecgo_tpu_torch.quantization.pq  # noqa: F401
+    import vecgo_tpu_torch.quantization.scalar  # noqa: F401
+    from vecgo_tpu_torch import quantization as Q
+
+    z = y[:3000]
+    for kind in ("sq8", "int4", "pq", "opq", "bq", "rabitq"):
+        qz = Q.create(kind, device="cpu", dim=8, **({"m": 2} if kind in ("pq", "opq") else {}))
+        qz.train(z)
+        assert len(qz.encode(z[:10])["codes"]) == 10
+    db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu", quantizer="sq8",
+                                        flush_ivf_partitions=True, ivf_rows_per_partition=500))
+    ids = db.insert_batch(z, [{"c": i % 3} for i in range(len(z))])
+    db.commit()
+    seg = db.engine._segments[0].segment
+    assert seg.quant.kind == "sq8" and seg.meta["ivf"]["partitions"] == 6
+    for kw in ({}, {"nprobes": 2}, {"filter": eq("c", 1)}):
+        got, _ = db.search_arrays(z[:4], k=3, refine_factor=4, **kw)
+        assert got.shape == (4, 3) and (kw.get("filter") is not None or got[0, 0] == ids[0])
+    db.close()
+    for transport in ("sq8", "pq"):
+        db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu", hbm_budget_bytes=64,
+                                            stream_transport=transport))
+        ids = db.insert_batch(z)
+        db.commit()
+        got, _ = db.search_arrays(z[:4], k=3)
+        assert got[:, 0].tolist() == ids[:4] and db.stats()["hbm"]["resident"] == 0
+        db.close()
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
     assert not jax_pkg, jax_pkg

@@ -1,9 +1,9 @@
 """What the port does not cover yet, by its item in ROADMAP.md's port queue."""
 
 QUEUE = {
-    2: "quantized flat profiles and beyond-device streaming",
     3: ("the rest of graph segments: the beam build mode, serve_compact, stored "
-        "codes and the cluster cache, FreshVamana, tools/compact, the uncoded IVF table"),
+        "codes and the cluster cache (with the planner's preference for graph_cached over "
+        "graph_stream), FreshVamana, tools/compact, the uncoded IVF table"),
     4: "device BM25 hybrid search",
     5: "the multi-device plane",
 }

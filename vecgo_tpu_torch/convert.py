@@ -2,12 +2,28 @@
 
 Both packages write the same container and manifest formats, so a database
 directory moves between them simply by opening it with the other package.
-`segment_from_jax` moves one in-memory JAX `FlatSegment` without a store.
+`segment_from_jax` moves one in-memory JAX `FlatSegment` without a store, with
+its codes and its quantizer's trained arrays, and `quantizer_from_jax` moves a
+trained quantizer, so both packages score the same codes with the same
+arrays.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from vecgo_tpu_torch import quantization as Q
 from vecgo_tpu_torch.index.flat import FlatSegment
+
+
+def quantizer_from_jax(quant, device=None) -> Q.Quantizer:
+    """The port's quantizer from a JAX quantizer's `state()` (its kind, its
+    constructor params and its trained arrays, as numpy). `device` is where
+    PQ and OPQ assign in `encode` (None = the card)."""
+    state = quant.state()
+    arrays = {name: np.asarray(arr) for name, arr in state["arrays"].items() if arr is not None}
+    return Q.Quantizer.from_state(
+        {"kind": state["kind"], "params": state["params"], "arrays": arrays}, device=device)
 
 
 def segment_from_jax(seg, device) -> FlatSegment:
@@ -26,6 +42,12 @@ def segment_from_jax(seg, device) -> FlatSegment:
         arr = getattr(seg, name.replace(".", "_"))
         if arr is not None:
             sections[name] = arr
+    if seg.quant.kind != "none":
+        for name, arr in seg.enc_host.items():
+            sections[f"enc.{name}"] = np.asarray(arr)
+        for name, arr in seg.quant.state()["arrays"].items():
+            if arr is not None:
+                sections[f"q.{name}"] = np.asarray(arr)
     out = FlatSegment(seg.meta, sections, seg.seg_id)
     out.device_state(device)
     return out

@@ -57,18 +57,7 @@ from vecgo_tpu_torch.utils.hostmem import all_finite, huge_arange
 class EngineOptions:
     """The JAX engine's options (same fields and defaults) plus the device that holds segments and
     memtable chunks, runs every scan and builds graphs ("cuda" by default;
-    "cpu" runs the kernels' plain PyTorch versions).
-
-    `auto_compact` defaults to False, unlike the JAX engine's True. Below
-    `graph_threshold` live rows, compaction writes a flat segment, and from
-    2 x `ivf_rows_per_partition` (16,384) rows on that flat segment is
-    partitioned (flat IVF), which the port's `FlatWriter` does not write yet
-    (ROADMAP.md, port queue item 2): a size-tiered compaction of 16,384 to
-    32,767 live rows would raise in ordinary use. An explicit `compact()`
-    into a graph segment (at least `graph_threshold` rows) or into a flat
-    segment under 16,384 rows works; the default returns to True with
-    item 2."""
-
+    "cpu" runs the kernels' plain PyTorch versions)."""
 
     dim: int = 0
     metric: Metric = Metric.L2
@@ -94,7 +83,7 @@ class EngineOptions:
     compaction_threshold: int = 4  # size-tiered trigger (reference default 4)
     compaction_policy: Any = None  # engine.policy.CompactionPolicy; None = size-tiered
     auto_flush: bool = True
-    auto_compact: bool = False  # see the class docstring
+    auto_compact: bool = True
     background: bool = False  # run flush/compaction on background threads
     flush_interval_s: float = 5.0  # background loop cadence
     memory_limit_bytes: int = 0  # host memtable cap; ErrBackpressure over it (0 = unlimited)
@@ -140,9 +129,6 @@ class EngineOptions:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        # Kept for the JAX engine's signature; only its default is ported.
-        if self.stream_transport != "sq8":
-            raise not_ported(f"stream_transport={self.stream_transport!r}", 2)
 
     def to_config(self) -> dict:
         return {
@@ -765,7 +751,7 @@ class Engine:
                         if opt.flush_ivf_partitions and n >= 2 * opt.ivf_rows_per_partition
                         else 0
                     ),
-                    seed=opt.seed, compress=opt.compress_segments,
+                    seed=opt.seed, compress=opt.compress_segments, device=opt.device,
                 )
                 live_rows, vecs, rids, lsns, docs, pays = mem.export_live()
                 writer.add_batch(vecs, rids, docs, pays, lsns)
@@ -881,7 +867,7 @@ class Engine:
                     total_live // opt.ivf_rows_per_partition
                     if total_live >= 2 * opt.ivf_rows_per_partition else 0
                 ),
-                seed=opt.seed, compress=opt.compress_segments,
+                seed=opt.seed, compress=opt.compress_segments, device=opt.device,
             )
             kind = "flat"
         # Docs, payloads and metadata move as CSR slabs unless the inputs

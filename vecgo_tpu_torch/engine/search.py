@@ -106,7 +106,7 @@ def can_prune_segment(stats: dict, fs) -> bool:
 class _Source:
     seg_id: int  # -1 = memtable
     source: Any  # MemTable or segment object
-    kind: str  # mem | flat | flat_stream | graph | graph_stream | brute_masked
+    kind: str  # mem | flat | flat_compact | flat_stream | graph | graph_stream | brute_masked
     mask: Optional[np.ndarray]
     rows_considered: int
     n: int  # row count of the source
@@ -217,11 +217,6 @@ def _plan_still_resident(plan: "_Plan", device_budget) -> bool:
                 ("seg", seg.seg_id), seg.device_bytes(), seg.release_device
             ):
                 return False
-        elif src.kind == "graph_cached":
-            if not device_budget.admit(
-                ("segcache", seg.seg_id), seg.cache_bytes(), seg.release_cache
-            ):
-                return False
     return True
 
 
@@ -300,23 +295,13 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
                 kind = "flat_compact"
             plan.n_brute += 1
         elif not resident:
-            # Beyond-HBM graph segment: prefer the cluster-cached coded
-            # two-stage path (bounded HBM, probe-churn H2D — the reference's
-            # lazy block cache, diskann/segment.go:1151) over the full
-            # streaming scan; stream only if even the cache can't fit.
-            if (
-                getattr(seg, "ivf_members", None) is not None
-                and device_budget.admit(
-                    ("segcache", seg.seg_id),
-                    seg.cache_bytes(),
-                    seg.release_cache,
-                )
-            ):
-                kind = "graph_cached"
-                plan.n_graph += 1
-            else:
-                kind = "graph_stream"
-                plan.n_brute += 1
+            # A graph segment beyond the device budget streams its coded rows
+            # (graph_stream). The JAX planner prefers the cluster-cached
+            # two-stage path (graph_cached) when its cache fits the budget;
+            # that cache (ops/ivf_cache.py) is ROADMAP.md port queue item 3,
+            # so until then every over-budget graph segment streams.
+            kind = "graph_stream"
+            plan.n_brute += 1
         else:
             cutoff = (
                 opts.selectivity_cutoff
@@ -361,17 +346,52 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
             kk = min(exact_k, src.n)
             d, rows = src.source.search(qd, kk, src.n, _source_mask(src, qd.device))
         elif src.kind == "flat":
-            kk = min(exact_k, src.n)
-            d, rows = src.source.search(qd, kk, mask=_source_mask(src, qd.device),
-                                        scan_dtype=scan_dtype)
+            seg = src.source
+            quantized = seg.quant.kind != "none"
+            # A quantized scan is approximate: it keeps the refine_factor pool
+            # (at least the churn margin's width) and the pool is reranked
+            # exactly from the host's rows.
+            kk = min(max(fetch_k, exact_k) if quantized else exact_k, src.n)
+            d, rows = seg.search(qd, kk, mask=_source_mask(src, qd.device),
+                                 nprobes=opts.nprobes, scan_dtype=scan_dtype)
+            if quantized:
+                d = seg.rerank(qd, rows)
         elif src.kind == "flat_compact":
             d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
                                       options.metric, scan_dtype)
-        else:  # flat_stream, graph_stream, graph_cached
-            raise not_ported(f"the {src.kind!r} source (beyond-device segment)", 2)
+        elif src.kind in ("flat_stream", "graph_stream"):
+            d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
+        else:
+            raise not_ported(f"the {src.kind!r} source (the cluster cache)", 3)
         dist_comps += b * src.rows_considered + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
+
+
+def _stream_source(src, qd, kk: int, opts, options):
+    """A segment beyond the device budget: its rows stream through the
+    device block by block (`ops/topk.streaming_topk_scored`) and the winners
+    are reranked exactly from the host's rows.
+
+    An unquantized flat segment (without probing) and every graph segment
+    stream a coded transport of their rows (`options.stream_transport`): SQ8
+    ships 1 byte a dimension; PQ ships d/2 bytes a row and orders coarsely,
+    so it pools max(4 kk, 128) candidates for the rerank (source widths may
+    differ; the merge takes them as they come). A quantized flat segment, or
+    a partitioned one searched with nprobes, streams its own arrays
+    (`search_streaming`); its f32 rows need no rerank."""
+    seg = src.source
+    mask = _source_mask(src, qd.device)
+    flat = isinstance(seg, FlatSegment)
+    if flat and (seg.quant.kind != "none"
+                 or (seg.ivf_centroids is not None and opts.nprobes > 0)):
+        d, rows = seg.search_streaming(qd, kk, mask=mask, nprobes=opts.nprobes)
+        return (seg.rerank_host(qd, rows) if seg.quant.kind != "none" else d), rows
+    transport = options.stream_transport
+    enc_host, scanner = seg.stream_state(transport, options.device)
+    kks = min(src.n, max(4 * kk, 128)) if transport == "pq" else kk
+    _, rows = T.streaming_topk_scored(qd, enc_host, seg.n, kks, scanner, mask=mask)
+    return seg.rerank_host(qd, rows), rows
 
 
 def _graph_source(src, qd, kk: int, opts, options):

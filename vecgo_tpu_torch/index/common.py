@@ -1,17 +1,20 @@
-"""Shared row buffering + section building for segment writers (port of
-vecgo_tpu/index/common.py, host parts; the beyond-device rerank and the
-SQ8/PQ stream transports are ROADMAP.md port queue item 2)."""
+"""Shared row buffering + section building for segment writers, the
+beyond-device rerank from host rows and the SQ8/PQ stream transports (port of
+vecgo_tpu/index/common.py)."""
 
 from __future__ import annotations
 
 import json
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from vecgo_tpu_torch.errors import ErrDimensionMismatch, ErrInvalidVector
 from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
 from vecgo_tpu_torch.model import Metric
+from vecgo_tpu_torch.utils.tensors import host_tensor
 
 
 class RowBuffer:
@@ -293,3 +296,80 @@ def preset_row_sections(x: np.ndarray, ids: np.ndarray, lsns, preset, order=None
         sections["docs.data"] = np.asarray(docs_csr[0], np.uint8)
         sections["docs.indptr"] = docs_csr[1]
     return sections, md_meta, cm
+
+
+def enc_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A host code array on `device` with its bytes unchanged (`host_tensor`:
+    uint32 words as int32, uint16 codes as int16)."""
+    return host_tensor(arr).to(device)
+
+
+def rerank_host_rows(q: torch.Tensor, rows: torch.Tensor, vectors_host: np.ndarray,
+                     rnorm2_host: np.ndarray, metric) -> torch.Tensor:
+    """Exact rerank for a segment without its full-precision rows on the
+    device (a quantized segment, or one streamed beyond the device budget):
+    `rows` [B, C] is read back to the host (a sync), the candidate vectors are
+    gathered there, and only the [B, C, d] tile is uploaded. Returns [B, C]
+    f32 distances on q's device (-1 -> +inf), in IEEE f32."""
+    from vecgo_tpu_torch.ops import distance as D
+
+    metric = (Metric(metric) if not isinstance(metric, Metric) else metric).compute()
+    rows_np = rows.cpu().numpy()
+    safe = np.maximum(rows_np, 0)
+    v = torch.from_numpy(np.ascontiguousarray(vectors_host[safe], np.float32))
+    rn = torch.from_numpy(np.asarray(rnorm2_host[safe], np.float32))
+    if q.device.type == "cuda":
+        v, rn = v.pin_memory(), rn.pin_memory()
+    v = v.to(q.device, non_blocking=True)
+    rn = rn.to(q.device, non_blocking=True)
+    qf = q.float()
+    if metric == Metric.COSINE:
+        qf = D.normalize(qf)
+    prod = torch.einsum("bcd,bd->bc", v, qf)
+    if metric == Metric.L2:
+        d = ((qf * qf).sum(-1, keepdim=True) + rn - 2.0 * prod).clamp_min(0.0)
+    elif metric == Metric.DOT:
+        d = -prod
+    else:
+        d = 1.0 - prod
+    return torch.where(rows >= 0, d, math.inf)
+
+
+def raw_scanner(metric):
+    """Block scanner over {"vectors", "rnorm2"} blocks of full-precision rows
+    (streaming scans of a segment's own host arrays)."""
+    from vecgo_tpu_torch import quantization as Q
+    from vecgo_tpu_torch.ops.topk import BlockScanner
+
+    return BlockScanner(Q.create("none", dim=0), metric)
+
+
+def _coded_stream_state(kind: str, vectors: np.ndarray, metric, device, **params):
+    from vecgo_tpu_torch import quantization as Q
+    from vecgo_tpu_torch.ops.topk import BlockScanner
+
+    n, d = vectors.shape
+    quant = Q.create(kind, device=device, dim=d, **params)
+    quant.train(np.asarray(vectors[:: max(1, n // 65536)], np.float32))
+    enc = {k: np.asarray(v) for k, v in quant.encode(np.asarray(vectors, np.float32)).items()}
+    return enc, BlockScanner(quant, metric)
+
+
+def sq8_stream_state(vectors: np.ndarray, metric, device="cuda"):
+    """(enc_host, scanner) for beyond-device streaming over SQ8 codes: one
+    byte a dimension crosses to the device instead of four. The winners get
+    an exact host rerank downstream (`rerank_host_rows`)."""
+    return _coded_stream_state("sq8", vectors, metric, device)
+
+
+def pq_stream_state(vectors: np.ndarray, metric, m: int = 0, device="cuda"):
+    """(enc_host, scanner) for beyond-device streaming over PQ codes: d/2
+    bytes a row (m = d/2 subspaces of one byte) plus a 4-byte reconstruction
+    norm. The coded ordering is coarser than SQ8's, so callers must pool at
+    least 128 candidates and rerank exactly from host rows (engine/search.py
+    does). m = d/2 with a pool of 128 is carried over from the JAX package as
+    a design choice: it was picked there on a recall screen run on a TPU
+    (m = d/4 needed a 512-wide pool to clear 0.99); the card's recall at this
+    setting is measured by chip_smoke.py. Pass m for another setting."""
+    n, d = vectors.shape
+    return _coded_stream_state("pq", vectors, metric, device, m=m or max(4, d // 2))

@@ -3,13 +3,15 @@
 The container format is shared: `FlatWriter` writes the same bytes as the
 JAX writer, and either package opens the other's segments. Host code
 (segment stats, the categorical blooms the planner prunes by, row access) is
-the JAX module's; the device state and the scans are the port's.
+the JAX module's; the device state and the scans are the port's: quantized
+scans go block by block through `ops/topk.BlockScanner` (the fused
+`scan_topk` kernel where the quantizer's score has its form, a plain score
+matrix otherwise), flat IVF probing through `ops/topk.probed_topk`.
 """
 
 from __future__ import annotations
 
 import math
-import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -21,24 +23,19 @@ from vecgo_tpu_torch.index import common
 from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
 from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.storage import container
-from vecgo_tpu_torch._roadmap import not_ported
+from vecgo_tpu_torch.ops import distance as D
 from vecgo_tpu_torch.ops import topk as T
 
 
 SEGMENT_KIND = "flat"
 
 
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """A float32 host section on `device`. Sections are often read-only views
-    of the container; device state is never written, so sharing them (on the
-    CPU) is safe and torch's warning about it is silenced."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
-
-
 class FlatWriter:
-    """Buffered writer: add rows, then finish() -> container bytes."""
+    """Buffered writer: add rows, then finish() -> container bytes.
+
+    `device` is where the IVF k-means and assignment, and a PQ/OPQ
+    quantizer's training, run (the card by default); an unquantized,
+    unpartitioned segment never touches it."""
 
     def __init__(
         self,
@@ -47,16 +44,20 @@ class FlatWriter:
         quantizer: str = "none",
         qparams: Optional[dict] = None,
         ivf_partitions: int = 0,
+        train_sample: int = 65536,
         seed: int = 42,
         compress: str = "",
+        device="cuda",
     ):
-        if ivf_partitions > 1:
-            raise not_ported("flat IVF partitioning", 2)
+        self.compress = compress
         self.dim = dim
         self.metric = metric
-        self.quant = Q.create(quantizer, dim=dim, **dict(qparams or {}))
+        self.quantizer_kind = quantizer
+        self.qparams = dict(qparams or {})
+        self.ivf_partitions = ivf_partitions
+        self.train_sample = train_sample
         self.seed = seed
-        self.compress = compress
+        self.device = device
         self._rows = common.RowBuffer(dim)
         self._preset = None
 
@@ -76,23 +77,66 @@ class FlatWriter:
         return len(self._rows)
 
     def finish(self) -> bytes:
+        """Build the immutable segment; returns container bytes."""
+        n = len(self._rows)
+
+        # --- IVF partitioning: reorder rows by nearest centroid ---
+        ivf_centroids = None
+        ivf_part = None
+        order = None
+        if self.ivf_partitions > 1 and n > self.ivf_partitions:
+            from vecgo_tpu_torch.quantization import kmeans as km
+
+            x, _ = self._rows.stacked(self.metric)
+            ivf_centroids, _ = km.train_kmeans(
+                x, self.ivf_partitions, seed=self.seed, sample=self.train_sample,
+                device=self.device,
+            )
+            # bf16 transfer: nearest-centroid partitioning tolerates fuzz at
+            # the boundaries (queries probe several partitions).
+            assign, _ = km.assign_partitions(
+                x, ivf_centroids, transfer_dtype=torch.bfloat16, device=self.device
+            )
+            order = np.argsort(assign, kind="stable")
+            self._rows.reorder(order)
+            ivf_part = assign[order].astype(np.int32)
+
         x, ids = self._rows.stacked(self.metric)
         if self._preset is not None:
             sections, md_meta, cm = common.preset_row_sections(
-                x, ids, self._rows.lsns, self._preset
+                x, ids, self._rows.lsns, self._preset, order=order
             )
         else:
             sections, md_meta, cm = common.row_sections(
                 x, ids, self._rows.docs, self._rows.payloads, self._rows.lsns
             )
-        self.quant.train(x, seed=self.seed)
+
+        # --- quantization (full-precision vectors always kept for rerank) ---
+        quant = Q.create(self.quantizer_kind, device=self.device, dim=self.dim, **self.qparams)
+        r = np.random.default_rng(self.seed)
+        sample = x
+        if n > self.train_sample:
+            sample = x[r.choice(n, self.train_sample, replace=False)]
+        quant.train(sample, seed=self.seed)
+        if self.quantizer_kind != "none":
+            for name, arr in quant.encode(x).items():
+                sections[f"enc.{name}"] = arr
+            for name, arr in quant.state()["arrays"].items():
+                if arr is not None:
+                    sections[f"q.{name}"] = arr
+        if ivf_centroids is not None:
+            sections["ivf.centroids"] = ivf_centroids
+            sections["ivf.part"] = ivf_part
+
         meta = {
             "kind": SEGMENT_KIND,
             "dim": self.dim,
             "metric": self.metric.value,
-            "count": len(self._rows),
-            "quantizer": {"kind": self.quant.kind, "params": self.quant.params()},
-            "ivf": {"partitions": 0},
+            "count": n,
+            "quantizer": {"kind": quant.kind, "params": quant.params()},
+            "ivf": {
+                "partitions": int(self.ivf_partitions) if ivf_centroids is not None else 0
+            },
             "metadata": md_meta,
             "stats": segment_stats(x, cm),
         }
@@ -190,7 +234,20 @@ def bloom_may_contain(bloom_hex: str, value: str, bits: int = 256, hashes: int =
 
 
 class FlatSegment(common.RowBlobAccess):
-    """Immutable flat segment: host arrays plus a lazily built device state."""
+    """Immutable flat segment: host arrays plus a lazily built device state.
+
+    An unquantized segment keeps its f32 table, norms and a bf16 scan copy on
+    the device. A quantized segment keeps **only its codes** (and their
+    norms and per-row factors) there: that is the point of quantizing. Its
+    scans decode one block at a time to a transient bf16 table, and its exact
+    rerank gathers the full-precision rows from host memory.
+
+    Flat IVF: the writer sorts rows by partition, so a partition is one row
+    range. With 0 < nprobes < partitions, a search inverts the probes and
+    scans each probed partition's range for the queries that probe it
+    (`ops/topk.probed_topk`), in place of the JAX scorer's [B, block]
+    partition mask; the rows of unprobed partitions are excluded either way.
+    """
 
     def __init__(self, meta: dict, sections: Dict[str, np.ndarray], seg_id: int = 0,
                  lazy=None):
@@ -205,16 +262,27 @@ class FlatSegment(common.RowBlobAccess):
         self.vectors: np.ndarray = sections["vectors"]
         self.rnorm2: np.ndarray = sections["rnorm2"]
         self.lsns: np.ndarray = sections.get("lsns", np.zeros(self.n, np.int64))
-        self.quant = Q.NoneQuantizer.from_state(
-            {"kind": meta["quantizer"]["kind"], "params": meta["quantizer"]["params"]}
+        qmeta = meta["quantizer"]
+        qarrays = {name[2:]: arr for name, arr in sections.items() if name.startswith("q.")}
+        self.quant = Q.Quantizer.from_state(
+            {"kind": qmeta["kind"], "params": qmeta["params"], "arrays": qarrays}
         )
-        # Flat IVF partitions (written by compaction) only prune probes; the
-        # exact full scan ignores them.
+        self.enc_host = {
+            name[4:]: arr for name, arr in sections.items() if name.startswith("enc.")
+        }
+        if qmeta["kind"] == "none":
+            self.enc_host = {"vectors": self.vectors, "rnorm2": self.rnorm2}
         self.ivf_centroids = sections.get("ivf.centroids")
         self.ivf_part = sections.get("ivf.part")
+        self._part_bounds = None
+        if self.ivf_part is not None:
+            parts = int(meta["ivf"]["partitions"])
+            self._part_bounds = np.searchsorted(np.asarray(self.ivf_part), np.arange(parts + 1))
         self.cm = ColumnarMeta.from_sections(meta["metadata"], sections)
         self._attach_row_blobs(sections, lazy)
         self._dev: Optional[dict] = None
+        self._cent_dev = None
+        self._streams: dict = {}
 
     # ---------------- IO ----------------
 
@@ -243,58 +311,129 @@ class FlatSegment(common.RowBlobAccess):
     # ---------------- device ----------------
 
     def device_state(self, device) -> dict:
-        """The f32 table, its row norms and a bf16 scan copy on `device`
-        (made once; the bf16 copy halves the bytes of every bf16 scan)."""
+        """The scan state on `device`, made once. Unquantized: the f32 table,
+        its row norms and a bf16 scan copy (it halves the bytes of every bf16
+        scan). Quantized: the code arrays only, byte for byte as stored;
+        never a decoded or f32 copy of the table."""
         device = torch.device(device)
-        if self._dev is None or self._dev["vectors"].device != device:
-            vec = _to_device(self.vectors, device)
-            self._dev = {
-                "vectors": vec,
-                "rnorm2": _to_device(self.rnorm2, device),
-                "vectors16": vec.to(torch.bfloat16),
-            }
+        if self._dev is None or next(iter(self._dev.values())).device != device:
+            dev = {k: common.enc_tensor(v, device) for k, v in self.enc_host.items()}
+            if self.quant.kind == "none":
+                dev["vectors16"] = dev["vectors"].to(torch.bfloat16)
+            self._dev = dev
         return self._dev
 
     def release_device(self):
         self._dev = None
+        self._cent_dev = None
 
     def device_bytes(self) -> int:
-        """Device footprint of device_state(): f32 table, norms, bf16 copy."""
-        return int(self.vectors.nbytes + self.rnorm2.nbytes + self.vectors.nbytes // 2)
+        """Device footprint of device_state() (for DeviceBudget admission)."""
+        total = sum(a.nbytes for a in self.enc_host.values())
+        if self.quant.kind == "none":
+            total += self.enc_host["vectors"].nbytes // 2  # the bf16 scan copy
+        return int(total)
+
+    def rerank_host(self, q, rows):
+        """Exact rerank gathering the candidate rows from host memory."""
+        return common.rerank_host_rows(q, rows, self.vectors, self.rnorm2, self.metric)
+
+    def stream_state(self, transport: str = "sq8", device="cuda"):
+        """(enc_host, scanner): coded transport for beyond-device streaming
+        of an *unquantized* segment (a quantized one streams its own codes
+        through search_streaming). "sq8" ships 1 B/dim; "pq" ships d/2 B/row
+        and is coarser, so callers pool at least 128 and rerank exactly
+        (engine/search.py does). Built once per transport; `device` is where
+        the PQ transport trains and assigns."""
+        if transport not in self._streams:
+            mk = common.pq_stream_state if transport == "pq" else common.sq8_stream_state
+            self._streams[transport] = mk(self.vectors, self.metric.compute(), device=device)
+        return self._streams[transport]
+
+    def _probes(self, q, nprobes: int):
+        """[B, nprobes] nearest partitions per query, or None for the full
+        scan (no partitions, nprobes <= 0 or >= partitions)."""
+        if (self.ivf_centroids is None or nprobes <= 0
+                or nprobes >= int(self.meta["ivf"]["partitions"])):
+            return None
+        if self._cent_dev is None or self._cent_dev.device != q.device:
+            self._cent_dev = common.enc_tensor(self.ivf_centroids, q.device)
+        _, probes = T.topk_smallest(D.squared_l2(q, self._cent_dev), nprobes)
+        return probes
+
+    def _scan(self, q, k, scan_one, probes):
+        """One running top-k over the whole segment, or, with probes, over
+        each probed partition's row range for the queries that probe it.
+        scan_one(queries, (r0, r1) or None) -> (d, rows)."""
+        if probes is None:
+            return scan_one(q, None)
+        return T.probed_topk(q, k, probes, self._part_bounds,
+                             lambda qs, r0, r1: scan_one(q[qs], (r0, r1)))
 
     # ---------------- search ----------------
 
-    def search(self, q, k: int, mask=None, scan_dtype: str = "bf16"):
-        """Top-k over the segment: a pool scan over the bf16 copy (k+8 wide)
-        or the f32 table (k+16 wide, for tie-heavy data), then an exact fp32
-        rerank of the pool. q [B, d] f32 on the device (normalized upstream
-        for cosine); mask bool [n] (filters and tombstones), host or device.
-        Returns (dists [B, k] f32, rows [B, k] int64)."""
+    def search(self, q, k: int, mask=None, nprobes: int = 0, block_rows: int = 131072,
+               scan_dtype: str = "bf16"):
+        """Top-k over the segment. q [B, d] f32 on the device (normalized
+        upstream for cosine); mask bool [n] (filters and tombstones), host or
+        device. Returns (dists [B, k] f32, rows [B, k] int64).
+
+        Unquantized: a pool scan over the bf16 copy (k+8 wide) or the f32
+        table (k+16 wide, for tie-heavy data), then an exact fp32 rerank of
+        the pool: the distances are exact. Quantized: the quantizer's
+        approximate distances over the codes; callers rerank (`rerank`)."""
         b = q.shape[0]
         if self.n == 0:
             return (torch.full((b, k), math.inf, device=q.device),
                     torch.full((b, k), -1, dtype=torch.int64, device=q.device))
         dev = self.device_state(q.device)
-        bf16 = scan_dtype == "bf16"
         dmask = torch.as_tensor(mask, dtype=torch.bool, device=q.device) if mask is not None else None
-        return T.scored_pool_rerank(
-            q, dev["vectors16"] if bf16 else dev["vectors"], dev["vectors"], dev["rnorm2"],
-            k, min(self.n, k + (8 if bf16 else 16)), self.metric, dmask,
-        )
+        probes = self._probes(q, nprobes)
+        if self.quant.kind != "none":
+            scanner = T.BlockScanner(self.quant, self.metric)
+            return self._scan(q, k, lambda qq, rows: T.blockwise_topk_scored(
+                qq, dev, self.n, k, scanner, mask=dmask, block_rows=block_rows, rows=rows), probes)
+        bf16 = scan_dtype == "bf16"
+        pool = min(self.n, k + (8 if bf16 else 16))
+        if probes is None:
+            return T.scored_pool_rerank(
+                q, dev["vectors16"] if bf16 else dev["vectors"], dev["vectors"], dev["rnorm2"],
+                k, pool, self.metric, dmask,
+            )
+        enc = {"vectors": dev["vectors16"] if bf16 else dev["vectors"], "rnorm2": dev["rnorm2"]}
+        scanner = T.BlockScanner(self.quant, self.metric)
+        _, rows = self._scan(q, pool, lambda qq, rr: T.blockwise_topk_scored(
+            qq, enc, self.n, pool, scanner, mask=dmask, block_rows=block_rows, rows=rr), probes)
+        return T.topk_smallest_with_ids(self.rerank(q, rows), rows, k)
+
+    def search_streaming(self, q, k: int, mask=None, nprobes: int = 0,
+                         block_rows: int = 131072):
+        """Beyond-device search: the encoded arrays stay in host memory and
+        row blocks stream through the device with a running top-k
+        (`ops/topk.streaming_topk_scored`). A quantized segment returns what
+        search() returns. An unquantized one streams its f32 rows and returns
+        their exact f32 scores without a pool rerank, so ids can differ from
+        search() where bf16 rounding reorders the pool's edge. Device memory
+        stays O(block_rows)."""
+        b = q.shape[0]
+        if self.n == 0:
+            return (torch.full((b, k), math.inf, device=q.device),
+                    torch.full((b, k), -1, dtype=torch.int64, device=q.device))
+        dmask = torch.as_tensor(mask, dtype=torch.bool, device=q.device) if mask is not None else None
+        scanner = T.BlockScanner(self.quant, self.metric)
+        return self._scan(q, k, lambda qq, rows: T.streaming_topk_scored(
+            qq, self.enc_host, self.n, k, scanner, mask=dmask, block_rows=block_rows, rows=rows),
+            self._probes(q, nprobes))
 
     def rerank(self, q, rows):
-        """Exact fp32 distances of candidate rows [B, C] (-1 -> +inf)."""
+        """Exact fp32 distances of candidate rows [B, C] (-1 -> +inf). An
+        unquantized segment reranks on the device (its stored vectors are
+        full precision); a quantized one gathers the full-precision rows from
+        the host, and only the candidate tile crosses to the device."""
+        if self.quant.kind != "none":
+            return self.rerank_host(q, rows)
         dev = self.device_state(q.device)
         return T.rerank_exact(q, rows, dev["vectors"], dev["rnorm2"], self.metric)
-
-    def rerank_host(self, *args, **kw):
-        raise not_ported("beyond-device rerank from host rows", 2)
-
-    def search_streaming(self, *args, **kw):
-        raise not_ported("beyond-device streaming search", 2)
-
-    def stream_state(self, *args, **kw):
-        raise not_ported("beyond-device stream transports", 2)
 
     # ---------------- host access ----------------
 

@@ -222,6 +222,7 @@ class VamanaSegment(common.RowBlobAccess):
         self.cm = ColumnarMeta.from_sections(meta["metadata"], sections)
         self._attach_row_blobs(sections, lazy)
         self._dev = None
+        self._stream: dict = {}
 
     @property
     def vectors(self) -> np.ndarray:
@@ -436,19 +437,79 @@ class VamanaSegment(common.RowBlobAccess):
             dd = 1.0 - prod
         return torch.where(rows >= 0, dd, math.inf)
 
-    # ---------------- tiers not ported yet ----------------
+    # ---------------- beyond the device budget ----------------
 
-    def rerank_host(self, *args, **kw):
-        raise not_ported("beyond-device rerank from host rows", 2)
+    def device_bytes(self) -> int:
+        """Device footprint of device_state() (for DeviceBudget admission)."""
+        n, d = self.n, self.dim
+        if self.ivf_members is not None:
+            k, s = self.ivf_members.shape
+            k = -(-k // 8) * 8  # the table pads to whole groups of 8 clusters
+            # codes + three [K, S] planes (norms, rows) + slot map + centroids,
+            # scale and centroid norms + graph (+ the int16 refinement plane)
+            total = k * s * (d + 12) + n * 4 + k * (d * 4 + 8) + self.graph.size * 4
+            if self.serve_refine:
+                total += n * d * 2
+            return int(total)
+        total = n * d * 2 + n * 4 + self.graph.size * 4 + n * d * 4
+        if self.entry_centroids is not None:
+            total += self.entry_centroids.nbytes + self.entry_nodes.size * 8
+        return int(total)
+
+    def rerank_host(self, q, rows):
+        """Exact rerank gathering candidate rows from host memory (the
+        segment has no device residency). With deferred vectors (a lazy
+        open), the candidate rows come from coalesced ranged reads:
+        O(candidates) store bytes, never the whole section."""
+        if self._vectors_arr is None and self._lazy is not None:
+            if self._lazy.entries.get("vectors", {}).get("compression"):
+                # compressed: not offset-sliceable; one full read
+                return common.rerank_host_rows(q, rows, self.vectors, self.rnorm2, self.metric)
+            rows_np = rows.cpu().numpy()
+            uniq, inv = np.unique(np.maximum(rows_np, 0), return_inverse=True)
+            if len(uniq) < max(1, self.n // 2):
+                tbl = self._gather_rows_lazy(uniq)
+                rows2 = np.where(rows_np >= 0, inv.reshape(rows_np.shape), -1).astype(np.int64)
+                return common.rerank_host_rows(
+                    q, torch.from_numpy(rows2).to(q.device), tbl, self.rnorm2[uniq], self.metric)
+            # Candidate set ~ the corpus: one full read beats row reads.
+        return common.rerank_host_rows(q, rows, self.vectors, self.rnorm2, self.metric)
+
+    def _gather_rows_lazy(self, uniq: np.ndarray) -> np.ndarray:
+        """[U, d] f32 gather of sorted unique rows via coalesced ranged
+        reads of the deferred vectors section."""
+        out = np.empty((len(uniq), self.dim), np.float32)
+        i = 0
+        while i < len(uniq):
+            j = i
+            while j + 1 < len(uniq) and uniq[j + 1] == uniq[j] + 1:
+                j += 1
+            blk = self._lazy.load_rows("vectors", int(uniq[i]), int(uniq[j]) + 1)
+            out[i : j + 1] = np.asarray(blk, np.float32)
+            i = j + 1
+        return out
+
+    def stream_state(self, transport: str = "sq8", device="cuda"):
+        """(enc_host, scanner): host-resident coded transport for
+        beyond-device streaming search. "sq8" uploads 1 byte a dimension
+        instead of 4; "pq" uploads d/2 bytes a row and is coarser, so callers
+        pool at least 128 and rerank exactly downstream (engine/search.py
+        does). Built once per transport; `device` is where the PQ transport
+        trains and assigns."""
+        if transport not in self._stream:
+            mk = common.pq_stream_state if transport == "pq" else common.sq8_stream_state
+            self._stream[transport] = mk(self.vectors, self.metric.compute(), device=device)
+        return self._stream[transport]
+
+    # The cluster cache of ops/ivf_cache.py (the planner's graph_cached
+    # source) is port queue item 3; until it lands the planner streams every
+    # over-budget graph segment (graph_stream) and calls none of these.
 
     def cluster_cache(self, *args, **kw):
         raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
 
     def search_cached(self, *args, **kw):
         raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
-
-    def stream_state(self, *args, **kw):
-        raise not_ported("beyond-device stream transports", 2)
 
     # ---- host access (same contract as FlatSegment) ----
 
