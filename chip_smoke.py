@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat, graph, quantized and streamed engine paths
-once on one CUDA card.
+"""Drive the PyTorch port's flat, graph, quantized, streamed and cached
+engine paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -12,7 +12,10 @@ once on one CUDA card.
    memtable chunks at pools 74 and 82, wide rows), plus k = 256; each case
    prints its time beside its bound (the larger of operations over the
    card's peak for their type and bytes over 3.35 TB/s), its share of that
-   bound, and the product alone through torch.mm (context only). Phase 5
+   bound, and the product alone through torch.mm (context only); then pools
+   past 256 (the kernel's wide shape, lists in a global scratch): k = 1000
+   over the 1M-row segment and over one 131,072-row block, k = 4096 over
+   65,536 rows. Phase 5
    adds the same comparison on what its paths hand the kernel: a 131,072-row
    block of each quantizer's and each stream transport's codes, decoded to
    bf16, at that path's k (100, 20, 128) and mask, and one probed
@@ -23,7 +26,8 @@ once on one CUDA card.
    1/10/80% selectivity (QPS: the median of five windows of at least 1 s),
    plus one search_arrays_stream pass; recall@10 against the exact
    plain-PyTorch answer over the visible rows, deleted ids absent, every live
-   id readable by get, and the kernel's launch count.
+   id readable by get, and the kernel's launch count; then k = 300 (a pool
+   of 308 plus the churn margin), recall@300 against the exact answer.
 4. Graph engine phase, on the same database: commit the memtable, compact
    every segment into one Vamana segment (~1.1M live rows), delete 1,000
    more ids and insert 10k more rows, then search_arrays at the serving
@@ -35,8 +39,9 @@ once on one CUDA card.
    segment's device_bytes() against what building its state allocates.
    Kernel B (`coded_group_scan`) is then held against its plain version on the
    segment's own table with the probe inversion of a real batch, at the
-   serving profile (4 probes, kk 16) and at the segment's default knobs (20
-   probes, kk 8, qcap 96) with 80% of the slots kept; each case prints its
+   serving profile (4 probes, kk 16), at 4 probes and kk 64 (two list entries
+   a lane) and at the segment's default knobs (20 probes, kk 8, qcap 96) with
+   80% of the slots kept; each case prints its
    bound (probed clusters' bytes, bf16 peak) beside the all-clusters count
    (every cluster's bytes, fp32 peak: the count the first port used) and the
    code bytes' achieved TB/s.
@@ -63,12 +68,36 @@ once on one CUDA card.
       where they differ, against the exact answer and a wider pool; the
       routed stream against the plain route; nothing resident, peak device
       memory against a block-sized bound, QPS beside the measured H2D rate
-      of a pinned copy); then the graph phase's
-      database under the same budget: graph_stream, recall floor 0.99.
+      of a pinned copy), and the PQ stream at k = 100 (a pool of 400); then
+      the graph phase's database under a budget below its cluster cache's
+      cache_bytes(): graph_stream, recall floor 0.99.
+
+6. Cached tier: the graph phase's database reopened under a 64 MiB budget,
+   which admits the cluster cache (cache_bytes(), ~37 MB) but not the
+   segment (~859 MB): the planner plans graph_cached. Batches of 64 queries
+   drawn around two of the generator's centres (one, if two drop probes):
+   per batch the first run (its clusters admitted) and the warm rerun, QPS,
+   hits / misses / dropped probes / uploaded bytes, recall@10 against the
+   exact answer (floor 0.85 where no probe was dropped), the cache's device
+   bytes against cache_bytes(); per batch the recall at ef 80 and at
+   refine_factor 10 beside the defaults, and the share of the exact top-10
+   among the cached scan's candidates at kk 8 (the JAX package's rule), 16
+   (the port's) and 64; the first batch after release_cache() with
+   the host table's encode timed apart; one 4096-query uniform batch
+   (dropped probes and recall, no floor); kernel B against its plain version
+   on the cache tensors at kk 8 and kk 64. Then the same rows compacted with
+   store_codes="sq8" and "pq" into a store that counts ranged reads and
+   reopened from it: the store bytes a batch against the blob, the vectors
+   never loaded while serving; recall@10 floor 0.85 on every run that
+   dropped no probe, with the same recall by setting; the SQ8 table read
+   from the store serves the rows of a fresh encode of the segment's rows,
+   and PQ's recall is SQ8's within 0.05 (tests/test_ivf_cache.py's
+   criteria).
 
 With --profile, the flat phase's unfiltered case, the graph phase's serving
 case, the SQ8 engine path (unfiltered and probed), both streamed
-transports and graph_stream also print a breakdown of one sync batch: its wall time (the
+transports, graph_stream and a warm graph_cached batch also print a
+breakdown of one sync batch: its wall time (the
 median of 7 sync batches), the device's busy time in 3 batches under
 torch.profiler (the union of kernel and copy intervals), the host's share
 (wall - busy) and the largest device items.
@@ -96,6 +125,7 @@ BATCH = 4096
 K = 10
 RECALL_FLOOR = 0.999
 GRAPH_RECALL_FLOOR = 0.95
+WIDE_K = 300  # a pool past 256 on the flat engine path
 # Sync QPS: the median of QPS_WINDOWS windows of at least QPS_WINDOW_S each.
 QPS_WINDOWS = 5
 QPS_WINDOW_S = 1.0
@@ -261,12 +291,12 @@ def routes_agree(name, q, rn, routed, plain):
     return gap, tol, int(((i_r != i_p) & fin).sum())
 
 
-def sync_qps(db, queries, kw) -> float:
+def sync_qps(db, queries, kw, k=K) -> float:
     """QPS of back-to-back search_arrays calls over one window of QPS_WINDOW_S."""
     t0 = time.perf_counter()
     done = 0
     while (elapsed := time.perf_counter() - t0) < QPS_WINDOW_S:
-        db.search_arrays(queries, k=K, **kw)
+        db.search_arrays(queries, k=k, **kw)
         done += len(queries)
     return done / elapsed
 
@@ -375,6 +405,20 @@ def engine_phase(args, card):
         if args.profile and sel is None:
             profile_batch(db, queries[0], kw, "flat unfiltered", card)
 
+    # A pool past 256: k = 300 on the segment (pool 308 plus the churn
+    # margin) and the memtable, through the kernel's wide shape.
+    _, gt_rows = scan_topk_reference(q0, x_all, xn_all, WIDE_K, "l2", torch.from_numpy(live).to(dev))
+    gt = all_ids[gt_rows.cpu().numpy()]
+    got, dist = db.search_arrays(queries[0], k=WIDE_K)
+    check(got.shape == (BATCH, WIDE_K) and np.isfinite(dist).all(), "k300: result shape/finite")
+    check(not np.isin(got, deleted).any(), "k300: a deleted id was returned")
+    recall = np.mean([len(set(g) & set(t)) / WIDE_K for g, t in zip(got, gt)])
+    qps, lo, hi = median_qps(db, queries[0], {}, k=WIDE_K)
+    print(f"engine search_arrays k={WIDE_K}: {qps:.0f} QPS (B={BATCH}; median of {TIER_WINDOWS} "
+          f"windows, range {lo:.0f}-{hi:.0f}), recall@{WIDE_K} {recall:.5f} [{card}]", flush=True)
+    check(recall >= RECALL_FLOOR, f"k300: recall {recall} < {RECALL_FLOOR}")
+    del gt_rows, gt
+
     t0 = time.perf_counter()
     streamed = list(db.search_arrays_stream(iter(queries), k=K, depth=3))
     stream_s = time.perf_counter() - t0
@@ -407,16 +451,25 @@ def engine_phase(args, card):
             "x1": x1, "u1": u1, "metas1": metas1}
 
 
-def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
-    """Recall@K of `got` against the exact plain-PyTorch answer over the
-    visible rows."""
+def exact_ids(q, x_all, visible, all_ids) -> np.ndarray:
+    """The ids of the exact plain-PyTorch top-K over the visible rows."""
     from vecgo_tpu_torch.ops.scan_topk import scan_topk_reference
 
     xn = (x_all * x_all).sum(1)
     _, rows = scan_topk_reference(q, x_all, xn, K, "l2",
                                   torch.from_numpy(visible).to(x_all.device))
-    gt = all_ids[rows.cpu().numpy()]
-    return float(np.mean([len(set(g) & set(t)) / K for g, t in zip(got, gt)]))
+    return all_ids[rows.cpu().numpy()]
+
+
+def recall_of(got, gt) -> float:
+    """The share of each row of `gt` found in the same row of `got`."""
+    return float(np.mean([len(set(g) & set(t)) / len(t) for g, t in zip(got, gt)]))
+
+
+def recall_vs_exact(got, q, x_all, visible, all_ids) -> float:
+    """Recall@K of `got` against the exact plain-PyTorch answer over the
+    visible rows."""
+    return recall_of(got, exact_ids(q, x_all, visible, all_ids))
 
 
 def graph_phase(st, card):
@@ -539,10 +592,10 @@ def graph_phase(st, card):
     return seg, launches
 
 
-# Kernel B's two cases: (name, probes, kk, share of slots kept): the serving
-# profile, and the segment's default knobs (ef 80 -> 20 probes, kk 8) under
-# an 80% filter.
-CODED_CASES = (("serving", 4, 16, 1.0), ("probes20", 20, 8, 0.8))
+# Kernel B's cases: (name, probes, kk, share of slots kept): the serving
+# profile, the same at kk 64 (two list entries a lane), and the segment's
+# default knobs (ef 80 -> 20 probes, kk 8) under an 80% filter.
+CODED_CASES = (("serving", 4, 16, 1.0), ("serving-kk64", 4, 64, 1.0), ("probes20", 20, 8, 0.8))
 
 
 def coded_inputs(t, q, rng, n_probe, kk, keep):
@@ -600,16 +653,22 @@ def coded_check(name, args, out, ref):
 def coded_case(seg, q_np, rng, name, n_probe, kk, keep, card):
     """Kernel B against its plain version on the segment's own table, with
     the probe inversion of a real 4096-query batch (`coded_inputs`)."""
+    dev = torch.device("cuda")
+    t = seg.device_state(dev)["ivfq"]
+    args, qcap = coded_inputs(t, torch.from_numpy(q_np).to(dev), rng, n_probe, kk, keep)
+    return coded_measure(name, args, qcap, n_probe, keep, card)
+
+
+def coded_measure(name, args, qcap, n_probe, keep, card, note=""):
+    """Kernel B against its plain version on these arguments (`coded_check`),
+    then its time beside its bound, the all-clusters count and the plain
+    version's time."""
     from vecgo_tpu_torch.ops.coded_group_scan import (
         coded_group_scan, coded_group_scan_reference)
 
-    dev = torch.device("cuda")
-    t = seg.device_state(dev)["ivfq"]
-    k_pad, s = t.bnorm2.shape
-    q = torch.from_numpy(q_np).to(dev)
-    b, d = q.shape
-    args, qcap = coded_inputs(t, q, rng, n_probe, kk, keep)
-    qtab, bn = args[1], args[3]
+    q, qtab, codes, bn, scale, cent, kk = args
+    k_pad, s, d = codes.shape
+    b = q.shape[0]
     d_k, i_k = coded_group_scan(*args)
     ref = coded_group_scan_reference(*args)
     torch.cuda.synchronize()
@@ -631,12 +690,12 @@ def coded_case(seg, q_np, rng, name, n_probe, kk, keep, card):
     bound_ms, bound_by = bound(2.0 * n_live * s * d, nbytes, True)
     # The all-clusters count, for comparison with earlier records: every
     # cluster's codes and norms, fp32 peak.
-    old_bytes = (t.codes.numel() + bn.numel() * 4 + t.scale.numel() * 4
-                 + t.centroids.numel() * 4 + q.numel() * 4 + qtab.numel() * 4 + out_bytes)
+    old_bytes = (codes.numel() + bn.numel() * 4 + scale.numel() * 4
+                 + cent.numel() * 4 + q.numel() * 4 + qtab.numel() * 4 + out_bytes)
     old_ms, old_by = bound(2.0 * n_live * s * d, old_bytes, False)
     per = torch.bincount(live.sum(1))
     print(f"kernel coded_group_scan {name}: B={b} K={k_pad} S={s} d={d} qcap={qcap} kk={kk} "
-          f"probes={n_probe}{f' slots kept {keep:.0%}' if keep < 1 else ''} ({n_live} live "
+          f"probes={n_probe}{f' slots kept {keep:.0%}' if keep < 1 else ''}{note} ({n_live} live "
           f"(cluster, query) pairs over {probed} probed clusters, at most "
           f"{per.shape[0] - 1} a cluster): kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}), share {bound_ms / ms:.1%}; all-clusters bound {old_ms:.3f} ms "
@@ -662,16 +721,18 @@ SEGMENT_FLOORS = {"int4": 0.90, "pq": 0.90, "opq": 0.90, "bq": 0.75, "rabitq": 0
 # quality targets.
 SEGMENT_FLOORS_1M = {"int4": 0.95, "pq": 0.25, "opq": 0.25, "bq": 0.35, "rabitq": 0.33}
 # What the low floors above rest on: a pool of WIDE_POOL rows by the same
-# codes (the plain score matrix; the kernel takes at most 256) recovers the
-# true top 10, over the first WIDE_QUERIES queries.
+# codes (the scan_topk route, its wide shape; the plain score matrix for
+# RaBitQ) recovers the true top 10, over the first WIDE_QUERIES queries.
 WIDE_POOL, WIDE_QUERIES = 1000, 512
 WIDE_POOL_FLOOR = 0.95
-STREAM_BUDGET = 64 << 20  # device budget of the streamed cases (bytes)
+STREAM_BUDGET = 64 << 20  # device budget of the streamed flat cases (bytes)
+# Below the graph segment's cache_bytes() (~37 MB): it streams (graph_stream).
+GRAPH_STREAM_BUDGET = 16 << 20
 BLOCK_ROWS = 131072  # rows a quantized or streamed scan hands the kernel at once
 
 
-def median_qps(db, queries, kw, windows=TIER_WINDOWS):
-    w = sorted(sync_qps(db, queries, kw) for _ in range(windows))
+def median_qps(db, queries, kw, windows=TIER_WINDOWS, k=K):
+    w = sorted(sync_qps(db, queries, kw, k) for _ in range(windows))
     return w[len(w) // 2], w[0], w[-1]
 
 
@@ -963,10 +1024,13 @@ def segment_quantizers_case(st, x_dev, card):
                      f"{swaps} rows differ at ties), reranked recall@10 by the plain route "
                      f"{recall_p:.5f}")
         # The low recall of a 100-row pool on this corpus is the codes'
-        # resolution, not the scan: the plain score matrix's pool of 1,000
-        # (wider than the kernel takes) holds the true top 10.
+        # resolution, not the scan: a pool of 1,000 by the same codes holds
+        # the true top 10.
         qw = q0[:WIDE_QUERIES].contiguous()
-        _, rows_w = T.blockwise_topk_scored(qw, state, N, WIDE_POOL, plain)
+        before = scan_topk.launches
+        _, rows_w = T.blockwise_topk_scored(qw, state, N, WIDE_POOL,
+                                            T.BlockScanner(seg.quant, Metric.L2))
+        launches += scan_topk.launches - before
         _, top_w = T.topk_smallest_with_ids(T.rerank_exact(qw, rows_w, x_dev, xn_dev, Metric.L2),
                                             rows_w, K)
         recall_w = recall_vs_exact(top_w.cpu().numpy(), qw, x_dev, every, ids)
@@ -974,7 +1038,7 @@ def segment_quantizers_case(st, x_dev, card):
               f"(65,536 rows), encode {encode_s:.3f} s, write+open {write_s:.3f} s; scan "
               f"B={BATCH} pool 100: {route}; its codes once over 3.35 TB/s {least_ms:.3f} ms; "
               f"host rerank of the pool {rerank_ms:.1f} ms; reranked recall@10 {recall:.5f} "
-              f"(regression floor {SEGMENT_FLOORS_1M[kind]}); with the plain route's pool of "
+              f"(regression floor {SEGMENT_FLOORS_1M[kind]}); with a pool of "
               f"{WIDE_POOL} over {WIDE_QUERIES} queries {recall_w:.5f} (floor "
               f"{WIDE_POOL_FLOOR}) [{card}]", flush=True)
         check(recall >= SEGMENT_FLOORS_1M[kind], f"{kind}: reranked recall {recall}")
@@ -1087,14 +1151,13 @@ def streamed_case(st, x_dev, card):
         # Where the streamed and the resident answers differ, one of them
         # missed a row of the exact answer at its pool's edge (the resident
         # scan pools k + 8 rows by bf16 scores, the stream `pool` rows by its
-        # codes): a pool four times as wide over the same codes (the plain
-        # route: it passes the kernel's 256) returns the exact rows there.
+        # codes): a pool four times as wide over the same codes returns the
+        # exact rows there.
         differ = np.flatnonzero(~same)
         witness, pool_miss = "no query differs", True
         if len(differ):
             qd = q0[torch.from_numpy(differ).to(dev)].contiguous()
-            _, rows_w = T.streaming_topk_scored(
-                qd, enc_host, N, 4 * pool, T.BlockScanner(PlainOnly(scanner.quant), scanner.metric))
+            _, rows_w = T.streaming_topk_scored(qd, enc_host, N, 4 * pool, scanner)
             _, top_w = T.topk_smallest_with_ids(seg.rerank_host(qd, rows_w), rows_w, K)
             wide = np.asarray(seg.ids)[top_w.cpu().numpy()]
             exact = np.sort(gt[differ], 1)  # as sets: near-equal rows may swap places
@@ -1131,6 +1194,21 @@ def streamed_case(st, x_dev, card):
         check(routes_same >= 0.999, f"stream {transport}: the routes agree on {routes_same}")
         check(pool_miss, f"stream {transport}: every differing query is one side's pool miss "
                          f"that a pool of {4 * pool} repairs ({witness})")
+        if transport == "pq":
+            # fetch_k = 100: the transport pools max(4 * 100, 128) = 400 rows.
+            scan_topk.launches = 0
+            got_w, _ = db.search_arrays(q_np, k=100)
+            launches["pq_k100"] = scan_topk.launches
+            _, gt_w = scan_topk_reference(q0, x_dev, (x_dev * x_dev).sum(1), 100, "l2", None)
+            gt_w = ids1[gt_w.cpu().numpy()]
+            recall_w = float(np.mean([len(set(g) & set(t)) / 100 for g, t in zip(got_w, gt_w)]))
+            qps_w, lo_w, hi_w = median_qps(db, q_np, {}, k=100)
+            print(f"stream flat_stream transport pq at k=100 (pool 400): {qps_w:.0f} QPS (B={BATCH}"
+                  f"; median of {TIER_WINDOWS} windows, range {lo_w:.0f}-{hi_w:.0f}), recall@100 "
+                  f"{recall_w:.5f}; scan_topk launches a batch {launches['pq_k100']} [{card}]",
+                  flush=True)
+            check(recall_w >= QUANT_RECALL_FLOOR, f"stream pq k=100: recall {recall_w}")
+            check(launches["pq_k100"] > 0, "stream pq k=100: launched scan_topk")
         db.close()
         seg._streams.clear()
         del enc_host
@@ -1143,8 +1221,13 @@ def streamed_case(st, x_dev, card):
     live = ~np.isin(all_ids, deleted)
     scan_topk.launches = 0
     coded_group_scan.launches = 0
-    db = vg.Open(st["backend"], vg.Create(dim=0, hbm_budget_bytes=STREAM_BUDGET), device="cuda")
+    db = vg.Open(st["backend"], vg.Create(dim=0, hbm_budget_bytes=GRAPH_STREAM_BUDGET),
+                 device="cuda")
     kinds = {type(h.segment).__name__: h.segment.device_bytes() for h in db.engine._segments}
+    graph_seg = next(h.segment for h in db.engine._segments
+                     if type(h.segment).__name__ == "VamanaSegment")
+    check(GRAPH_STREAM_BUDGET < graph_seg.cache_bytes(),
+          f"the budget is below the cluster cache's {graph_seg.cache_bytes()} bytes")
     t0 = time.perf_counter()
     got, dist = db.search_arrays(q_np, k=K)
     first_s = time.perf_counter() - t0
@@ -1185,6 +1268,357 @@ def tiers_phase(st, card):
           f"scan_topk launches {by_path} [{card}]", flush=True)
     return by_path, cases + segment_cases + stream_cases
 
+CACHE_BUDGET = 64 << 20  # device budget of the cached tier (bytes)
+CACHED_BATCH = 64  # queries a clustered batch of the cached tier
+CACHED_BATCHES = 4
+CACHED_RECALL_FLOOR = 0.85  # the lower of tests/test_ivf_cache.py's floors
+
+
+def plan_kinds(engine, k=K):
+    """The planner's source kinds for one search of the current snapshot."""
+    from vecgo_tpu_torch.engine import search as S
+    from vecgo_tpu_torch.model import SearchOptions
+
+    snap = engine.snapshot()
+    try:
+        plan = S._plan_snapshot(snap, SearchOptions(k=k), engine.options, engine._device_budget)
+    finally:
+        snap.release()
+    return [src.kind for src in plan.sources]
+
+
+def timed_search(db, q_np, **kw):
+    """One sync search_arrays batch: (ids, seconds)."""
+    t0 = time.perf_counter()
+    got, dist = db.search_arrays(q_np, k=K, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == (len(q_np), K) and np.isfinite(dist).all(), "cached: shape/finite")
+    return got, time.perf_counter() - t0
+
+
+def cache_coded_inputs(cc, q, n_probe, kk):
+    """Kernel B's arguments for a query batch on the cluster cache's tensors,
+    as `ClusterCachedTable.probe_and_scan` builds them (its `probe_slots`:
+    the probes remapped to cache slots at the batch's peak per-slot load),
+    inverted as `ops/ivf.scan_groups` inverts them."""
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+
+    pm, qcap, _ = cc.probe_slots(q, n_probe)
+    qtab, _ = ivf_ops._invert_probes(pm, cc.c, qcap)
+    t = cc.table()
+    return (q, qtab, t.codes, t.bnorm2, t.scale, t.centroids, kk), qcap
+
+
+class CountingStore:
+    """A blob store that counts the bytes of its ranged reads and its
+    whole-object reads (the cloud tier's traffic), around the port's
+    in-memory store; it offers no zero-copy view, so the engine opens its
+    segments by ranged reads, as from a remote store."""
+
+    def __init__(self):
+        from vecgo_tpu_torch.blobstore import MemoryStore
+
+        class Counting(MemoryStore):
+            range_bytes = 0
+            full_gets = 0
+            _in_range = False
+
+            def get_range(self, name, offset, length):
+                self.range_bytes += length
+                self._in_range = True
+                try:
+                    return super().get_range(name, offset, length)
+                finally:
+                    self._in_range = False
+
+            def get(self, name):
+                if not self._in_range:
+                    self.full_gets += 1
+                return super().get(name)
+
+        self.store = Counting()
+
+
+def cached_batch_run(db, seg, qb, q_dev, x_all, live, all_ids, label, card):
+    """One clustered batch through graph_cached: its first run (the misses
+    admitted) and the median of three warm reruns; the cache's counters
+    over the first run; recall@10 against the exact answer."""
+    cc = seg.cluster_cache(device=q_dev.device)
+    before = dict(cc.stats)
+    got, cold_s = timed_search(db, qb)
+    delta = {key: cc.stats[key] - before[key] for key in
+             ("hits", "misses", "dropped_probes", "h2d_bytes")}
+    warm = sorted(timed_search(db, qb)[1] for _ in range(3))[1]
+    recall = recall_vs_exact(got, q_dev, x_all, live, all_ids)
+    print(f"cached {label}: first run {len(qb) / cold_s:.0f} QPS ({cold_s * 1e3:.3f} ms), warm "
+          f"{len(qb) / warm:.0f} QPS ({warm * 1e3:.3f} ms); hits {delta['hits']} misses "
+          f"{delta['misses']} dropped_probes {delta['dropped_probes']} h2d_bytes "
+          f"{delta['h2d_bytes']}; recall@10 {recall:.5f}; cache device_bytes() "
+          f"{cc.device_bytes()} [{card}]", flush=True)
+    return recall, delta
+
+
+def cached_recall_by_setting(db, seg, qb, q_dev, gt, label, card):
+    """Where a cached batch's recall goes: recall@10 through the engine at
+    its defaults (refine_factor 2, ef 64 -> 16 probes), at ef 80 (20 probes)
+    and at refine_factor 10 (a pool of 100); and the share of the exact
+    top-10 among the cached scan's candidates before the pool is cut, at 16
+    probes with kk 8 (the JAX package's rule), 16 (the port's; 64 for PQ)
+    and 64, and at 64 probes with kk 8 (witness scans: their launches do not
+    count). Returns the recall by setting."""
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+    cc = seg._ccache
+    dropped = cc.stats["dropped_probes"]
+    recall = {}
+    for name, kw in (("defaults", {}), ("ef 80", dict(ef=80)),
+                     ("refine_factor 10", dict(refine_factor=10))):
+        recall[name] = recall_of(timed_search(db, qb, **kw)[0], gt)
+    witness = coded_group_scan.launches
+    found = {}
+    for n_probe, kk in ((16, 8), (16, 16), (16, 64), (64, 8)):
+        rows = cc.probe_and_scan(q_dev, n_probe, kk)[1].cpu().numpy()
+        found[n_probe, kk] = recall_of(np.where(rows >= 0, seg.ids[np.maximum(rows, 0)], -1), gt)
+    coded_group_scan.launches = witness
+    print(f"cached {label} recall@10 by setting: "
+          + ", ".join(f"{n} {r:.5f}" for n, r in recall.items())
+          + "; exact top-10 among the scan's candidates: "
+          + ", ".join(f"{p} probes kk {kk} {r:.5f}" for (p, kk), r in found.items())
+          + f"; dropped_probes {cc.stats['dropped_probes'] - dropped} [{card}]", flush=True)
+    return recall
+
+
+def cached_phase(st, rng, card):
+    """Phase 6: graph_cached over the graph phase's database under a budget
+    that admits the cluster cache, then persisted codes from a counting
+    store. Returns the launches of both kernels on this path and kernel B's
+    cases on the cache tensors."""
+    import gc
+
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.ivf_cache import LazyHostTable
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    dev = torch.device("cuda")
+    all_ids, deleted, x_all = st["graph_ids"], st["graph_deleted"], st["graph_x"]
+    live = ~np.isin(all_ids, deleted)
+    centers = st["centers"]
+    scan_topk.launches = 0
+    coded_group_scan.launches = 0
+    db = vg.Open(st["backend"], vg.Create(dim=0, hbm_budget_bytes=CACHE_BUDGET), device="cuda")
+    seg = next(h.segment for h in db.engine._segments
+               if type(h.segment).__name__ == "VamanaSegment")
+    kinds = plan_kinds(db.engine)
+    cache_bytes, seg_bytes = seg.cache_bytes(), seg.device_bytes()
+    print(f"cached plan under {CACHE_BUDGET >> 20} MiB: {kinds}; cache_bytes() {cache_bytes}, "
+          f"the segment's device_bytes() {seg_bytes}; IVF membership "
+          f"{tuple(seg.ivf_members.shape)} [{card}]", flush=True)
+    check("graph_cached" in kinds and "graph_stream" not in kinds, f"graph_cached planned: {kinds}")
+    check(cache_bytes <= CACHE_BUDGET < seg_bytes, "the budget admits the cache, not the segment")
+
+    # The host table (the SQ8 encode of the segment's rows) and the cache's
+    # tensors are built at the first batch; release_cache() drops both, as
+    # the JAX cache does, so the first batch after it pays the encode.
+    t0 = time.perf_counter()
+    cc = seg.cluster_cache(device=dev)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in
+               (cc.codes_c, cc.bn_c, cc.rows_c, cc.scale_c, cc.cent_c, cc.cent_dev, cc.cnorm2_dev))
+    print(f"cached build: host table encoded from the rows and cache tensors allocated in "
+          f"{build_s:.3f} s; cache tensors {held} bytes = device_bytes() {cc.device_bytes()} "
+          f"(cache_bytes() {cache_bytes}; C={cc.c} S={cc.s} d={cc.d} K={cc.k}) [{card}]",
+          flush=True)
+    check(held == cc.device_bytes() <= cache_bytes, "the cache's device bytes")
+
+    # Clustered traffic: batches around two centres each, or one if two
+    # drop probes.
+    for n_centres in (2, 1):
+        batches = [clustered(rng, CACHED_BATCH,
+                             centers[rng.choice(len(centers), n_centres, replace=False)])
+                   for _ in range(CACHED_BATCHES)]
+        seg.release_cache()
+        cc = seg.cluster_cache(device=dev)
+        results = []
+        for i, qb in enumerate(batches):
+            q_dev = torch.from_numpy(qb).to(dev)
+            results.append(cached_batch_run(db, seg, qb, q_dev, x_all, live, all_ids,
+                                            f"batch {i} ({n_centres} centres, {CACHED_BATCH} "
+                                            f"queries)", card))
+        if all(r[1]["dropped_probes"] == 0 for r in results) or n_centres == 1:
+            break
+    print(f"cached traffic: batches of {CACHED_BATCH} queries around {n_centres} of the "
+          f"generator's centres [{card}]", flush=True)
+    # Recall floors are checked at the end of the phase, after every line
+    # that says where a batch's recall went has been printed.
+    floors = [(recall, f"batch {i}") for i, (recall, delta) in enumerate(results)
+              if delta["dropped_probes"] == 0]
+    check(floors, "a batch dropped no probe")
+    for i, qb in enumerate(batches):
+        q_dev = torch.from_numpy(qb).to(dev)
+        cached_recall_by_setting(db, seg, qb, q_dev, exact_ids(q_dev, x_all, live, all_ids),
+                                 f"batch {i}", card)
+    # The first batch after release_cache(): the host table's encode, then
+    # every probed cluster a miss.
+    seg.release_cache()
+    gc.collect()
+    qb = batches[0]
+    got, first_s = timed_search(db, qb)
+    cc = seg._ccache
+    print(f"cached cold: the first batch after release_cache() (host encode, allocation, "
+          f"every probe a miss) {first_s:.3f} s = {len(qb) / first_s:.1f} QPS; misses "
+          f"{cc.stats['misses']} h2d_bytes {cc.stats['h2d_bytes']} [{card}]", flush=True)
+    if st["profile"]:
+        profile_batch(db, qb, {}, "graph_cached warm batch", card)
+
+    # Kernel B on the cache tensors: a 4096-query batch around the last
+    # batch's centres (its clusters admitted by one search first), at the
+    # engine's probes for this segment (ef 80 -> 20) and kk 8 and kk 64.
+    hot = clustered(rng, BATCH, centers[rng.choice(len(centers), n_centres, replace=False)])
+    db.search_arrays(hot, k=K)
+    q_hot = torch.from_numpy(hot).to(dev)
+    # The path's launches so far; the comparisons below do not count.
+    launches = {"scan_topk": scan_topk.launches, "coded_group_scan": coded_group_scan.launches}
+    cases = []
+    for kk in (8, 64):
+        args, qcap = cache_coded_inputs(cc, q_hot, 20, kk)
+        cases.append(coded_measure(f"cache-kk{kk}", args, qcap, 20, 1.0, card,
+                                   note=" (the cluster cache's tensors)"))
+    # The cached scan against the resident table's (`ops/ivf.ivf_scan` over
+    # every cluster) on the last clustered batch, every probe cached: the
+    # same rows (the resident table's centroids are the device's sums of the
+    # same rows, so a probe can flip at a near tie).
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+
+    full = seg.device_state(dev)["ivfq"]
+    qb_dev = torch.from_numpy(batches[-1]).to(dev)
+    dropped = cc.stats["dropped_probes"]
+    d_c, r_c = cc.probe_and_scan(qb_dev, 20, 8, qcap=CACHED_BATCH)
+    d_f, r_f = ivf_ops.ivf_scan(qb_dev, full, n_probe=20, kk=8, qcap=CACHED_BATCH)
+    r_c, r_f = r_c.cpu().numpy(), r_f.cpu().numpy()
+    sets = [(set(a[a >= 0]), set(b[b >= 0])) for a, b in zip(r_c, r_f)]
+    overlap = sum(len(a & b) for a, b in sets) / max(1, sum(len(b) for _, b in sets))
+    equal = float(np.mean([a == b for a, b in sets]))
+    print(f"cached scan against the resident table's ivf_scan (20 probes, kk 8, the last "
+          f"batch): row sets equal on {equal:.5f} of the queries, overlap {overlap:.5f}; "
+          f"dropped probes {cc.stats['dropped_probes'] - dropped} [{card}]", flush=True)
+    check(cc.stats["dropped_probes"] == dropped and overlap >= 0.99,
+          "the cached scan returns the resident table's rows")
+    seg.release_device()
+    del full, d_c, d_f
+    scan_topk.launches = coded_group_scan.launches = 0
+
+    # Uniform traffic: ~3,000 unique probes cannot fit 256 cached clusters;
+    # the probes that do not fit are dropped, as the reference drops them.
+    before = dict(cc.stats)
+    got, uni_s = timed_search(db, st["queries"][1])
+    recall = recall_vs_exact(got, torch.from_numpy(st["queries"][1]).to(dev), x_all, live, all_ids)
+    print(f"cached uniform batch ({BATCH} queries over all centres): {BATCH / uni_s:.0f} QPS, "
+          f"dropped_probes {cc.stats['dropped_probes'] - before['dropped_probes']}, misses "
+          f"{cc.stats['misses'] - before['misses']}, recall@10 {recall:.5f} (no floor) [{card}]",
+          flush=True)
+    check(launches["coded_group_scan"] > 0, "graph_cached launched kernel B")
+    db.close()
+    seg.release_cache()
+    del cc
+
+    # Persisted codes: the same live rows compacted with store_codes into a
+    # store that counts its reads, then reopened from it.
+    x_live_dev = x_all[torch.from_numpy(live).to(dev)]
+    x_live = x_live_dev.cpu().numpy()
+    half = len(x_live) // 2
+    first_recall = {}
+    for kind in ("sq8", "pq"):
+        counting = CountingStore().store
+        t0 = time.perf_counter()
+        w = vg.Open(vg.Remote(counting), vg.Create(dim=DIM, flush_threshold=2**62,
+                                                   store_codes=kind), device="cuda")
+        ids = []
+        for part in (x_live[:half], x_live[half:]):  # two segments, compacted into one
+            ids += w.insert_batch(part)
+            w.commit()
+        ids = np.asarray(ids, np.int64)
+        w.compact([h.seg_id for h in w.engine._segments])
+        wseg = w.engine._segments[0].segment
+        check(wseg.meta["ivf"].get("codes_stored") == kind, f"store_codes={kind} persisted")
+        name = w.engine._segments[0].info.name
+        w.close()
+        write_s = time.perf_counter() - t0
+        del wseg, w
+        gc.collect()
+        blob_len = len(counting.get(name))
+        counting.range_bytes = counting.full_gets = 0
+        r = vg.Open(vg.Remote(counting, read_only=True),
+                    vg.Create(dim=0, hbm_budget_bytes=CACHE_BUDGET), device="cuda")
+        rseg = r.engine._segments[0].segment
+        open_bytes = counting.range_bytes
+        counting.full_gets = 0  # the manifest's whole reads at the open; serving makes none
+        check(plan_kinds(r.engine) == ["graph_cached"], f"store_codes={kind}: graph_cached")
+        check(rseg._vectors_arr is None, f"store_codes={kind}: the open deferred the vectors")
+        every = np.ones(len(ids), bool)
+        n_floors = len(floors)
+        for i, qb in enumerate(batches[:2]):
+            q_dev = torch.from_numpy(qb).to(dev)
+            gt = exact_ids(q_dev, x_live_dev, every, ids)
+            for run in ("first", "warm"):
+                b0 = counting.range_bytes
+                dropped = rseg._ccache.stats["dropped_probes"] if rseg._ccache else 0
+                got, t_s = timed_search(r, qb)
+                recall = recall_of(got, gt)
+                dropped = rseg._ccache.stats["dropped_probes"] - dropped
+                print(f"cached store_codes={kind} batch {i} {run} run: {len(qb) / t_s:.0f} QPS, "
+                      f"store read {counting.range_bytes - b0} bytes against the blob's "
+                      f"{blob_len}, dropped_probes {dropped}, recall@10 {recall:.5f} [{card}]",
+                      flush=True)
+                first_recall.setdefault((kind, i), recall)
+                if dropped == 0:
+                    floors.append((recall, f"store_codes={kind} batch {i} {run} run"))
+            cached_recall_by_setting(r, rseg, qb, q_dev, gt, f"store_codes={kind} batch {i}", card)
+        check(len(floors) > n_floors, f"store_codes={kind}: a batch dropped no probe")
+        # tests/test_ivf_cache.py's criterion for the PQ transport: SQ8's
+        # recall within 0.05 on the same batch (the same seeded build).
+        if kind == "pq":
+            for i in range(2):
+                check(first_recall["pq", i] >= first_recall["sq8", i] - 0.05,
+                      f"store_codes=pq batch {i}: recall {first_recall['pq', i]} against sq8's "
+                      f"{first_recall['sq8', i]}")
+        cc = rseg._ccache
+        check(isinstance(cc.host, LazyHostTable), f"store_codes={kind}: blocks by ranged reads")
+        check(rseg._vectors_arr is None and counting.full_gets == 0,
+              f"store_codes={kind}: the vectors were never loaded, no whole-object read")
+        served = (cc.host.store_bytes, cc.stats["h2d_bytes"])
+        if kind == "sq8":
+            # The persisted codes, read block by block from the store, serve
+            # the rows a cache over a fresh host encode of the same rows serves
+            # (these scans are a witness: their launches do not count).
+            from vecgo_tpu_torch.ops.ivf_cache import ClusterCachedTable
+
+            fresh = ClusterCachedTable(rseg.ivf_members, rseg.vectors, device=dev)
+            q_dev = torch.from_numpy(batches[0]).to(dev)
+            witness = coded_group_scan.launches
+            r_lazy = cc.probe_and_scan(q_dev, 20, 8, qcap=CACHED_BATCH)[1]
+            r_fresh = fresh.probe_and_scan(q_dev, 20, 8, qcap=CACHED_BATCH)[1]
+            coded_group_scan.launches = witness
+            check(torch.equal(r_lazy, r_fresh),
+                  "store_codes=sq8: the persisted codes serve a fresh encode's rows")
+            del fresh
+        print(f"cached store_codes={kind}: written (insert, commit, compact, encode) in "
+              f"{write_s:.3f} s; blob {blob_len} bytes (rows {x_live.nbytes}); open read "
+              f"{open_bytes} bytes; blocks read from the store {served[0]} bytes, "
+              f"uploaded {served[1]}; the vectors never loaded, no whole-object read "
+              f"while serving{'; rows equal to a fresh encode of the rows' if kind == 'sq8' else ''}"
+              f" [{card}]", flush=True)
+        r.close()
+        del rseg, r, cc, counting
+        gc.collect()
+    launches["scan_topk"] += scan_topk.launches
+    launches["coded_group_scan"] += coded_group_scan.launches
+    for recall, label in floors:
+        check(recall >= CACHED_RECALL_FLOOR,
+              f"cached {label}: recall@10 {recall} < {CACHED_RECALL_FLOOR}")
+    return launches, cases
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1211,7 +1645,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     # The engine's shapes: the segment's bf16 pool scan at k + 8 (clean) and
     # at the churn margin's pool, the memtable's f32 chunks at its pools,
-    # wide f32 rows, and the largest k the kernel takes.
+    # wide f32 rows, the widest k of the narrow shape, and the wide shape.
     cases = [
         kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card),
         kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card),
@@ -1219,6 +1653,12 @@ def main() -> int:
         kernel_case("chunk-pool82", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card),
         kernel_case("wide-d768", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card),
         kernel_case("k256", rng, BATCH, 65536, DIM, 256, torch.bfloat16, "l2", 0.1, card),
+        # The wide shape: a coarse quantizer's pool of 1,000 over the segment
+        # and over one decoded block, and k = 4096.
+        kernel_case("segment-k1000", rng, BATCH, N, DIM, 1000, torch.bfloat16, "l2", 0, card),
+        kernel_case("block-k1000", rng, BATCH, BLOCK_ROWS, DIM, 1000, torch.bfloat16, "l2", 0,
+                    card),
+        kernel_case("k4096", rng, BATCH, 65536, DIM, 4096, torch.bfloat16, "l2", 0.1, card),
     ]
     main_case = cases[0]
     torch.cuda.empty_cache()
@@ -1236,15 +1676,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     tier_launches, tier_cases = tiers_phase(st, card)
     cases += tier_cases
+    cached_launches, cached_cases = cached_phase(st, np.random.default_rng(args.seed + 6), card)
+    coded += cached_cases
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
         "route": "cuda",
         "source": "vecgo_tpu_torch/csrc/scan_topk.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
-        "launches": st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values()),
+        "launches": (st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values())
+                     + cached_launches["scan_topk"]),
         "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"],
-                             **tier_launches},
+                             **tier_launches, "cached": cached_launches["scan_topk"]},
         "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1259,7 +1702,9 @@ def main() -> int:
         "route": "cuda",
         "source": "vecgo_tpu_torch/csrc/coded_group_scan.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:247",
-        "launches": graph_launches["coded_group_scan"],
+        "launches": graph_launches["coded_group_scan"] + cached_launches["coded_group_scan"],
+        "launches_by_path": {"graph": graph_launches["coded_group_scan"],
+                             "cached": cached_launches["coded_group_scan"]},
         "max_abs_err": max(c["err"] for c in coded),
         "ms": coded[0]["ms"],
         "plain_ms": coded[0]["plain_ms"],

@@ -79,7 +79,8 @@ def assert_same_lists(d_a, i_a, d_b, i_b, tol):
             assert (np.abs(ds[row][extra] - last) <= 2 * tol).all(), (row, ids[row], other[row])
 
 
-@pytest.mark.parametrize("kk,qcap,masked", [(8, 24, False), (8, 24, True), (1, 3, False)])
+@pytest.mark.parametrize("kk,qcap,masked", [(8, 24, False), (8, 24, True), (1, 3, False),
+                                            (48, 24, False), (64, 24, True)])
 def test_reference_matches_pallas_interpret(coded, kk, qcap, masked):
     x, jt, tt, q, probes = coded
     k_pad, s = jt.bnorm2.shape
@@ -154,7 +155,7 @@ def test_wrapper_checks_and_cpu_route(coded):
     d_r, i_r = coded_group_scan_reference(*args, 8)
     assert torch.equal(d, d_r) and torch.equal(i, i_r)
     assert coded_group_scan.launches == before  # a CPU tensor never launches
-    for kk in (0, 33, tt.codes.shape[1] + 1):
+    for kk in (0, 65, tt.codes.shape[1] + 1):
         with pytest.raises(ValueError):
             coded_group_scan(*args, kk)
     with pytest.raises(ValueError):

@@ -200,8 +200,8 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     x = torch.from_numpy(x).to(cuda)
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, 256, "l2", None)
-    tq, _, _, _, bps, sms = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16),
-                                     128, 256)
+    tq, _, _, _, bps, sms, _ = st._plan(_build.library(), q.device,
+                                        int(dtype == torch.bfloat16), 128, 256)
     splits, rows_per_split = st.split_plan(64, 40_000, 256, tq, bps * sms)
     assert splits > 1 and rows_per_split >= 300
     d_k, i_k = scan_topk(*args)
@@ -209,6 +209,92 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     torch.cuda.synchronize()
     _check_against_plain(*args, d_k, i_k, d_r, i_r)
     assert bool((i_k < 300).all())
+    assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+# ---- kernel A's wide shape (k > 256: lists in a global scratch) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,dtype,metric,mask_frac",
+    [(257, torch.bfloat16, "l2", 0.3), (257, torch.float32, "dot", 0.0),
+     (1000, torch.bfloat16, "cos", 0.0), (1000, torch.float32, "l2", 0.2),
+     (4096, torch.bfloat16, "l2", 0.1), (4096, torch.float32, "cos", 0.0),
+     (4096, torch.bfloat16, "dot", 0.0),
+     # k = N: every row is in the answer (with a mask, the eligible ones and
+     # then (+inf, -1)).
+     (20_000, torch.bfloat16, "dot", 0.0), (20_000, torch.float32, "l2", 0.5)],
+)
+def test_kernel_wide_pool_matches_plain_version(cuda, k, dtype, metric, mask_frac):
+    r = np.random.default_rng(k + int(100 * mask_frac))
+    b, n, d = 130, 20_000, 64
+    q = torch.from_numpy(r.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    if metric == "cos":
+        q, x = q / q.norm(dim=1, keepdim=True), x / x.norm(dim=1, keepdim=True)
+    mask = torch.from_numpy(r.random(n) >= mask_frac).to(cuda) if mask_frac else None
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, metric, mask)
+    before = scan_topk.launches
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    assert scan_topk.launches == before + 1
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    if k == n:
+        assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,n,k", [("random", 700, 600), ("nearing", 3000, 600),
+                                       ("nearing", 5000, 4096)])
+def test_kernel_wide_merges_while_lists_fill(cuda, dtype, order, n, k):
+    """The wide merge's top-down moves: with rows that come nearer the
+    queries tile by tile, every candidate ranks before every listed entry,
+    so every merge moves the whole list; with random rows and k near N,
+    lists fill over many merges."""
+    r = np.random.default_rng(n + k)
+    q = r.standard_normal((70, 128)).astype(np.float32)
+    x = r.standard_normal((n, 128)).astype(np.float32)
+    if order == "nearing":
+        q *= 0.01
+        x *= (np.linspace(40, 1, n) / np.linalg.norm(x, axis=1)).astype(np.float32)[:, None]
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
+    """As the narrow test of the same name, at k = 1000 over 200,000 rows:
+    the split merge's searches at the wide shape's step count."""
+    from vecgo_tpu_torch.kernels import _build
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    r = np.random.default_rng(1000)
+    x = r.standard_normal((200_000, 128)).astype(np.float32)
+    x[1200:] += 100.0
+    q = torch.from_numpy(r.standard_normal((64, 128)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, 1000, "l2", None)
+    tq, _, _, _, bps, sms, wide = st._plan(_build.library(), q.device,
+                                           int(dtype == torch.bfloat16), 128, 1000)
+    splits, rows_per_split = st.split_plan(64, 200_000, 1000, tq, bps * sms)
+    assert wide and splits > 1 and rows_per_split >= 1200
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    assert bool((i_k < 1200).all())
     assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
 
 
@@ -336,7 +422,12 @@ def _check_coded(args, d_k, i_k, d_r, i_r):
      (300, 40, 100, 16, 37, 1, 3, True),
      (300, 40, 100, 16, 37, 32, 3, False),
      (200, 24, 256, 768, 45, 8, 4, True),
-     (64, 10, 40, 18, 64, 16, 2, False)],  # d not a multiple of 4
+     (64, 10, 40, 18, 64, 16, 2, False),  # d not a multiple of 4
+     # kk past 32: two list entries a lane.
+     (300, 40, 100, 16, 37, 33, 3, False),
+     (64, 40, 200, 32, 8, 64, 2, False),  # at most 8 queries a block
+     (200, 24, 256, 768, 45, 48, 4, True),
+     (4096, 256, 1024, 128, 96, 64, 16, True)],
 )
 def test_coded_kernel_matches_plain_version(cuda, b, k, s, d, qcap, kk, n_probe, masked):
     from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan, coded_group_scan_reference
@@ -361,10 +452,14 @@ def _coded_case(cuda, case):
     if case.startswith("skew"):
         # Cluster 0 probed by n queries: past the old 8-slot tiles, the m16
         # query tiles, and (n >= 64) the 64-slot query groups; 180 > qcap.
-        n, qcap = int(case[4:]), 150
-        b, k, s, d, kk = 200, 12, 300, 128, 16
+        # "skewN_kkM": the same at kk M (two list entries a lane past 32).
+        n, _, kk = case[4:].partition("_kk")
+        n, qcap, kk = int(n), 150, int(kk or 16)
+        b, k, s, d = 200, 12, 300, 128
     elif case == "kk_eq_s":
         n, qcap, b, k, s, d, kk = 0, 40, 120, 10, 32, 64, 32
+    elif case == "kk_eq_s64":
+        n, qcap, b, k, s, d, kk = 0, 40, 120, 10, 64, 64, 64
     elif case == "masked_stages":
         n, qcap, b, k, s, d, kk = 20, 32, 100, 6, 1024, 128, 16
     elif case.startswith("d"):
@@ -404,7 +499,8 @@ def _coded_case(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["skew9", "skew17", "skew33", "skew64", "skew150", "skew180",
                                   "kk_eq_s", "masked_stages", "d100", "d2048", "probes20",
-                                  "s37", "unaligned"])
+                                  "s37", "unaligned", "skew9_kk64", "skew64_kk48",
+                                  "skew150_kk64", "kk_eq_s64"])
 def test_coded_kernel_redesign_edges(cuda, case):
     """Shapes where the redesigned kernel changes course: query tiles and
     query groups of one heavily probed cluster, kk = S, whole masked units,
@@ -467,7 +563,7 @@ def test_coded_kernel_rejects_and_never_runs_plain_version(cuda, monkeypatch):
         (q, qtab, codes.to(torch.int16), bn, scale, cent, 8),
         (q, qtab, codes.cpu(), bn, scale, cent, 8),
         (q, qtab, codes, bn.cpu(), scale, cent, 8),
-        (q, qtab, codes, bn, scale, cent, 33),
+        (q, qtab, codes, bn, scale, cent, 65),
         (q, qtab, codes[:, :4].contiguous(), bn, scale, cent, 8),  # kk > S
         (q, qtab, codes, bn, scale, cent.T.contiguous().T, 8),
     ]
@@ -601,25 +697,31 @@ def test_block_scanner_on_card_matches_score_matrix(cuda, kind, metric):
 
 
 @pytest.mark.cuda
-def test_block_scanner_on_card_refuses_a_pool_over_the_kernels_k(cuda):
-    """On card tensors a pool wider than `scan_topk` takes raises; it never
-    falls back to the plain score matrix, which only CPU tensors and scores
-    without the kernel's form take."""
+def test_block_scanner_on_card_serves_a_pool_over_256(cuda):
+    """A pool wider than 256 goes through `scan_topk`'s wide shape on the
+    card (one launch a block) and agrees with the top-k of the plain score
+    matrix, and with the same scan on the CPU."""
     from vecgo_tpu_torch.index.common import enc_tensor
     from vecgo_tpu_torch.model import Metric
     from vecgo_tpu_torch.ops import topk as T
-    from vecgo_tpu_torch.ops.scan_topk import MAX_K
 
     x, q, quant, enc = _coded_corpus("sq8")
     scanner = T.BlockScanner(quant, Metric.L2)
     e = {k: enc_tensor(v, cuda) for k, v in enc.items()}
+    qd = torch.from_numpy(q).to(cuda)
     before = scan_topk.launches
-    with pytest.raises(ValueError, match="scan_topk supports"):
-        T.blockwise_topk_scored(torch.from_numpy(q).to(cuda), e, len(x), MAX_K + 1, scanner)
-    assert scan_topk.launches == before
+    d, i = T.blockwise_topk_scored(qd, e, len(x), 300, scanner, block_rows=6000)
+    assert scan_topk.launches - before == 4
+    sc = quant.score(qd, e, Metric.L2)
+    d_ref, _ = torch.topk(sc, 300, dim=1, largest=False)
+    recon = quant.decode(enc)
+    tol = REL * float((q * q).sum(1).max() + (recon * recon).sum(1).max())
+    assert float((d - d_ref).abs().max()) <= tol
+    assert float((sc.gather(1, i) - d).abs().max()) <= tol
     cpu = {k: enc_tensor(v, "cpu") for k, v in enc.items()}
-    d, _ = T.blockwise_topk_scored(torch.from_numpy(q), cpu, len(x), MAX_K + 1, scanner)
-    assert d.shape == (len(q), MAX_K + 1) and bool(torch.isfinite(d).all())
+    d_c, _ = T.blockwise_topk_scored(torch.from_numpy(q), cpu, len(x), 300, scanner,
+                                     block_rows=6000)
+    assert float((d.cpu() - d_c).abs().max()) <= tol
 
 
 @pytest.mark.cuda
@@ -707,3 +809,171 @@ def test_quantized_and_streamed_engine_on_card(cuda):
         same = np.mean([len(set(a) & set(b)) / 10 for a, b in
                         zip(got["cuda", name], got["cpu", name])])
         assert same >= 0.97, (name, same)
+
+
+# ---- the cluster cache (graph_cached) and wide pools on the engine paths ----
+
+
+def _cache_corpus(seed=94, n=6000, d=32, clusters=24, s=1024):
+    """Clustered rows with an overlap-2 membership by the two nearest
+    centres (distinct probe distances), and queries near the rows."""
+    r = np.random.default_rng(seed)
+    centers = r.standard_normal((clusters, d)).astype(np.float32)
+    x = (centers[r.integers(0, clusters, n)]
+         + 0.35 * r.standard_normal((n, d))).astype(np.float32)
+    near = np.argsort(((x[:, None] - centers[None]) ** 2).sum(-1), 1)[:, :2]
+    members = np.full((clusters, s), -1, np.int32)
+    fill = np.zeros(clusters, np.int64)
+    for i, c in enumerate(near.reshape(-1)):
+        if fill[c] < s:
+            members[c, fill[c]] = i // 2
+            fill[c] += 1
+    q = x[r.choice(n, 96, replace=False)] + 0.05 * r.standard_normal((96, d)).astype(np.float32)
+    return x, members, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sq8", "pq"])
+def test_cluster_cache_on_card_matches_cpu(cuda, kind):
+    """The cache on the card (pinned staging, one upload a batch, in-place
+    `index_copy_`, the PQ decode at admission, kernel B over the cache
+    tensors) against the same cache on the CPU, over three batches that
+    churn a cache of 8 clusters: the same LRU counts batch for batch, the
+    same rows up to ties, distances within 1e-4 of |q-c|^2 + |x^-c|^2."""
+    from vecgo_tpu_torch.ops import ivf_cache as IC
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+    x, members, q = _cache_corpus()
+    h = (IC._encode_host(members, x) if kind == "sq8"
+         else IC._encode_host_pq(members, x, m=8, device="cpu"))
+    caches = {dev.type: IC.ClusterCachedTable(host=IC.MemHostTable(h), cache_clusters=8,
+                                              device=dev)
+              for dev in (torch.device("cpu"), cuda)}
+    for lo in (0, 32, 0):
+        qb = q[lo : lo + 32]
+        out = {}
+        for name, cc in caches.items():
+            before = coded_group_scan.launches
+            d, rows = cc.probe_and_scan(qb, n_probe=4, kk=16)
+            assert coded_group_scan.launches - before == (name == "cuda")
+            out[name] = (d.cpu().numpy(), rows.cpu().numpy())
+        assert caches["cuda"].stats == caches["cpu"].stats
+        (d_c, r_c), (d_g, r_g) = out["cpu"], out["cuda"]
+        assert np.array_equal(np.isfinite(d_g), np.isfinite(d_c))
+        same = sum(len(set(a[a >= 0]) & set(c[c >= 0])) for a, c in zip(r_g, r_c))
+        assert same >= 0.99 * sum(len(set(c[c >= 0])) for c in r_c)
+        fin = np.isfinite(d_c)
+        np.testing.assert_allclose(np.sort(d_g, 1)[fin], np.sort(d_c, 1)[fin], rtol=1e-4,
+                                   atol=1e-3)
+    cc = caches["cuda"]
+    assert cc.stats["misses"] > 0 and cc.stats["hits"] > 0
+    held = sum(t.numel() * t.element_size() for t in
+               (cc.codes_c, cc.bn_c, cc.rows_c, cc.scale_c, cc.cent_c, cc.cent_dev,
+                cc.cnorm2_dev))
+    assert held == cc.device_bytes()
+
+
+def _graph_db(device, backend, n=20_000, seed=6, **kw):
+    import vecgo_tpu_torch as vg
+
+    r = np.random.default_rng(seed)
+    centers = r.standard_normal((64, 32)).astype(np.float32)
+    x = (centers[r.integers(0, 64, n)] + 0.35 * r.standard_normal((n, 32))).astype(np.float32)
+    db = vg.Open(backend, vg.Create(dim=32, graph_threshold=8192, device=device, **kw))
+    ids = np.asarray(db.insert_batch(x))
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    return db, x, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_codes", [False, "sq8", "pq"])
+def test_engine_graph_cached_on_card(cuda, store_codes):
+    """A graph segment reopened under a budget between cache_bytes() and
+    device_bytes() plans graph_cached on the card, serves through kernel B
+    over the cache, and holds recall; with persisted codes the reopen is
+    lazy and the vectors are never loaded (128 queries: the rerank's rows
+    stay under half the segment's, past which it reads the whole section
+    by design)."""
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.engine import search as S
+    from vecgo_tpu_torch.index.vamana import VamanaSegment
+    from vecgo_tpu_torch.model import SearchOptions
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+    backend = vg.Memory()
+    db, x, ids = _graph_db("cuda", backend, store_codes=store_codes)
+    seg = db.engine._segments[0].segment
+    assert type(seg) is VamanaSegment
+    budget = (seg.cache_bytes() + seg.device_bytes()) // 2
+    db.close()
+    db = vg.Open(backend, vg.Create(dim=0, hbm_budget_bytes=budget, device="cuda"))
+    e = db.engine
+    snap = e.snapshot()
+    try:
+        plan = S._plan_snapshot(snap, SearchOptions(k=10), e.options, e._device_budget)
+    finally:
+        snap.release()
+    assert [s.kind for s in plan.sources] == ["graph_cached"]
+    seg = e._segments[0].segment
+    q = x[:128] + 0.01
+    before = coded_group_scan.launches
+    got, _ = db.search_arrays(q, k=10)
+    assert coded_group_scan.launches > before
+    assert seg._ccache.device.type == "cuda" and seg._ccache.codes_c.is_cuda
+    assert seg._ccache.device_bytes() <= seg.cache_bytes()
+    if store_codes:
+        assert seg._vectors_arr is None
+    d2 = ((q[:, None] - x[None]) ** 2).sum(-1)
+    want = ids[np.argsort(d2, 1)[:, :10]]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
+    assert rec >= 0.85, rec  # the lower of tests/test_ivf_cache.py's floors
+    db.close()
+
+
+@pytest.mark.cuda
+def test_engine_wide_pools_on_card(cuda):
+    """Every engine path that pools past 256 serves on the card through
+    `scan_topk`'s wide shape and returns the CPU engine's ids: the flat
+    segment at k = 300 (pool 308), under churn (the margin), with a filter
+    at 10% (compact-gather) and at 80% (the masked scan), a quantized
+    segment at k * refine_factor = 600, and the PQ stream at fetch 100
+    (pool 400)."""
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.metadata import isin
+
+    r = np.random.default_rng(95)
+    cent = r.standard_normal((40, 32)).astype(np.float32)
+    x = (cent[r.integers(0, 40, 30_000)] + 0.3 * r.standard_normal((30_000, 32))
+         ).astype(np.float32)
+    u = r.integers(0, 100, len(x))
+    q = (cent[r.integers(0, 40, 40)] + 0.3 * r.standard_normal((40, 32))).astype(np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        opts = dict(dim=32, device=device, flush_threshold=10**9)
+        for name, kw in (("flat", {}), ("sq8", dict(quantizer="sq8")),
+                         ("pq-stream", dict(hbm_budget_bytes=4096, stream_transport="pq"))):
+            db = vg.Open(vg.Memory(), vg.Create(**kw, **opts))
+            ids = db.insert_batch(x[:25_000], [{"u": int(v)} for v in u[:25_000]])
+            db.commit()
+            before = scan_topk.launches
+            if name == "flat":
+                got[device, "k300"] = db.search_arrays(q, k=300)[0]
+                got[device, "sel10"] = db.search_arrays(q, k=300, filter=isin("u", list(range(10))))[0]
+                got[device, "sel80"] = db.search_arrays(q, k=300, filter=isin("u", list(range(80))))[0]
+                db.insert_batch(x[25_000:], [{"u": int(v)} for v in u[25_000:]])
+                for i in ids[::97]:
+                    db.delete(i)
+                got[device, "churn"] = db.search_arrays(q, k=300)[0]
+            elif name == "sq8":
+                got[device, name] = db.search_arrays(q, k=200, refine_factor=3)[0]
+            else:
+                got[device, name] = db.search_arrays(q, k=100)[0]
+            assert device == "cpu" or scan_topk.launches > before
+            db.close()
+    for key in ("k300", "sel10", "sel80", "churn", "sq8", "pq-stream"):
+        a, b = got["cuda", key], got["cpu", key]
+        assert a.shape == b.shape and (a >= 0).all(), key
+        same = np.mean([len(set(s) & set(t)) / len(t) for s, t in zip(a, b)])
+        # bf16 pools, exact rerank: rows differ only at ties of the last rank.
+        assert same >= 0.995, (key, same)

@@ -1,7 +1,8 @@
 """The port's own host control plane against the JAX package's.
 
 vecgo_tpu_torch carries its own copy of the host modules (metadata filters,
-the section container, manifests, the PK index, tombstones). Each test feeds
+the section container, manifests, the PK index, tombstones, the block
+caches and caching store, the metrics observers). Each test feeds
 the same seeded inputs to both packages and requires the same results or
 the same bytes, so a database written by either package stays readable by
 the other. The static test checks that no port file and no line of
@@ -17,16 +18,20 @@ import pytest
 from vecgo_tpu import metadata as jmd
 from vecgo_tpu.blobstore import MemoryStore as JaxMemoryStore
 from vecgo_tpu.engine import manifest as jman
+from vecgo_tpu.engine import metrics as jmetrics
 from vecgo_tpu.engine import pk as jpk
 from vecgo_tpu.engine import tombstone as jtomb
 from vecgo_tpu.metadata.columnar import ColumnarMeta as JaxColumnarMeta
+from vecgo_tpu.storage import cache as jcache
 from vecgo_tpu.storage import container as jcon
 from vecgo_tpu_torch import metadata as pmd
 from vecgo_tpu_torch.blobstore import MemoryStore
 from vecgo_tpu_torch.engine import manifest as pman
+from vecgo_tpu_torch.engine import metrics as pmetrics
 from vecgo_tpu_torch.engine import pk as ppk
 from vecgo_tpu_torch.engine import tombstone as ptomb
 from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
+from vecgo_tpu_torch.storage import cache as pcache
 from vecgo_tpu_torch.storage import container as pcon
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,7 +55,8 @@ def test_port_never_imports_the_jax_package():
     assert len(files) > 30 and not bad, bad
     rel = {os.path.relpath(f, os.path.join(REPO, "vecgo_tpu_torch")) for f in files}
     for new in ("ops/hamming.py", "quantization/scalar.py", "quantization/pq.py",
-                "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py"):
+                "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py",
+                "ops/ivf_cache.py", "storage/cache.py", "engine/metrics.py"):
         assert new in rel, new  # the quantizers and their ops are covered
 
 
@@ -186,3 +192,70 @@ def test_tombstones_match_jax():
         if a is not None:
             np.testing.assert_array_equal(a, b)
         assert ps.count(seg) == js.count(seg)
+
+
+def _cache_trace(mod, store_mod, root):
+    """One sequence of block-cache and caching-store operations; returns
+    everything each step gave back (bytes, hits, stats)."""
+    out = []
+    for cache in (mod.LRUCache(64), mod.ShardedLRUCache(4096, shards=4)):
+        for i in range(12):
+            cache.put(("f", i), bytes([i]) * 9)
+        out.append([cache.get(("f", i)) for i in range(12)])
+        out.append((cache.stats() if hasattr(cache, "stats") else None))
+    disk = mod.DiskCache(root, 1 << 20)
+    disk.put(("f", 3), b"xyz")
+    out.append((disk.get(("f", 3)), mod.DiskCache(root, 1 << 20).get(("f", 3))))
+    tier = mod.TieredCache(mod.LRUCache(32), mod.DiskCache(root + "-t", 1 << 20))
+    inner = store_mod.MemoryStore()
+    cs = mod.CachingStore(inner, cache=tier, block_size=8)
+    cs.put("blob", b"0123456789abcdef" * 3)
+    out.append(cs.get("blob"))
+    out.append([cs.get_range("blob", off, n) for off, n in ((0, 5), (7, 10), (40, 20))])
+    cs.put("CURRENT", b"1")
+    inner.put("CURRENT", b"2")
+    out.append(cs.get("CURRENT"))
+    cs.put("blob", b"bb")
+    out.append((cs.get("blob"), cs.cache_stats()))
+    return out
+
+
+def test_block_caches_and_caching_store_match_jax(tmp_path):
+    from vecgo_tpu import blobstore as jstore
+    from vecgo_tpu_torch import blobstore as pstore
+
+    want = _cache_trace(jcache, jstore, str(tmp_path / "jax"))
+    got = _cache_trace(pcache, pstore, str(tmp_path / "port"))
+    assert got == want
+
+
+def test_observers_match_jax_and_the_port_engine_calls_them():
+    """The observer classes are the JAX module's; the port's engine calls
+    the same hooks as the JAX engine on the same writes and reads."""
+    assert [n for n in dir(pmetrics.MetricsObserver) if n.startswith("on_")] == [
+        n for n in dir(jmetrics.MetricsObserver) if n.startswith("on_")]
+    from vecgo_tpu.blobstore import MemoryStore as JaxStore
+    from vecgo_tpu.engine import Engine as JaxEngine
+    from vecgo_tpu.engine import EngineOptions as JaxOptions
+    from vecgo_tpu_torch.engine import Engine, EngineOptions
+
+    x = np.random.default_rng(5).standard_normal((20, 8)).astype(np.float32)
+    counts = []
+    for mod, eng in ((jmetrics, lambda o: JaxEngine.open(JaxStore(), JaxOptions(
+                         dim=8, flush_threshold=10**9, observer=o), create=True)),
+                     (pmetrics, lambda o: Engine.open(MemoryStore(), EngineOptions(
+                         dim=8, flush_threshold=10**9, observer=o, device="cpu"),
+                         create=True))):
+        obs = mod.CountingObserver()
+        e = eng(obs)
+        ids = e.insert_batch(x)
+        e.delete(ids[0])
+        e.search(x[1], k=2)
+        e.get(ids[2])
+        e.commit()
+        e.get(ids[3])
+        counts.append(dict(obs.counters))
+        noop = mod.NoopObserver()
+        noop.on_insert(1)
+    assert counts[0] == counts[1]
+    assert counts[1]["inserts"] == 20 and counts[1]["gets"] == 2

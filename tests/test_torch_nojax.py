@@ -4,8 +4,10 @@ Runs in a subprocess, because this test process has jax loaded already
 (tests/conftest.py imports it). The child imports every module of
 vecgo_tpu_torch, drives a small slice of the flat path and of the graph path
 (compaction into a Vamana segment, filtered and unfiltered search), a
-quantized and partitioned flat segment with probing, and a streamed search
-under a device budget over both transports, on the CPU, and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
+quantized and partitioned flat segment with probing, a streamed search
+under a device budget over both transports, and the cluster cache
+(graph_cached) over persisted PQ codes reopened from the store, with a
+caching store and a counting observer, on the CPU, and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
 a CUDA device it also checks that the default device ("cuda") is refused.
 """
 
@@ -90,6 +92,32 @@ CHILD = textwrap.dedent(
         got, _ = db.search_arrays(z[:4], k=3)
         assert got[:, 0].tolist() == ids[:4] and db.stats()["hbm"]["resident"] == 0
         db.close()
+    # The cluster cache over persisted codes, through a caching store, with
+    # a counting observer.
+    import vecgo_tpu_torch.ops.ivf_cache  # noqa: F401
+    from vecgo_tpu_torch.engine.metrics import CountingObserver
+    from vecgo_tpu_torch.storage.cache import CachingStore, LRUCache
+
+    backend = vg.Memory()
+    db = vg.Open(backend, vg.Create(dim=8, device="cpu", graph_threshold=4096,
+                                    store_codes="pq"))
+    ids = db.insert_batch(y)
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    seg = db.engine._segments[0].segment
+    assert seg.meta["ivf"]["codes_stored"] == "pq"
+    budget = (seg.cache_bytes() + seg.device_bytes()) // 2
+    db.close()
+    obs = CountingObserver()
+    store = CachingStore(backend.store, cache=LRUCache(1 << 24), block_size=1 << 16)
+    db = vg.Open(vg.Remote(store, read_only=True),
+                 vg.Create(dim=0, device="cpu", hbm_budget_bytes=budget, observer=obs))
+    got, _ = db.search_arrays(y[:4], k=3)
+    seg = db.engine._segments[0].segment
+    assert got[0, 0] == ids[0] and seg._ccache.stats["batches"] == 1
+    assert seg._vectors_arr is None and obs.counters["searches"] == 4
+    assert db.engine.cache_stats()
+    db.close()
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
     assert not jax_pkg, jax_pkg

@@ -1,9 +1,8 @@
 """What the port does not cover yet, by its item in ROADMAP.md's port queue."""
 
 QUEUE = {
-    3: ("the rest of graph segments: the beam build mode, serve_compact, stored "
-        "codes and the cluster cache (with the planner's preference for graph_cached over "
-        "graph_stream), FreshVamana, tools/compact, the uncoded IVF table"),
+    3: ("the rest of graph segments: serve_compact (3c), the beam build mode with the "
+        "uncoded IVF table (3d), FreshVamana (3e), tools/compact (3f)"),
     4: "device BM25 hybrid search",
     5: "the multi-device plane",
 }

@@ -3,8 +3,9 @@
 Both packages write the same container and manifest formats, so a database
 directory moves between them simply by opening it with the other package.
 `segment_from_jax` moves one in-memory JAX `FlatSegment` without a store, with
-its codes and its quantizer's trained arrays, and `quantizer_from_jax` moves a
-trained quantizer, so both packages score the same codes with the same
+its codes and its quantizer's trained arrays, `quantizer_from_jax` moves a
+trained quantizer, and `host_table_from_jax` moves the host side of a cluster
+cache (its coded table), so both packages score the same codes with the same
 arrays.
 """
 
@@ -14,6 +15,7 @@ import numpy as np
 
 from vecgo_tpu_torch import quantization as Q
 from vecgo_tpu_torch.index.flat import FlatSegment
+from vecgo_tpu_torch.ops.ivf_cache import MemHostTable
 
 
 def quantizer_from_jax(quant, device=None) -> Q.Quantizer:
@@ -51,3 +53,13 @@ def segment_from_jax(seg, device) -> FlatSegment:
     out = FlatSegment(seg.meta, sections, seg.seg_id)
     out.device_state(device)
     return out
+
+
+def host_table_from_jax(h: dict) -> MemHostTable:
+    """The port's MemHostTable over a JAX host table: the dict that
+    `vecgo_tpu.ops.ivf_cache._encode_host` returns (codes, bn, xn, rows,
+    scale, cent, cnorm2) or `_encode_host_pq` returns (pq, cb, rot, bn, rows,
+    scale, cent, cnorm2). PQ codebooks differ between the packages after
+    training, so holding both caches to the same codes takes this."""
+    return MemHostTable({name: None if arr is None else np.asarray(arr)
+                         for name, arr in h.items()})

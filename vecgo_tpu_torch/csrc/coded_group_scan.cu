@@ -60,11 +60,14 @@
 //   accumulator fragments and tests them against its query's kk-th score
 //   (a bar in shared memory); only survivors are written to shared memory,
 //   with a 64-bit survivor mask per query. Then one warp per query folds
-//   the survivors of each 32-row half into the query's sorted 32-entry list
-//   (in registers for the whole scan when a block has at most 8 queries,
-//   else in shared memory between units): a half with few survivors inserts
-//   them one at a time (ballot + shuffle), a half with many (the list's
-//   fill) is bitonic-sorted in registers and merged in one bitonic step.
+//   the survivors of each 32-row half into the query's sorted list of 32 W
+//   entries, W = 1 for kk <= 32 and 2 for kk <= 64 (lane l holds entries l
+//   and 32 + l; in registers for the whole scan when a block has at most 8
+//   queries, else in shared memory between units): a half with few
+//   survivors inserts them one at a time (ballot + shuffle), a half with
+//   many (the list's fill) is bitonic-sorted in registers and merged in one
+//   bitonic step (at W = 2, one compare between a lane's two registers
+//   first).
 // * One launch. Blocks run in cluster order, so a heavy cluster that starts
 //   late can leave the card idle behind it (PERF.md); ordering the clusters
 //   heaviest first would take more launches on a host-bound batch.
@@ -222,18 +225,74 @@ __device__ __forceinline__ void sort32(float& d, int& i, int lane) {
       cx_lanes(d, i, stride, ((lane & stride) == 0) == ((lane & size) == 0));
 }
 
-// Fold sorted candidates (cd, ci) into the sorted list (ld, li): the lower of
-// list[lane] and candidates[31 - lane] are the 32 best of both and form a
-// bitonic sequence, which five steps sort.
-__device__ __forceinline__ void merge32(float& ld, int& li, float cd, int ci, int lane) {
+// Fold 32 sorted candidates (cd, ci) into the sorted list (ld, li) of 32 W
+// entries: the lower of list[32 (W - 1) + lane] and candidates[31 - lane]
+// (the list's other entries face padding) are the 32 W best of both and
+// form a bitonic sequence, which a compare at stride 32 (inside a lane, at
+// W = 2) and five steps across lanes sort.
+template <int W>
+__device__ __forceinline__ void merge_in(float (&ld)[W], int (&li)[W], float cd, int ci,
+                                         int lane) {
   const float rd = __shfl_sync(FULL, cd, 31 - lane);
   const int ri = __shfl_sync(FULL, ci, 31 - lane);
-  if (better(rd, ri, ld, li)) {
-    ld = rd;
-    li = ri;
+  if (better(rd, ri, ld[W - 1], li[W - 1])) {
+    ld[W - 1] = rd;
+    li[W - 1] = ri;
+  }
+  if (W == 2 && better(ld[W - 1], li[W - 1], ld[0], li[0])) {
+    const float td = ld[0];
+    const int ti = li[0];
+    ld[0] = ld[W - 1];
+    li[0] = li[W - 1];
+    ld[W - 1] = td;
+    li[W - 1] = ti;
   }
 #pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) cx_lanes(ld, li, stride, (lane & stride) == 0);
+  for (int w = 0; w < W; ++w)
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1)
+      cx_lanes(ld[w], li[w], stride, (lane & stride) == 0);
+}
+
+// Insert one candidate that beats the list's kk-th entry: the entries from
+// its position on move one place up (lane 0 of register w takes the last
+// entry of register w - 1) and the last one drops.
+template <int W>
+__device__ __forceinline__ void insert(float (&ld)[W], int (&li)[W], float cd, int ci,
+                                       int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) pos += __popc(__ballot_sync(FULL, better(ld[w], li[w], cd, ci)));
+#pragma unroll
+  for (int w = W - 1; w >= 0; --w) {
+    float up_d = __shfl_up_sync(FULL, ld[w], 1);
+    int up_i = __shfl_up_sync(FULL, li[w], 1);
+    if (w > 0) {
+      const float pd = __shfl_sync(FULL, ld[w > 0 ? w - 1 : 0], 31);
+      const int pi = __shfl_sync(FULL, li[w > 0 ? w - 1 : 0], 31);
+      if (lane == 0) {
+        up_d = pd;
+        up_i = pi;
+      }
+    }
+    const int e = 32 * w + lane;
+    if (e == pos) {
+      ld[w] = cd;
+      li[w] = ci;
+    } else if (e > pos) {
+      ld[w] = up_d;
+      li[w] = up_i;
+    }
+  }
+}
+
+// The list's kk-th entry (entry kk - 1), shuffled to every lane.
+template <int W>
+__device__ __forceinline__ void kth(const float (&ld)[W], const int (&li)[W], int kk, float& d,
+                                    int& i) {
+  const bool hi = W > 1 && kk > 32;
+  d = __shfl_sync(FULL, hi ? ld[W - 1] : ld[0], (kk - 1) & 31);
+  i = __shfl_sync(FULL, hi ? li[W - 1] : li[0], (kk - 1) & 31);
 }
 
 // The block's shared state, carved from dynamic shared memory.
@@ -325,12 +384,13 @@ struct Ring {
 };
 
 // Fold query m's survivors of one unit (mask bit r = row r0 + r) into its
-// sorted 32-entry list (ld, li) held one entry per lane; (th_d, th_i) is the
+// sorted list (ld, li) of 32 W entries, W per lane; (th_d, th_i) is the
 // list's kk-th entry. A half with many survivors is bitonic-sorted and
 // merged in one step; a sparse half inserts them one at a time. Inserts are
 // tested against the bar as it stood before the half, so a candidate may
 // land past kk, which leaves the first kk entries exact.
-__device__ __forceinline__ void fold(float& ld, int& li, float& th_d, int& th_i,
+template <int W>
+__device__ __forceinline__ void fold(float (&ld)[W], int (&li)[W], float& th_d, int& th_i,
                                      unsigned long long mask, const float* scm, int r0,
                                      int kk, int lane) {
 #pragma unroll
@@ -343,7 +403,7 @@ __device__ __forceinline__ void fold(float& ld, int& li, float& th_d, int& th_i,
       float cd = in ? scm[base + lane] : INFINITY;
       int ci = in ? r0 + base + lane : -1;
       sort32(cd, ci, lane);
-      merge32(ld, li, cd, ci, lane);
+      merge_in(ld, li, cd, ci, lane);
     } else {
       do {
         const int r = __ffs(hm) - 1;
@@ -351,31 +411,21 @@ __device__ __forceinline__ void fold(float& ld, int& li, float& th_d, int& th_i,
         const float cd = scm[base + r];
         const int ci = r0 + base + r;
         if (!better(cd, ci, th_d, th_i)) continue;  // warp-uniform
-        const int pos = __popc(__ballot_sync(FULL, better(ld, li, cd, ci)));
-        const float up_d = __shfl_up_sync(FULL, ld, 1);
-        const int up_i = __shfl_up_sync(FULL, li, 1);
-        if (lane == pos) {
-          ld = cd;
-          li = ci;
-        } else if (lane > pos) {
-          ld = up_d;
-          li = up_i;
-        }
+        insert(ld, li, cd, ci, lane);
       } while (hm);
     }
-    th_d = __shfl_sync(FULL, ld, kk - 1);
-    th_i = __shfl_sync(FULL, li, kk - 1);
+    kth(ld, li, kk, th_d, th_i);
   }
 }
 
-// The unit loop of one block, for MT query tiles of 16. ONE: at most 8 live
-// queries, warp w < nq owns query w and keeps its list in registers for the
-// whole scan; otherwise warp w serves queries w, w + 8, ... with their
-// lists in shared memory between units.
-template <int MT, bool ONE>
+// The unit loop of one block, for MT query tiles of 16 and lists of 32 W
+// entries. ONE: at most 8 live queries, warp w < nq owns query w and keeps
+// its list in registers for the whole scan; otherwise warp w serves queries
+// w, w + 8, ... with their lists in shared memory between units.
+template <int MT, bool ONE, int W>
 __device__ __forceinline__ void scan_units(const Smem& sm, Ring& ring, float scl, int S,
-                                           int DP, int QS, int nq, int kk, float& my_ld,
-                                           int& my_li) {
+                                           int DP, int QS, int nq, int kk, float (&my_ld)[W],
+                                           int (&my_li)[W]) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int nch = ring.nch, units = ring.units;
@@ -472,14 +522,25 @@ __device__ __forceinline__ void scan_units(const Smem& sm, Ring& ring, float scl
             *reinterpret_cast<const unsigned long long*>(sm.sbits + m * 8);
         if (!mask) continue;
         // Entries past kk are not kept between units: +inf, as if empty.
-        float ld = lane < kk ? sm.ls_d[m * kk + lane] : INFINITY;
-        int li = lane < kk ? sm.ls_i[m * kk + lane] : -1;
-        float md = __shfl_sync(FULL, ld, kk - 1);
-        int mi = __shfl_sync(FULL, li, kk - 1);
+        float ld[W];
+        int li[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const int e = 32 * w + lane;
+          ld[w] = e < kk ? sm.ls_d[m * kk + e] : INFINITY;
+          li[w] = e < kk ? sm.ls_i[m * kk + e] : -1;
+        }
+        float md;
+        int mi;
+        kth(ld, li, kk, md, mi);
         fold(ld, li, md, mi, mask, sm.sc + m * RT, r0, kk, lane);
-        if (lane < kk) {
-          sm.ls_d[m * kk + lane] = ld;
-          sm.ls_i[m * kk + lane] = li;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const int e = 32 * w + lane;
+          if (e < kk) {
+            sm.ls_d[m * kk + e] = ld[w];
+            sm.ls_i[m * kk + e] = li[w];
+          }
         }
         if (lane == 0) sm.thr[m] = md;
       }
@@ -490,11 +551,48 @@ __device__ __forceinline__ void scan_units(const Smem& sm, Ring& ring, float scl
   }
 }
 
+// The unit loop at the block's query-tile count, then the register lists
+// (one query a warp) to shared memory.
+template <int W>
+__device__ __forceinline__ void scan_block(const Smem& sm, Ring& ring, float scl, int S, int DP,
+                                           int QS, int nq, int kk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = (nq + 15) >> 4;  // query tiles of 16
+  float my_ld[W];  // the one-query-per-warp mode's list entries
+  int my_li[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    my_ld[w] = INFINITY;
+    my_li[w] = -1;
+  }
+  const bool one = nq <= NWARPS;
+  if (one)
+    scan_units<1, true, W>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 1)
+    scan_units<1, false, W>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 2)
+    scan_units<2, false, W>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else if (mt == 3)
+    scan_units<3, false, W>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  else
+    scan_units<4, false, W>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
+  if (one && warp < nq)
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int e = 32 * w + lane;
+      if (e < kk) {
+        sm.ls_d[warp * kk + e] = my_ld[w];
+        sm.ls_i[warp * kk + e] = my_li[w];
+      }
+    }
+}
+
 // Block b scans query group b % ngroups of cluster b / ngroups.
 // MINB: the blocks an SM should hold, which caps the registers a thread
 // may use: 4 where shared memory lets 4 blocks share an SM, else 3 (more
-// registers, no spills).
-template <int MINB>
+// registers, fewer spills). W: list entries a lane (kk <= 32 W); each W is
+// its own build, so the two-entry lists cost the one-entry path nothing.
+template <int MINB, int W>
 __global__ void __launch_bounds__(THREADS, MINB)
 coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
                   const int8_t* __restrict__ codes, const float* __restrict__ bn,
@@ -593,9 +691,9 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
     if (live) {
-      if (lane < kk) {
-        sm.ls_d[m * kk + lane] = INFINITY;
-        sm.ls_i[m * kk + lane] = -1;
+      for (int e = lane; e < kk; e += 32) {
+        sm.ls_d[m * kk + e] = INFINITY;
+        sm.ls_i[m * kk + e] = -1;
       }
       if (lane == 0) {
         sm.qn[m] = s;
@@ -604,24 +702,7 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
     }
   }
 
-  const float scl = scale[c];
-  float my_ld = INFINITY;  // the one-query-per-warp mode's list entry
-  int my_li = -1;
-  const bool one = nq <= NWARPS;
-  if (one)
-    scan_units<1, true>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
-  else if (mt == 1)
-    scan_units<1, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
-  else if (mt == 2)
-    scan_units<2, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
-  else if (mt == 3)
-    scan_units<3, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
-  else
-    scan_units<4, false>(sm, ring, scl, S, DP, QS, nq, kk, my_ld, my_li);
-  if (one && warp < nq && lane < kk) {  // the register lists to shared memory
-    sm.ls_d[warp * kk + lane] = my_ld;
-    sm.ls_i[warp * kk + lane] = my_li;
-  }
+  scan_block<W>(sm, ring, scale[c], S, DP, QS, nq, kk);
   __syncthreads();
 
   for (int e = tid; e < nq * kk; e += THREADS) {
@@ -653,19 +734,21 @@ int vecgo_coded_group_scan_prepare(void) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(coded_scan_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(coded_scan_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+  const void* builds[] = {
+      reinterpret_cast<const void*>(coded_scan_kernel<4, 1>),
+      reinterpret_cast<const void*>(coded_scan_kernel<3, 1>),
+      reinterpret_cast<const void*>(coded_scan_kernel<4, 2>),
+      reinterpret_cast<const void*>(coded_scan_kernel<3, 2>)};
+  for (const void* fn : builds)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   return (int)e;
 }
 
 // q [B, d] f32; qtab [K, qcap] int32 (query index, B = empty slot); codes
 // [K, S, d] int8; bn [K, S] f32 (+inf = padded or masked); scale [K] f32;
 // cent [K, d] f32. Writes out_d [K, qcap, kk] f32 and out_i [K, qcap, kk]
-// int32 (in-cluster column, -1 empty). 1 <= kk <= min(32, S);
+// int32 (in-cluster column, -1 empty). 1 <= kk <= min(64, S);
 // K * ceil(qcap / query slots) < 2^31; the layout's shared memory must fit
 // the device (vecgo_coded_group_scan_prepare run on it). Returns the CUDA
 // error code of the launch (0 on success).
@@ -676,7 +759,9 @@ int vecgo_coded_group_scan(const void* q, const void* qtab, const void* codes,
   const Layout L = layout(d, qcap, kk);
   const int ngroups = (qcap + L.qg - 1) / L.qg;
   // An SM has 228 KB of shared memory, 1 KB of it reserved per block.
-  auto kernel = 4 * (L.smem + 1024) <= 228 * 1024 ? coded_scan_kernel<4> : coded_scan_kernel<3>;
+  const bool four = 4 * (L.smem + 1024) <= 228 * 1024;
+  auto kernel = kk > 32 ? (four ? coded_scan_kernel<4, 2> : coded_scan_kernel<3, 2>)
+                        : (four ? coded_scan_kernel<4, 1> : coded_scan_kernel<3, 1>);
   kernel<<<(unsigned)K * ngroups, THREADS, L.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int*>(qtab),
       static_cast<const int8_t*>(codes), static_cast<const float*>(bn),

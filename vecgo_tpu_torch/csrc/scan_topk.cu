@@ -44,6 +44,18 @@
 // engine's pools. Measured, the tile loop is bound by latency, not by the
 // tensor cores: each tile's score pass and barriers cost more than its
 // product (PERF.md).
+//
+// Two shapes of the lists, chosen by k. Up to KS = 256 a block's 64 lists
+// (512 k bytes) stay in shared memory and a merge moves every list entry in
+// registers (the narrow shape above). Past it, for any k <= N (a pool of
+// 1,000 for a coarse quantizer, k = N for an exhaustive answer), the lists
+// live in a global scratch of the block's own and shared memory holds only
+// the thresholds, the counts and the list lengths: the same tiles, product,
+// scores and candidate buffers, but a merge ranks each candidate by a binary
+// search of ceil(log2(k + 1)) steps and moves only the entries at or above
+// the first candidate's rank, from the top down, 128 at a time (each chunk is
+// read whole before it is written, and an entry only moves up, so no write
+// lands on an entry not yet read). The split merge searches the same way.
 
 // Scores are smaller-is-better: l2 = |q|^2 + |x|^2 - 2 q.x, dot = -q.x,
 // cos = 1 - q.x over normalized storage. Ties order by the lower row id, as
@@ -68,6 +80,8 @@ constexpr int LDT = TD + 8;  // padded chunk row (bf16): conflict-free ldmatrix
 constexpr int FD = 32;
 constexpr int FLD = TN + 1;
 constexpr int CAP = 128;  // candidates a buffer holds (a merge when > CAP - TN)
+constexpr int KS = 256;   // the widest k whose lists stay in shared memory
+constexpr int WU = 4;     // list entries a lane moves at once in a wide merge
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Metric { kL2 = 0, kDot = 1, kCos = 2 };
@@ -85,6 +99,15 @@ __device__ __forceinline__ int rank_in(const float* d, const int* i, int n, floa
   int pos = 0;
 #pragma unroll
   for (int s = 256; s > 0; s >>= 1)
+    if (pos + s <= n && better(d[pos + s - 1], i[pos + s - 1], dv, iv)) pos += s;
+  return pos;
+}
+
+// The same for any n >= 0: floor(log2 n) + 1 = ceil(log2(n + 1)) steps.
+__device__ __forceinline__ int rank_in_any(const float* d, const int* i, int n, float dv,
+                                           int iv) {
+  int pos = 0;
+  for (int s = n > 0 ? 1 << (31 - __clz(n)) : 0; s > 0; s >>= 1)
     if (pos + s <= n && better(d[pos + s - 1], i[pos + s - 1], dv, iv)) pos += s;
   return pos;
 }
@@ -146,15 +169,18 @@ __device__ __forceinline__ void warp_sort(float (&kd)[CAP / 32], int (&ki)[CAP /
     }
 }
 
-// Per-query selection state: lists, thresholds and counts in shared memory;
+// Per-query selection state: thresholds and counts in shared memory; the
+// lists there too (narrow) or in a global scratch of the block's own (WIDE);
 // the candidate buffers in a global scratch of the block's own (writes are
 // fire-and-forget, and a merge reads each candidate once).
+template <bool WIDE>
 struct Lists {
   float* thr;     // [TQ] current k-th score (+inf while the list fills)
   int* cnt;       // [TQ] candidates buffered
   float* lst_d;   // [TQ][k] sorted lists
   int* lst_i;
   int* lrank;     // [8][CAP] per warp: each sorted candidate's rank in the list
+  int* nlist;     // [TQ] WIDE: entries listed (the rest of the list is empty)
   float* cand_d;  // [TQ][CAP] candidate buffers (global)
   int* cand_i;
   int k;
@@ -167,6 +193,7 @@ struct Lists {
     for (int m = tid; m < TQ; m += THREADS) {
       thr[m] = INFINITY;
       cnt[m] = 0;
+      if (WIDE) nlist[m] = 0;
     }
   }
 
@@ -197,8 +224,8 @@ struct Lists {
   // those (non-decreasing) ranks. One write each.
   __device__ void merge_one(int m, int warp, int lane) {
     const int c = cnt[m];
-    float* ld = lst_d + m * k;
-    int* li = lst_i + m * k;
+    float* ld = lst_d + (size_t)m * k;
+    int* li = lst_i + (size_t)m * k;
     const float* cd = cand_d + m * CAP;
     const int* ci = cand_i + m * CAP;
     int* lr = lrank + warp * CAP;
@@ -214,44 +241,72 @@ struct Lists {
       if (r < nr && e < c) { kd[r] = cd[e]; ki[r] = ci[e]; }
     }
     warp_sort(kd, ki, nr, lane);
-    const int kt = (k + 31) >> 5;  // list entries per lane (k <= 256)
-    int vp[CAP / 32], lp[8];
-    float ldv[8];
-    int liv[8];
+    int vp[CAP / 32];
 #pragma unroll
     for (int r = 0; r < CAP / 32; ++r) {
       const int e = r * 32 + lane;
       vp[r] = k;
       if (r < nr && e < c) {
-        const int rank = rank_in(ld, li, k, kd[r], ki[r]);
+        const int rank = WIDE ? rank_in_any(ld, li, nlist[m], kd[r], ki[r])
+                              : rank_in(ld, li, k, kd[r], ki[r]);
         lr[e] = rank;
         vp[r] = e + rank;
       }
     }
     __syncwarp();
+    if (WIDE) {
+      // Entries [lr[0], listed) move up; the chunk [top - 32 WU, top) is
+      // read whole before any of it is written.
+      const int lo = lr[0], listed = nlist[m];
+      for (int top = listed; top > lo; top -= 32 * WU) {
+        float v[WU];
+        int vi[WU], p[WU];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int j = lane + 32 * t;
-      lp[t] = k;
-      if (t < kt && j < k) {
-        ldv[t] = ld[j];
-        liv[t] = li[j];
-        if (liv[t] >= 0) lp[t] = j + count_le(lr, c, j);
+        for (int u = 0; u < WU; ++u) {
+          const int j = top - 32 * WU + 32 * u + lane;
+          p[u] = k;
+          if (j >= lo) {
+            v[u] = ld[j];
+            vi[u] = li[j];
+            p[u] = j + count_le(lr, c, j);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < WU; ++u)
+          if (p[u] < k) { ld[p[u]] = v[u]; li[p[u]] = vi[u]; }
+        __syncwarp();
       }
+    } else {
+      const int kt = (k + 31) >> 5;  // list entries per lane (k <= KS)
+      int lp[8];
+      float ldv[8];
+      int liv[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int j = lane + 32 * t;
+        lp[t] = k;
+        if (t < kt && j < k) {
+          ldv[t] = ld[j];
+          liv[t] = li[j];
+          if (liv[t] >= 0) lp[t] = j + count_le(lr, c, j);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (lp[t] < k) { ld[lp[t]] = ldv[t]; li[lp[t]] = liv[t]; }
     }
-    __syncwarp();
     // Every position below min(k, listed + c) is written exactly once;
     // positions past that were empty and stay so.
 #pragma unroll
     for (int r = 0; r < CAP / 32; ++r)
       if (vp[r] < k) { ld[vp[r]] = kd[r]; li[vp[r]] = ki[r]; }
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      if (lp[t] < k) { ld[lp[t]] = ldv[t]; li[lp[t]] = liv[t]; }
     __syncwarp();
     if (lane == 0) {
       thr[m] = ld[k - 1];
       cnt[m] = 0;
+      if (WIDE) nlist[m] = min(k, nlist[m] + c);
     }
   }
 
@@ -281,21 +336,34 @@ struct Lists {
   }
 };
 
+// Shared memory of a block's selection state: the lists themselves only up
+// to KS.
 __host__ __device__ constexpr size_t lists_bytes(int k) {
-  return (size_t)TQ * k * 8 + (size_t)TQ * 8 + (size_t)8 * CAP * 4;
+  return (k > KS ? (size_t)TQ * 4 : (size_t)TQ * k * 8) + (size_t)TQ * 8 +
+         (size_t)8 * CAP * 4;
 }
 
-// The block's lists in shared memory at p; its candidate buffers at the
-// block's slice of the global scratch.
-__device__ __forceinline__ Lists carve_lists(char* p, int k, float* cand_d, int* cand_i) {
-  Lists L;
+// The block's state: thresholds, counts and per-warp ranks in shared memory
+// at p (the lists there too, or at the block's slice of the global list
+// scratch when WIDE); its candidate buffers at its slice of that scratch.
+template <bool WIDE>
+__device__ __forceinline__ Lists<WIDE> carve_lists(char* p, int k, float* cand_d, int* cand_i,
+                                                   float* glist_d, int* glist_i) {
+  Lists<WIDE> L;
   L.k = k;
-  L.lst_d = reinterpret_cast<float*>(p);
-  L.lst_i = reinterpret_cast<int*>(L.lst_d + TQ * k);
-  L.thr = reinterpret_cast<float*>(L.lst_i + TQ * k);
+  const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  if (WIDE) {
+    L.lst_d = glist_d + block * TQ * k;
+    L.lst_i = glist_i + block * TQ * k;
+    L.thr = reinterpret_cast<float*>(p);
+  } else {
+    L.lst_d = reinterpret_cast<float*>(p);
+    L.lst_i = reinterpret_cast<int*>(L.lst_d + TQ * k);
+    L.thr = reinterpret_cast<float*>(L.lst_i + TQ * k);
+  }
   L.cnt = reinterpret_cast<int*>(L.thr + TQ);
   L.lrank = L.cnt + TQ;
-  const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  L.nlist = L.lrank + 8 * CAP;
   L.cand_d = cand_d + block * TQ * CAP;
   L.cand_i = cand_i + block * TQ * CAP;
   return L;
@@ -331,8 +399,8 @@ __device__ __forceinline__ void row_terms(const int (&row)[NS], int r_end, int N
 
 // Scores of one (thread, query) from its accumulators and row terms, the
 // survivors' bits, and the push.
-template <int NS>
-__device__ __forceinline__ void score_and_push(Lists& L, int m, bool live, float qn, int metric,
+template <int NS, class L_t>
+__device__ __forceinline__ void score_and_push(L_t& L, int m, bool live, float qn, int metric,
                                                const float (&p)[NS], const float (&xa)[NS],
                                                const int (&row)[NS]) {
   const float th = L.thr[m];
@@ -395,12 +463,13 @@ __host__ __device__ constexpr size_t bf16_smem(int resident, int d, int k) {
 
 // Warps: 4 along the queries (16 each) x 2 along the rows (32 each, four
 // n8-tiles), so each thread holds 2 queries x 8 rows of every tile.
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ x,
                  const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask,
                  int B, int N, int d, int k, int metric, int rows_per_split, int resident,
-                 float* cand_d, int* cand_i, float* __restrict__ part_d,
-                 int* __restrict__ part_i) {
+                 float* cand_d, int* cand_i, float* glist_d, int* glist_i,
+                 float* __restrict__ part_d, int* __restrict__ part_i) {
   constexpr int WQ = 4, NT = 4, NS = 2 * NT;
   extern __shared__ __align__(16) char smem[];
   const int DP = pad_depth(d), QS = DP + 8;
@@ -409,7 +478,8 @@ scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
   __nv_bfloat16* qs = ring + (size_t)2 * stage_rows * LDT;  // resident query
   float* qn = reinterpret_cast<float*>(qs + (resident ? (size_t)TQ * QS : 0));
   float* terms = qn + TQ;  // [2][TN] row terms of the current and next tile
-  Lists L = carve_lists(reinterpret_cast<char*>(terms + 2 * TN), k, cand_d, cand_i);
+  auto L = carve_lists<WIDE>(reinterpret_cast<char*>(terms + 2 * TN), k, cand_d, cand_i,
+                            glist_d, glist_i);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = warp % WQ, wn = warp / WQ;
@@ -572,17 +642,19 @@ __host__ __device__ constexpr size_t f32_smem(int k) {
 }
 
 // 16 x 16 threads, each a 4 x 4 micro-tile: queries ty + 16 i, rows tx + 16 j.
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
                 const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask,
                 int B, int N, int d, int k, int metric, int rows_per_split,
-                float* cand_d, int* cand_i, float* __restrict__ part_d,
-                int* __restrict__ part_i) {
+                float* cand_d, int* cand_i, float* glist_d, int* glist_i,
+                float* __restrict__ part_d, int* __restrict__ part_i) {
   extern __shared__ __align__(16) char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [FD][FLD] query chunk, transposed
   float* xs = qs + FD * FLD;                   // [FD][FLD] corpus chunk, transposed
   float* qn = xs + FD * FLD;                   // [TQ] |q|^2
-  Lists L = carve_lists(reinterpret_cast<char*>(qn + TQ), k, cand_d, cand_i);
+  auto L = carve_lists<WIDE>(reinterpret_cast<char*>(qn + TQ), k, cand_d, cand_i, glist_d,
+                            glist_i);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % 16, ty = tid / 16;
@@ -654,8 +726,10 @@ scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 // One block per query: each valid candidate's final rank is its position in
 // its own sorted list plus, for every other list, the number of entries that
-// rank before it (a binary search). Row ranges of the splits are disjoint,
-// so ranks are distinct and every rank < k is written exactly once.
+// rank before it (a binary search: nine steps up to KS, ceil(log2(k + 1))
+// past it). Row ranges of the splits are disjoint, so ranks are distinct and
+// every rank < k is written exactly once.
+template <bool WIDE>
 __global__ void merge_kernel(const float* __restrict__ part_d,
                              const int* __restrict__ part_i, int splits, int k,
                              float* __restrict__ out_d, int* __restrict__ out_i) {
@@ -677,7 +751,9 @@ __global__ void merge_kernel(const float* __restrict__ part_d,
     const int s = c / k;
     int rank = c % k;
     for (int t = 0; t < splits && rank < k; ++t)
-      if (t != s) rank += rank_in(pd + t * k, pi + t * k, k, dc, ic);
+      if (t != s)
+        rank += WIDE ? rank_in_any(pd + (size_t)t * k, pi + (size_t)t * k, k, dc, ic)
+                     : rank_in(pd + t * k, pi + t * k, k, dc, ic);
     if (rank < k) {
       od[rank] = dc;
       oi[rank] = ic;
@@ -685,9 +761,10 @@ __global__ void merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-const void* kernel_of(int x_bf16) {
-  return x_bf16 ? reinterpret_cast<const void*>(scan_bf16_kernel)
-                : reinterpret_cast<const void*>(scan_f32_kernel);
+const void* kernel_of(int x_bf16, bool wide) {
+  auto bf = wide ? scan_bf16_kernel<true> : scan_bf16_kernel<false>;
+  auto f32 = wide ? scan_f32_kernel<true> : scan_f32_kernel<false>;
+  return x_bf16 ? reinterpret_cast<const void*>(bf) : reinterpret_cast<const void*>(f32);
 }
 
 }  // namespace
@@ -697,22 +774,24 @@ extern "C" {
 // The launch configuration of a (table type, d, k) on the current device:
 // queries per block, candidates buffered per query, whether a bf16 query
 // tile stays resident in shared memory (it does when it fits), the block's
-// dynamic shared memory, and how many blocks fit on one SM. It also lets the
-// kernel use that much shared memory on this device, so the caller asks once
-// per (device, shape) and passes resident and smem to every launch. Returns
-// a CUDA error code.
+// dynamic shared memory, how many blocks fit on one SM, and whether the
+// lists live in a global scratch (k > KS; the caller allocates TQ * k
+// entries a block). It also lets the kernel use that much shared memory on
+// this device, so the caller asks once per (device, shape) and passes
+// resident and smem to every launch. Returns a CUDA error code.
 int vecgo_scan_topk_plan(int x_bf16, int d, int k, int* tq, int* cap, int* resident,
-                         int* smem, int* blocks_per_sm) {
+                         int* smem, int* blocks_per_sm, int* wide) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const void* fn = kernel_of(x_bf16);
+  const void* fn = kernel_of(x_bf16, k > KS);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return (int)e;
   *tq = TQ;
   *cap = CAP;
+  *wide = k > KS;
   *resident = x_bf16 && bf16_smem(1, d, k) <= (size_t)optin;
   *smem = (int)(x_bf16 ? bf16_smem(*resident, d, k) : f32_smem(k));
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, *smem);
@@ -722,17 +801,18 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int* tq, int* cap, int* resid
 // (read for l2 only); mask [N] bytes or NULL. resident and smem come from
 // vecgo_scan_topk_plan for this (x_bf16, d, k) on this device. cand_d/cand_i
 // are the candidate buffers, [blocks, TQ, CAP] f32 / int32 scratch with
-// blocks = ceil(B / TQ) * splits. With splits > 1, part_d/part_i are
+// blocks = ceil(B / TQ) * splits; list_d/list_i the lists, [blocks, TQ, k]
+// scratch when k > KS, else NULL. With splits > 1, part_d/part_i are
 // [B, splits, k] scratch and the merge writes out_d/out_i [B, k]; with
 // splits == 1 the scan writes out_d/out_i directly. Returns the CUDA error
 // code of the launches (0 on success).
 int vecgo_scan_topk(const void* q, const void* x, int x_bf16,
                     const void* xnorm2, const void* mask, int B, int N, int d,
                     int k, int metric, int rows_per_split, int splits, int resident,
-                    int smem, void* cand_d, void* cand_i, void* part_d, void* part_i,
-                    void* out_d, void* out_i, void* stream) {
+                    int smem, void* cand_d, void* cand_i, void* list_d, void* list_i,
+                    void* part_d, void* part_i, void* out_d, void* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool direct = splits == 1;
+  const bool direct = splits == 1, wide = k > KS;
   float* pd = static_cast<float*>(direct ? out_d : part_d);
   int* pi = static_cast<int*>(direct ? out_i : part_i);
   const float* qf = static_cast<const float*>(q);
@@ -740,19 +820,24 @@ int vecgo_scan_topk(const void* q, const void* x, int x_bf16,
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   float* cdd = static_cast<float*>(cand_d);
   int* cii = static_cast<int*>(cand_i);
+  float* gld = static_cast<float*>(list_d);
+  int* gli = static_cast<int*>(list_i);
   const dim3 grid((B + TQ - 1) / TQ, splits);
-  if (x_bf16)
-    scan_bf16_kernel<<<grid, THREADS, smem, st>>>(
-        qf, static_cast<const __nv_bfloat16*>(x), xn, mk, B, N, d, k, metric,
-        rows_per_split, resident, cdd, cii, pd, pi);
-  else
-    scan_f32_kernel<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), xn,
-                                                  mk, B, N, d, k, metric, rows_per_split,
-                                                  cdd, cii, pd, pi);
+  if (x_bf16) {
+    auto kern = wide ? scan_bf16_kernel<true> : scan_bf16_kernel<false>;
+    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const __nv_bfloat16*>(x), xn, mk, B, N, d,
+                                      k, metric, rows_per_split, resident, cdd, cii, gld, gli,
+                                      pd, pi);
+  } else {
+    auto kern = wide ? scan_f32_kernel<true> : scan_f32_kernel<false>;
+    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), xn, mk, B, N, d, k,
+                                      metric, rows_per_split, cdd, cii, gld, gli, pd, pi);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || direct) return (int)e;
-  merge_kernel<<<B, 128, 0, st>>>(pd, pi, splits, k, static_cast<float*>(out_d),
-                                  static_cast<int*>(out_i));
+  auto merge = wide ? merge_kernel<true> : merge_kernel<false>;
+  merge<<<B, 128, 0, st>>>(pd, pi, splits, k, static_cast<float*>(out_d),
+                           static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,6 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from vecgo_tpu_torch._roadmap import not_ported
 from vecgo_tpu_torch.engine.pk import DELETED
 from vecgo_tpu_torch.index.flat import FlatSegment, bloom_may_contain
 from vecgo_tpu_torch.metadata import Op, as_filterset
@@ -217,6 +216,11 @@ def _plan_still_resident(plan: "_Plan", device_budget) -> bool:
                 ("seg", seg.seg_id), seg.device_bytes(), seg.release_device
             ):
                 return False
+        elif src.kind == "graph_cached":
+            if not device_budget.admit(
+                ("segcache", seg.seg_id), seg.cache_bytes(), seg.release_cache
+            ):
+                return False
     return True
 
 
@@ -295,13 +299,24 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
                 kind = "flat_compact"
             plan.n_brute += 1
         elif not resident:
-            # A graph segment beyond the device budget streams its coded rows
-            # (graph_stream). The JAX planner prefers the cluster-cached
-            # two-stage path (graph_cached) when its cache fits the budget;
-            # that cache (ops/ivf_cache.py) is ROADMAP.md port queue item 3,
-            # so until then every over-budget graph segment streams.
-            kind = "graph_stream"
-            plan.n_brute += 1
+            # Beyond-budget graph segment: prefer the cluster-cached coded
+            # two-stage path (bounded device memory, uploads that follow the
+            # probe set's churn; the reference's lazy block cache,
+            # diskann/segment.go:1151) over the full streaming scan; stream
+            # only if even the cache does not fit.
+            if (
+                getattr(seg, "ivf_members", None) is not None
+                and device_budget.admit(
+                    ("segcache", seg.seg_id),
+                    seg.cache_bytes(),
+                    seg.release_cache,
+                )
+            ):
+                kind = "graph_cached"
+                plan.n_graph += 1
+            else:
+                kind = "graph_stream"
+                plan.n_brute += 1
         else:
             cutoff = (
                 opts.selectivity_cutoff
@@ -361,8 +376,8 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
                                       options.metric, scan_dtype)
         elif src.kind in ("flat_stream", "graph_stream"):
             d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
-        else:
-            raise not_ported(f"the {src.kind!r} source (the cluster cache)", 3)
+        else:  # graph_cached
+            d, rows = _cached_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
         dist_comps += b * src.rows_considered + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
@@ -391,6 +406,20 @@ def _stream_source(src, qd, kk: int, opts, options):
     enc_host, scanner = seg.stream_state(transport, options.device)
     kks = min(src.n, max(4 * kk, 128)) if transport == "pq" else kk
     _, rows = T.streaming_topk_scored(qd, enc_host, seg.n, kks, scanner, mask=mask)
+    return seg.rerank_host(qd, rows), rows
+
+
+def _cached_source(src, qd, kk: int, opts, options):
+    """A graph segment beyond the device budget whose cluster cache fits it:
+    the cached two-stage search (`VamanaSegment.search_cached`), reranked
+    exactly from the host's rows. Codes stored as PQ order coarsely, so they
+    hand the rerank a pool four times as wide (source widths may differ)."""
+    seg = src.source
+    kk2 = kk
+    if str((seg.meta.get("ivf") or {}).get("codes_stored")) in ("pq", "opq"):
+        kk2 = min(src.n, 4 * kk)
+    ef = max(opts.ef or options.ef_search, kk2)
+    _, rows = seg.search_cached(qd, kk2, mask=src.mask, ef=ef)
     return seg.rerank_host(qd, rows), rows
 
 

@@ -4,7 +4,7 @@ The container format is shared: `VamanaWriter` writes the same sections and
 meta as the JAX writer's clustered build, and either package opens the
 other's segments. The host half (row buffer, sections, metadata, docs and
 payloads) is the JAX module's; the build, the device state and the searches
-are the port's, and the beyond-device tiers raise.
+are the port's.
 
 Serving (`search`): a segment of at least `ivf_min_n` rows carries the
 build's IVF membership, from which `device_state` encodes the SQ8-residual
@@ -13,6 +13,13 @@ device. A query batch takes an IVF shortlist through kernel B
 (`ops.ivf.ivf_scan`), optionally one lockstep graph-refine round over the
 codes, and an optional rescore of the pool on the int16 plane. Smaller
 segments walk the graph from IVF-guided entry nodes over a bf16 copy.
+
+Beyond the device budget a coded segment serves through the cluster cache
+(`search_cached`, ops/ivf_cache.py: a fixed number of cluster blocks on the
+device, admitted by LRU from the host's coded table or, with persisted codes
+(`store_codes`, the `ivfq.*` sections), from ranged reads of the store), or
+streams its rows (`stream_state`); callers rerank either exactly from the
+host's rows (`rerank_host`).
 """
 
 from __future__ import annotations
@@ -44,6 +51,29 @@ DEFAULT_ALPHA = 1.2
 
 # Slots scored per block of the masked brute-force scan.
 _SCAN_BLOCK = 65536
+
+
+# Coded candidates a probed cluster in the cached search; four times as many
+# for a PQ host table (kernel B takes kk <= 64).
+CACHED_KK = 16
+
+
+def cached_scan_params(k: int, ef: int, n_clusters: int, slots: int, pq: bool):
+    """(n_probe, kk, pool) of `VamanaSegment.search_cached` for a pool of k
+    at list size ef over n_clusters clusters of `slots` slots. The probes and
+    the pool follow the JAX package's rule. kk does not: the JAX package takes
+    max(8, min(16, ceil(2 ef / n_probe))), which is 8 wherever n_probe
+    follows ef, and a query whose neighbours crowd one cluster then loses
+    those past the 8th whatever ef or the pool (ROADMAP.md section 3). The
+    port scans CACHED_KK, the top of that rule's range."""
+    n_probe = int(min(n_clusters, max(16, (ef + 15) // 16 * 4)))
+    kk, pool = CACHED_KK, max(ef, k)
+    if pq:
+        # The PQ transport orders more coarsely than SQ8: a wider scan and
+        # dedup cut, which the exact host rerank repairs.
+        kk *= 4
+        pool = max(pool, 2 * k, 2 * ef)
+    return n_probe, min(kk, slots), pool
 
 
 def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -81,7 +111,8 @@ class VamanaWriter:
         """build_mode: only "clustered" (cluster-local KNN + RobustPrune,
         index/build_fast.py) is ported; the JAX package's "beam" build is
         ROADMAP.md port queue item 3. alpha=None resolves per mode as in the
-        JAX writer: 1.5 for clustered (1.2 for beam)."""
+        JAX writer: 1.5 for clustered (1.2 for beam). store_codes: False, or
+        True / "sq8" / "pq" / "opq" to persist the coded table."""
         if build_mode not in ("clustered", "beam"):
             raise ValueError(f"unknown build_mode {build_mode!r} (clustered|beam)")
         self.compress = compress
@@ -111,8 +142,6 @@ class VamanaWriter:
         self._preset = None
         if self.build_mode != "clustered":
             raise not_ported(f"build_mode={self.build_mode!r}", 3)
-        if self.store_codes:
-            raise not_ported("persisted coded tables (store_codes)", 3)
         self.device = torch.device(device)
 
     def add(self, vector, id: int, metadata=None, payload: Optional[bytes] = None,
@@ -157,6 +186,8 @@ class VamanaWriter:
             sections["ivf.members"] = members
             ivf_meta = {"capacity": int(members.shape[1]), "k": int(members.shape[0]),
                         "coded": True}
+            if self.store_codes:
+                ivf_meta["codes_stored"] = self._store_codes(sections, members, x)
         meta = {
             "kind": SEGMENT_KIND,
             "dim": self.dim,
@@ -172,6 +203,34 @@ class VamanaWriter:
             "stats": segment_stats(x, cm),
         }
         return container.pack_container(meta, sections, compress=self.compress or None)
+
+    def _store_codes(self, sections: dict, members: np.ndarray, x: np.ndarray) -> str:
+        """The persisted coded table (cluster-major: one cluster is one
+        contiguous byte range, one ranged read): `ivfq.codes` (d bytes a
+        slot) for "sq8" / True, or `ivfq.pq` + `ivfq.cb` (+ `ivfq.rot` for
+        OPQ) at d/4 bytes a slot, decoded into the SQ8 cache layout on the
+        device at admission; then `ivfq.bn`, `.scale`, `.cent`, `.cnorm2`.
+        Returns the kind for the meta's `codes_stored`."""
+        from vecgo_tpu_torch.ops.ivf_cache import _encode_host, _encode_host_pq
+
+        kind = self.store_codes if isinstance(self.store_codes, str) else "sq8"
+        if kind == "sq8":
+            h = _encode_host(members, np.asarray(x, np.float32))
+            sections["ivfq.codes"] = h["codes"]
+        elif kind in ("pq", "opq"):
+            h = _encode_host_pq(members, np.asarray(x, np.float32), kind=kind, seed=self.seed,
+                                device=self.device)
+            sections["ivfq.pq"] = h["pq"]
+            sections["ivfq.cb"] = h["cb"]
+            if h["rot"] is not None:
+                sections["ivfq.rot"] = h["rot"]
+        else:
+            raise ValueError(f"store_codes={self.store_codes!r} (True|sq8|pq|opq)")
+        sections["ivfq.bn"] = h["bn"]
+        sections["ivfq.scale"] = h["scale"]
+        sections["ivfq.cent"] = h["cent"]
+        sections["ivfq.cnorm2"] = h["cnorm2"]
+        return kind
 
 
 class VamanaSegment(common.RowBlobAccess):
@@ -220,9 +279,22 @@ class VamanaSegment(common.RowBlobAccess):
         self.ivf_members: Optional[np.ndarray] = sections.get("ivf.members")
         self.ivf_centroids: Optional[np.ndarray] = sections.get("ivf.centroids")
         self.cm = ColumnarMeta.from_sections(meta["metadata"], sections)
+        # The persisted coded table (writer store_codes), when the open holds
+        # its sections (local opens; lazy opens leave them in the store and
+        # read cluster blocks on demand).
+        self._ivfq = None
+        if "ivfq.codes" in sections or "ivfq.pq" in sections:
+            self._ivfq = {name: sections[f"ivfq.{name}"]
+                          for name in ("bn", "scale", "cent", "cnorm2")}
+            if "ivfq.pq" in sections:
+                self._ivfq.update(pq=sections["ivfq.pq"], cb=sections["ivfq.cb"],
+                                  rot=sections.get("ivfq.rot"))
+            else:
+                self._ivfq["codes"] = sections["ivfq.codes"]
         self._attach_row_blobs(sections, lazy)
         self._dev = None
         self._stream: dict = {}
+        self._ccache = None
 
     @property
     def vectors(self) -> np.ndarray:
@@ -244,17 +316,19 @@ class VamanaSegment(common.RowBlobAccess):
     @staticmethod
     def open_lazy(store, name: str, seg_id: int = 0,
                   verify_checksum: bool = True) -> "VamanaSegment":
-        """Ranged-read open: hot sections now, docs and payloads deferred."""
+        """Ranged-read open: hot sections now, docs and payloads deferred.
+        A codes-stored segment also defers its vectors: the cluster cache
+        reads coded blocks from the store and the exact rerank gathers
+        candidate rows by ranged reads, so serving never loads them."""
         lc = container.LazyContainer(store, name, verify_checksum)
+        exclude = ("docs.", "payload.", "ivfq.")
         if (lc.meta.get("ivf") or {}).get("codes_stored"):
-            raise not_ported("serving persisted coded tables (store_codes)", 3)
-        sections = lc.load_many(exclude_prefixes=("docs.", "payload.", "ivfq."))
+            exclude += ("vectors",)
+        sections = lc.load_many(exclude_prefixes=exclude)
         return VamanaSegment._checked(lc.meta, sections, seg_id, lc)
 
     @staticmethod
     def _checked(meta, sections, seg_id, lazy) -> "VamanaSegment":
-        if any(name.startswith("ivfq.") for name in sections):
-            raise not_ported("serving persisted coded tables (store_codes)", 3)
         try:
             return VamanaSegment(meta, sections, seg_id, lazy=lazy)
         except ErrCorrupt:
@@ -501,15 +575,68 @@ class VamanaSegment(common.RowBlobAccess):
             self._stream[transport] = mk(self.vectors, self.metric.compute(), device=device)
         return self._stream[transport]
 
-    # The cluster cache of ops/ivf_cache.py (the planner's graph_cached
-    # source) is port queue item 3; until it lands the planner streams every
-    # over-budget graph segment (graph_stream) and calls none of these.
+    # ---- beyond the device budget: the cluster cache ----
 
-    def cluster_cache(self, *args, **kw):
-        raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
+    CACHE_CLUSTERS = 256
 
-    def search_cached(self, *args, **kw):
-        raise not_ported("the beyond-device cluster cache (graph_cached)", 3)
+    def cache_bytes(self) -> int:
+        """Device footprint of the cluster cache (independent of N), the
+        planner's admission charge for the graph_cached source."""
+        if self.ivf_members is None:
+            return 0
+        k, s = self.ivf_members.shape
+        c = min(self.CACHE_CLUSTERS, k)
+        d = self.dim
+        return int(c * (s * (d + 8) + d * 4 + 4) + k * (d * 4 + 8))
+
+    def cluster_cache(self, device="cuda"):
+        """The cluster cache on `device`, built at first use
+        (ops/ivf_cache.ClusterCachedTable): from the persisted codes when the
+        open holds them, from ranged reads of the store when a lazy open left
+        them there, else encoded from the vectors on the host."""
+        from vecgo_tpu_torch.ops.ivf_cache import ClusterCachedTable, LazyHostTable, MemHostTable
+
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self._ccache is not None and self._ccache.device == device:
+            return self._ccache
+        cc = self.CACHE_CLUSTERS
+        if self._ivfq is not None:
+            host = MemHostTable(dict(self._ivfq,
+                                     rows=np.ascontiguousarray(self.ivf_members, np.int32)))
+            self._ccache = ClusterCachedTable(host=host, cache_clusters=cc, device=device)
+        elif (self._vectors_arr is None and self._lazy is not None
+              and (self._lazy.has("ivfq.codes") or self._lazy.has("ivfq.pq"))):
+            self._ccache = ClusterCachedTable(host=LazyHostTable(self._lazy, self.ivf_members),
+                                              cache_clusters=cc, device=device)
+        else:
+            self._ccache = ClusterCachedTable(self.ivf_members, np.asarray(self.vectors, np.float32),
+                                              cache_clusters=cc, device=device)
+        return self._ccache
+
+    def release_cache(self):
+        self._ccache = None
+
+    def search_cached(self, q, k: int, mask: Optional[np.ndarray] = None, ef: int = 0):
+        """The two-stage search's first stage through the cluster cache:
+        probe every centroid on the device, scan only the cached cluster
+        blocks (misses are admitted on demand). q [B, d] f32 on the device;
+        mask [N] bool on the host. Returns (dists [B, k] to the decoded rows,
+        rows [B, k] int64, -1 missing); callers rerank exactly with
+        rerank_host. No graph refinement: the cache holds only the probed
+        clusters, so the default probes are wider instead."""
+        b = q.shape[0]
+        if self.n == 0 or self.ivf_members is None:
+            return (torch.full((b, k), math.inf, device=q.device),
+                    torch.full((b, k), -1, dtype=torch.int64, device=q.device))
+        cc = self.cluster_cache(device=q.device)
+        ef = max(ef or max(self.DEFAULT_EF_SEARCH, k), k)
+        n_probe, kk, pool = cached_scan_params(k, ef, cc.k, cc.s, cc.host.kind == "pq")
+        sd, srows = cc.probe_and_scan(q, n_probe, kk, row_mask=mask)
+        cd, crows = beam_ops._dedup_topk(sd, srows, pool)
+        cd, crows = cd[:, :k], crows[:, :k]
+        return cd, torch.where(torch.isfinite(cd), crows, -1)
 
     # ---- host access (same contract as FlatSegment) ----
 

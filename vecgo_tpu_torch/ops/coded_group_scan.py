@@ -14,7 +14,7 @@ import math
 
 import torch
 
-MAX_KK = 32  # one list entry per lane of a warp
+MAX_KK = 64  # one or two list entries per lane of a warp
 _BIG = 3.0e38
 _MAX_SMEM = 232_448  # shared memory a block may opt into (sm_90)
 _MAX_GRID_X = 2**31 - 1

@@ -12,6 +12,10 @@ and the codes are the only vector data on the device. A query batch
      (cluster, query) pair's kk nearest slots: kernel B, `coded_group_scan`,
   4. scatters those winners back into per-query candidate tables.
 
+Steps 2-4 are `scan_groups`, which takes its probes from the caller: the
+cluster cache (ops/ivf_cache.py) probes every centroid of a segment but scans
+only the clusters it holds, so its probe space and its scan space differ.
+
 On a CUDA tensor step 3 launches the kernel at every dimension (the JAX
 package's d % 128 and VMEM gates were the TPU compiler's); on a CPU tensor
 it runs the kernel's plain version, the coded branch of `_scan_groups`.
@@ -139,8 +143,9 @@ def slot_mask_from_rows(table: IVFCodedTable, row_mask: torch.Tensor) -> torch.T
 
 
 def _invert_probes(probes: torch.Tensor, k_pad: int, qcap: int):
-    """probes [B, P] cluster ids -> (qtab [k_pad, qcap] int32 query index or
-    B as empty, qslot [k_pad, qcap] int32 probe slot). Within a cluster the
+    """probes [B, P] cluster ids, or k_pad for a probe that is dropped (the
+    cluster cache's dump id) -> (qtab [k_pad, qcap] int32 query index or B
+    as empty, qslot [k_pad, qcap] int32 probe slot). Within a cluster the
     queries keep (probe slot, query) order, so earlier probes survive qcap
     pressure first; the (cluster, column) pairs written are unique."""
     b, p = probes.shape
@@ -156,13 +161,13 @@ def _invert_probes(probes: torch.Tensor, k_pad: int, qcap: int):
     run_start = torch.cummax(torch.where(boundary, pos_all, 0), 0).values
     pos = pos_all - run_start
     # Fixed shapes, no host sync: pairs past qcap land in a dump column
-    # (qcap), which is dropped.
+    # (qcap) and dropped probes in a dump row (k_pad), both dropped.
     col = pos.clamp_max(qcap)
-    qtab = torch.full((k_pad, qcap + 1), b, dtype=torch.int32, device=dev)
-    qslot = torch.zeros((k_pad, qcap + 1), dtype=torch.int32, device=dev)
+    qtab = torch.full((k_pad + 1, qcap + 1), b, dtype=torch.int32, device=dev)
+    qslot = torch.zeros((k_pad + 1, qcap + 1), dtype=torch.int32, device=dev)
     qtab[cl_s, col] = qid_s.to(torch.int32)
     qslot[cl_s, col] = sl_s.to(torch.int32)
-    return qtab[:, :qcap].contiguous(), qslot[:, :qcap].contiguous()
+    return qtab[:k_pad, :qcap].contiguous(), qslot[:k_pad, :qcap].contiguous()
 
 
 def default_qcap(b: int, n_probe: int, k_pad: int) -> int:
@@ -176,8 +181,8 @@ def ivf_scan(q: torch.Tensor, table: IVFCodedTable, *, n_probe: int, kk: int,
     mask_flat [K, S] bool or None (filters and tombstones in slot space).
     Returns (dists [B, n_probe*kk] f32 vs the decoded rows, rows
     [B, n_probe*kk] int64 segment rows, -1 missing)."""
-    b, d = q.shape
-    k_pad, s = table.bnorm2.shape
+    b = q.shape[0]
+    k_pad = table.bnorm2.shape[0]
     n_probe = min(n_probe, k_pad)
     qcap = min(qcap, b) if qcap else default_qcap(b, n_probe, k_pad)
     qf = q.float().contiguous()
@@ -185,19 +190,35 @@ def ivf_scan(q: torch.Tensor, table: IVFCodedTable, *, n_probe: int, kk: int,
     cd = qn[:, None] + table.cnorm2[None, :] - 2.0 * (
         qf.to(torch.bfloat16).float() @ table.centroids.to(torch.bfloat16).float().T)
     _, probes = T.topk_smallest(cd, n_probe)
+    return scan_groups(qf, table, probes, mask_flat, kk=kk, qcap=qcap)
+
+
+def scan_groups(qf: torch.Tensor, table, probes: torch.Tensor,
+                mask_flat: Optional[torch.Tensor], *, kk: int, qcap: int):
+    """Steps 2-4 of the coded scan with the caller's probes (the port of
+    `_scan_groups`): invert probes [B, P] (cluster ids into the table's
+    cluster axis, or K for a dropped probe), run kernel B over every probed
+    cluster, and scatter the winners. `table` carries codes [K, S, d] int8,
+    scale [K], bnorm2 [K, S] (+inf empty), rows [K, S] and centroids [K, d]
+    on qf's device; its cluster axis may be a cache. mask_flat: [K, S] or
+    [K * S] bool, or None. Returns (dists [B, P*kk] f32, seg_rows [B, P*kk]
+    int64, -1 missing)."""
+    b = qf.shape[0]
+    k_pad, s = table.bnorm2.shape
+    n_probe = probes.shape[1]
     qtab, qslot = _invert_probes(probes, k_pad, qcap)
     bn = table.bnorm2 if mask_flat is None else torch.where(
         mask_flat.reshape(k_pad, s), table.bnorm2, math.inf)
     ld, lc = coded_group_scan(qf, qtab, table.codes, bn.contiguous(), table.scale,
                               table.centroids, kk)
-    base = (torch.arange(k_pad, device=q.device) * s)[:, None, None]
+    base = (torch.arange(k_pad, device=qf.device) * s)[:, None, None]
     lrow = torch.where(lc >= 0, base + lc, -1)
     # Scatter every (cluster, slot) pair into [B + 1, n_probe, kk] with no
     # host sync: empty slots all land in the extra row B, which is dropped;
     # live (query, probe slot) pairs are unique.
     qi = torch.where(qtab < b, qtab, b).long()
-    out_d = torch.full((b + 1, n_probe, kk), math.inf, dtype=torch.float32, device=q.device)
-    out_r = torch.full((b + 1, n_probe, kk), -1, dtype=torch.int64, device=q.device)
+    out_d = torch.full((b + 1, n_probe, kk), math.inf, dtype=torch.float32, device=qf.device)
+    out_r = torch.full((b + 1, n_probe, kk), -1, dtype=torch.int64, device=qf.device)
     out_d[qi, qslot.long()] = ld
     out_r[qi, qslot.long()] = lrow
     out_d = out_d[:b].reshape(b, n_probe * kk)
@@ -212,5 +233,5 @@ def compact_members_primary(*args, **kw):
 
 __all__ = [
     "IVFCodedTable", "RSCALE_RATIO", "compact_members_primary", "device_table_coded",
-    "ivf_scan", "slot_mask_from_rows",
+    "ivf_scan", "scan_groups", "slot_mask_from_rows",
 ]

@@ -1,8 +1,10 @@
 """Fused distance scan + top-k: the port of `pallas_l2_topk`.
 
 `scan_topk` is the one kernel of the flat path. It carries the flat-segment
-pool scan, the compact-gather scan and the memtable chunks. On a CUDA tensor
-it launches `csrc/scan_topk.cu` (or raises); on a CPU tensor it runs
+pool scan, the compact-gather scan, the memtable chunks and every quantized
+or streamed block scan, at any k (a pool wider than 256 takes the kernel's
+wide shape, whose lists live in a global scratch). On a CUDA tensor it
+launches `csrc/scan_topk.cu` (or raises); on a CPU tensor it runs
 `scan_topk_reference`, the plain PyTorch version it is tested against.
 """
 
@@ -15,7 +17,6 @@ import torch
 
 from vecgo_tpu_torch.model import Metric
 
-MAX_K = 256
 _METRIC_CODES = {Metric.L2: 0, Metric.DOT: 1, Metric.COSINE: 2}
 # Reference blocks hold at most this many scores ([B, block] f32, 256 MB).
 _REF_BLOCK_ELEMS = 1 << 26
@@ -28,7 +29,8 @@ _MAX_MERGE_WIDTH = 8192
 _MIN_TILES_PER_SPLIT = 32
 # The grid's last wave should be at least this full.
 _WAVE_FILL = 0.9
-# (device, bf16, d, k) -> (query tile, candidates, resident, smem bytes, blocks per SM, SMs)
+# (device, bf16, d, k) -> (query tile, candidates, resident, smem bytes, blocks per SM, SMs,
+# lists in a global scratch)
 _plans: dict = {}
 
 
@@ -40,8 +42,8 @@ def metric_code(metric) -> int:
 
 
 def _check(q, x, xnorm2, k, code, mask):
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"scan_topk supports 1 <= k <= {MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"scan_topk needs k >= 1, got k={k}")
     if q.dtype != torch.float32 or q.dim() != 2:
         raise ValueError(f"q must be [B, d] float32, got {tuple(q.shape)} {q.dtype}")
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
@@ -71,7 +73,8 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
     otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
     card each call also allocates the kernel's candidate buffers, 64 KB per
-    (64-query tile, row split).
+    (64-query tile, row split), and for k > 256 its lists, 512 k bytes per
+    (tile, split).
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -93,12 +96,15 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     if n == 0:
         return out_d.fill_(math.inf), out_i.fill_(-1)
     bf16 = int(x.dtype == torch.bfloat16)
-    tq, cap, resident, smem, bps, sms = _plan(lib, q.device, bf16, d, k)
+    tq, cap, resident, smem, bps, sms, wide = _plan(lib, q.device, bf16, d, k)
     splits, rows_per_split = split_plan(b, n, k, tq, bps * sms)
-    slots = -(-b // tq) * splits * tq * cap  # every block's candidate buffers
-    cand_d = torch.empty(slots, dtype=torch.float32, device=q.device)
-    cand_i = torch.empty(slots, dtype=torch.int32, device=q.device)
-    part_d = part_i = None
+    blocks = -(-b // tq) * splits
+    cand_d = torch.empty(blocks * tq * cap, dtype=torch.float32, device=q.device)
+    cand_i = torch.empty(blocks * tq * cap, dtype=torch.int32, device=q.device)
+    list_d = list_i = part_d = part_i = None
+    if wide:
+        list_d = torch.empty(blocks * tq * k, dtype=torch.float32, device=q.device)
+        list_i = torch.empty(blocks * tq * k, dtype=torch.int32, device=q.device)
     if splits > 1:
         part_d = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
         part_i = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
@@ -109,6 +115,7 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
             mask.data_ptr() if mask is not None else None,
             b, n, d, k, code, rows_per_split, splits, resident, smem,
             cand_d.data_ptr(), cand_i.data_ptr(),
+            list_d.data_ptr() if wide else None, list_i.data_ptr() if wide else None,
             part_d.data_ptr() if part_d is not None else None,
             part_i.data_ptr() if part_i is not None else None,
             out_d.data_ptr(), out_i.data_ptr(),
@@ -126,21 +133,23 @@ def _plan(lib, device, bf16: int, d: int, k: int):
     """The kernel's launch configuration for this table, asked of the
     library once per (device, shape): query tile, candidates per query,
     whether the bf16 query tile stays resident, dynamic shared memory, how
-    many blocks one SM holds, and the SM count."""
+    many blocks one SM holds, the SM count, and whether the lists live in a
+    global scratch (the wide shape, k > 256)."""
     key = (device.index, bf16, d, k)
     if key not in _plans:
         from vecgo_tpu_torch.kernels import _build
 
-        tq, cap, resident, smem, bps = (ctypes.c_int() for _ in range(5))
+        tq, cap, resident, smem, bps, wide = (ctypes.c_int() for _ in range(6))
         with torch.cuda.device(device):
             rc = lib.vecgo_scan_topk_plan(bf16, d, k, ctypes.byref(tq), ctypes.byref(cap),
                                           ctypes.byref(resident), ctypes.byref(smem),
-                                          ctypes.byref(bps))
+                                          ctypes.byref(bps), ctypes.byref(wide))
         _build.check(rc, "scan_topk plan")
         if bps.value < 1:
             raise RuntimeError(f"scan_topk: no block fits one SM (bf16={bf16}, d={d}, k={k})")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _plans[key] = (tq.value, cap.value, resident.value, smem.value, bps.value, sms)
+        _plans[key] = (tq.value, cap.value, resident.value, smem.value, bps.value, sms,
+                       bool(wide.value))
     return _plans[key]
 
 

@@ -17,7 +17,7 @@ import torch
 
 from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops import distance as D
-from vecgo_tpu_torch.ops.scan_topk import MAX_K, scan_topk
+from vecgo_tpu_torch.ops.scan_topk import scan_topk
 from vecgo_tpu_torch.utils.tensors import host_tensor
 
 # A plain score block holds at most this many scores ([B, rows] f32, 256 MB).
@@ -125,12 +125,10 @@ class BlockScanner:
     (`Quantizer.scan_form`), the block is decoded to a transient bf16 table
     and handed to the kernel with the transformed query; the per-query
     constant the transform drops is added to the returned distances (it
-    changes no ranking). On the card a k above the kernel's `MAX_K` raises
-    there, as it does on the resident unquantized path. Where the score has
-    no such form (cosine's and RaBitQ's per-row factors, symmetric Hamming),
-    and for k > `MAX_K` on CPU tensors, the block's plain [B, rows] score
-    matrix goes through a plain selection, in sub-blocks of at most 2^26
-    scores.
+    changes no ranking). Any k goes to the kernel (past 256 its wide shape).
+    Where the score has no such form (cosine's and RaBitQ's per-row factors,
+    symmetric Hamming), the block's plain [B, rows] score matrix goes through
+    a plain selection, in sub-blocks of at most 2^26 scores.
     """
 
     def __init__(self, quant, metric: Metric):
@@ -140,8 +138,6 @@ class BlockScanner:
     def __call__(self, q: torch.Tensor, k: int):
         quant, metric = self.quant, self.metric
         form = quant.scan_form(q, metric)
-        if k > MAX_K and q.device.type == "cpu":
-            form = None
         if form is not None:
             qp, const, kmetric = form
 
