@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat, graph, quantized, streamed and cached
-engine paths once on one CUDA card.
+"""Drive the PyTorch port's flat, graph, compact, quantized, streamed, cached
+and beam-built engine paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -45,6 +45,11 @@ engine paths once on one CUDA card.
    bound (probed clusters' bytes, bf16 peak) beside the all-clusters count
    (every cluster's bytes, fp32 peak: the count the first port used) and the
    code bytes' achieved TB/s.
+   Then serve_compact: the segment's device state rebuilt from the
+   one-slot-per-row table (S', its clusters' one-slot occupancy,
+   device_bytes() against the overlap table's and the tensors'), the serving
+   profile at twice its probes (8; recall floor 0.95), and kernel B at that
+   shape against its plain version.
 
 5. Quantized and beyond-device phase, over the flat phase's 1M rows:
    a. Open with quantizer="sq8" and flush_ivf_partitions=True -> insert_batch
@@ -84,7 +89,11 @@ engine paths once on one CUDA card.
    among the cached scan's candidates at kk 8 (the JAX package's rule), 16
    (the port's) and 64; the first batch after release_cache() with
    the host table's encode timed apart; one 4096-query uniform batch
-   (dropped probes and recall, no floor); kernel B against its plain version
+   (~3,000 probed clusters, past the cache's 256 slots: no probe dropped,
+   recall@10 floor 0.99), first by route at the source level (the segment
+   streamed as graph_stream streams it, and the cache scanned in chunks of
+   clusters that fit), then through the engine with the route it takes;
+   kernel B against its plain version
    on the cache tensors at kk 8 and kk 64. Then the same rows compacted with
    store_codes="sq8" and "pq" into a store that counts ranged reads and
    reopened from it: the store bytes a batch against the blob, the vectors
@@ -93,6 +102,17 @@ engine paths once on one CUDA card.
    from the store serves the rows of a fresh encode of the segment's rows,
    and PQ's recall is SQ8's within 0.05 (tests/test_ivf_cache.py's
    criteria).
+
+7. Beam build and the writer-side tools: the flat phase's 1,048,576 rows
+   compacted with graph_build_mode="beam" (build_graph, its table from
+   build_ivf_table: K x 512, overlap 4), its build time, served at the
+   engine's defaults (recall floor 0.95) and at the graph phase's serving
+   profile, kernel B at the beam table's shape; FreshVamana over 65,536 of
+   the rows (inserts, 35% soft deletes, consolidate; recall floor 0.85);
+   `python -m vecgo_tpu_torch.tools.compact DIR --all` in a subprocess over
+   a Local directory of 40,000 rows; vecgo_tpu_torch.entry.entry() on the
+   card; and ingest rows/s with and without the native host path
+   (utils/hostops, which must be available).
 
 With --profile, the flat phase's unfiltered case, the graph phase's serving
 case, the SQ8 engine path (unfiltered and probed), both streamed
@@ -109,6 +129,7 @@ Any failed check raises (exit code != 0). On success the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import subprocess
@@ -677,17 +698,24 @@ def coded_measure(name, args, qcap, n_probe, keep, card, note=""):
     ms = cuda_ms(lambda: coded_group_scan(*args), reps=20)
     plain_ms = cuda_ms(lambda: coded_group_scan_reference(*args), reps=2)
     # Work this batch needs: each live (cluster, query) pair scores the
-    # cluster's S slots at d, bf16 x int8 products that are exact in bf16
-    # (the tensor cores' bf16 peak); bytes: the codes, norms, scale and
-    # centroid of each probed cluster once (an unprobed cluster needs none),
-    # the queries and the probe table once, the outputs once.
+    # cluster's valid slots (finite bn: a row, not filtered out) at d, bf16 x
+    # int8 products that are exact in bf16 (the tensor cores' bf16 peak);
+    # bytes: the valid slots' codes and norms and the scale and centroid of
+    # each probed cluster once (an unprobed cluster needs none), the queries
+    # and the probe table once, the outputs once.
     n_live = int(live.sum())
-    probed = int(live.any(1).sum())
-    code_bytes = probed * s * d
+    probed_m = live.any(1)
+    probed = int(probed_m.sum())
+    occ = torch.isfinite(bn).sum(1)
+    valid_probed = int(occ[probed_m].sum())
+    pair_slots = int((live.sum(1) * occ).sum())
     out_bytes = d_k.numel() * 4 + i_k.numel() * 4
-    nbytes = (code_bytes + probed * (s * 4 + 4 + d * 4) + q.numel() * 4 + qtab.numel() * 4
-              + out_bytes)
-    bound_ms, bound_by = bound(2.0 * n_live * s * d, nbytes, True)
+    fixed = probed * (4 + d * 4) + q.numel() * 4 + qtab.numel() * 4 + out_bytes
+    bound_ms, bound_by = bound(2.0 * pair_slots * d, valid_probed * (d + 4) + fixed, True)
+    # Every slot of each probed cluster, padding included (what the kernel
+    # reads: it scans all S).
+    code_bytes = probed * s * d
+    slots_ms, slots_by = bound(2.0 * n_live * s * d, code_bytes + probed * s * 4 + fixed, True)
     # The all-clusters count, for comparison with earlier records: every
     # cluster's codes and norms, fp32 peak.
     old_bytes = (codes.numel() + bn.numel() * 4 + scale.numel() * 4
@@ -697,14 +725,91 @@ def coded_measure(name, args, qcap, n_probe, keep, card, note=""):
     print(f"kernel coded_group_scan {name}: B={b} K={k_pad} S={s} d={d} qcap={qcap} kk={kk} "
           f"probes={n_probe}{f' slots kept {keep:.0%}' if keep < 1 else ''}{note} ({n_live} live "
           f"(cluster, query) pairs over {probed} probed clusters, at most "
-          f"{per.shape[0] - 1} a cluster): kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}), share {bound_ms / ms:.1%}; all-clusters bound {old_ms:.3f} ms "
-          f"({old_by}), share {old_ms / ms:.1%}; codes read {code_bytes / 1e6:.1f} MB at "
-          f"{code_bytes / (ms * 1e-3) / 1e12:.3f} TB/s; plain {plain_ms:.3f} ms, max_abs_err "
+          f"{per.shape[0] - 1} a cluster; {valid_probed} valid slots in the probed clusters, "
+          f"{valid_probed / max(1, probed * s):.1%} of their slots): kernel {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}; all-slots bound "
+          f"{slots_ms:.3f} ms ({slots_by}), share {slots_ms / ms:.1%}; all-clusters bound "
+          f"{old_ms:.3f} ms ({old_by}), share {old_ms / ms:.1%}; codes read (every slot) "
+          f"{code_bytes / 1e6:.1f} MB at {code_bytes / (ms * 1e-3) / 1e12:.3f} TB/s; plain {plain_ms:.3f} ms, max_abs_err "
           f"{err:.3g} (tol {tol:.3g}), tie swaps {n_bad} [{card}]", flush=True)
     return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_ms_all_clusters": old_ms, "code_tbps":
+            "bound_by": bound_by, "bound_ms_all_slots": slots_ms,
+            "bound_ms_all_clusters": old_ms, "code_tbps":
             code_bytes / (ms * 1e-3) / 1e12}
+
+
+# The overlap table's device bytes at graph-1.1M-churn (PERF.md, section 6).
+OVERLAP_DEVICE_BYTES = 858_650_528
+
+
+def compact_phase(st, seg, rng, card):
+    """Phase 4b: the graph phase's segment served from the one-slot-per-row
+    table (serve_compact): its device state rebuilt, S' and device_bytes()
+    against the overlap table's and the tensors', the serving profile at
+    twice its probes (recall floor 0.95), and kernel B at the compact shape.
+    Returns both kernels' launches on this path and kernel B's case."""
+    import gc
+
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    dev = torch.device("cuda")
+    db, queries = st["db"], st["queries"]
+    overlap_bytes = seg.device_bytes()
+    seg.release_device()
+    gc.collect()
+    seg.serve_compact = True
+    upper = seg.device_bytes()
+    scan_topk.launches = coded_group_scan.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = seg.device_state(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    t = state["ivfq"]
+    k_pad, s2 = t.rows.shape
+    held = sum(x.numel() * x.element_size() for x in (state["graph"], *t) if x is not None)
+    want = seg.device_bytes()
+    slots = int((t.rows >= 0).sum())
+    # S' follows the fullest cluster's one-slot count, not the average.
+    occ = np.sort((t.rows >= 0).sum(1).cpu().numpy())[::-1]
+    print(f"compact table: K={k_pad} S'={s2} (the overlap table's S "
+          f"{seg.ivf_members.shape[1]}), {slots} slots for {seg.n} rows (one-slot occupancy: max "
+          f"{occ[0]}, 10th largest {occ[9]}, 99th percentile {np.percentile(occ, 99):.0f}, median "
+          f"{np.median(occ):.0f}; {int((occ > s2 - 128).sum())} clusters above {s2 - 128}), "
+          f"built in {build_s:.3f} s; "
+          f"device_bytes() {want} against the overlap table's {overlap_bytes} "
+          f"({want / overlap_bytes:.3f}; graph-1.1M-churn's {OVERLAP_DEVICE_BYTES}); before the "
+          f"build {upper}; its tensors {held} bytes, allocated {grown} [{card}]", flush=True)
+    check(slots == seg.n and s2 % 128 == 0 and s2 <= seg.ivf_members.shape[1],
+          "one slot per row, S' a multiple of 128 up to S")
+    check(upper == overlap_bytes and abs(held - want) <= want // 100 and want <= overlap_bytes,
+          "compact device_bytes()")
+    del state, t
+    all_ids, deleted, x_all = st["graph_ids"], st["graph_deleted"], st["graph_x"]
+    live = ~np.isin(all_ids, deleted)
+    kw = dict(ef=48, nprobes=8, graph_refine=0, graph_rescore=False)
+    got, dist = db.search_arrays(queries[0], k=K, **kw)
+    check(got.shape == (BATCH, K) and np.isfinite(dist).all(), "compact: shape/finite")
+    check(not np.isin(got, deleted).any(), "compact: a deleted id was returned")
+    recall = recall_vs_exact(got, torch.from_numpy(queries[0]).to(dev), x_all, live, all_ids)
+    windows = sorted(sync_qps(db, queries[0], kw) for _ in range(QPS_WINDOWS))
+    qps = windows[len(windows) // 2]
+    launches = {"scan_topk": scan_topk.launches, "coded_group_scan": coded_group_scan.launches}
+    print(f"compact search_arrays serving (ef 48, 8 probes: twice the serving profile's, no "
+          f"refine, no rescore): {qps:.0f} QPS (B={BATCH}; median of {QPS_WINDOWS} windows, "
+          f"range {windows[0]:.0f}-{windows[-1]:.0f}), recall@10 {recall:.5f}; launches "
+          f"{launches} [{card}]", flush=True)
+    check(launches["coded_group_scan"] > 0, "the compact path launched kernel B")
+    case = coded_case(seg, queries[1], rng, "compact", 8, 16, 1.0, card)
+    seg.release_device()
+    seg.serve_compact = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(recall >= GRAPH_RECALL_FLOOR, f"compact serving: recall {recall} < {GRAPH_RECALL_FLOOR}")
+    return launches, case
 
 
 # The new phase times with fewer windows than the flat and graph phases.
@@ -1272,6 +1377,7 @@ CACHE_BUDGET = 64 << 20  # device budget of the cached tier (bytes)
 CACHED_BATCH = 64  # queries a clustered batch of the cached tier
 CACHED_BATCHES = 4
 CACHED_RECALL_FLOOR = 0.85  # the lower of tests/test_ivf_cache.py's floors
+UNIFORM_RECALL_FLOOR = 0.99  # the uniform batch, no probe dropped (graph_stream's floor, phase 5)
 
 
 def plan_kinds(engine, k=K):
@@ -1285,6 +1391,76 @@ def plan_kinds(engine, k=K):
     finally:
         snap.release()
     return [src.kind for src in plan.sources]
+
+
+def cached_routes(db, seg, q_dev, card):
+    """The two no-drop routes of graph_cached for batches whose probed
+    clusters outnumber the cache, at the source level (what the planner's
+    `_cached_source` runs for the segment): the `graph_stream` scan of the
+    segment's rows (`_stream_source`) and the cache scanned chunk by chunk
+    (`search_cached`), each reranked exactly from the host's rows; the
+    median of 3 runs after a warm one, and recall@10 against the exact
+    answer over the segment's visible rows. The whole batch q_dev and each
+    of its prefixes of 16, 32, ... queries that spans more than one chunk,
+    so that the lines show where the stream starts to win."""
+    from vecgo_tpu_torch.engine import search as S
+    from vecgo_tpu_torch.model import SearchOptions
+
+    e = db.engine
+    opts = SearchOptions(k=K)
+    snap = e.snapshot()
+    try:
+        plan = S._plan_snapshot(snap, opts, e.options, e._device_budget)
+    finally:
+        snap.release()
+    src = next(x for x in plan.sources if x.kind == "graph_cached")
+    kk = min(K * max(opts.refine_factor, 1), src.n)
+    ef = max(opts.ef or e.options.ef_search, kk)
+    cc = seg.cluster_cache(device=q_dev.device)
+    probes_all = seg.cached_probes(q_dev, kk, ef)
+    x_seg = torch.from_numpy(np.asarray(seg.vectors)).to(q_dev.device)
+    visible = np.ones(seg.n, bool) if src.mask is None else np.asarray(src.mask)
+    gt_all = exact_ids(q_dev, x_seg, visible, seg.ids)
+    del x_seg
+    sizes = [nq for nq in (16 << i for i in range(12)) if nq < len(q_dev)] + [len(q_dev)]
+    out = {}
+    for nq in sizes:
+        q, probes, gt = q_dev[:nq], probes_all[:nq], gt_all[:nq]
+        n_chunks = len(cc.chunks(probes))
+        if n_chunks < 2:
+            continue
+
+        def chunked():
+            rows = seg.search_cached(q, kk, mask=src.mask, ef=ef, probes=probes)[1]
+            return seg.rerank_host(q, rows), rows
+
+        def stream():
+            return S._stream_source(src, q, kk, opts, e.options)
+
+        res = {}
+        for name, fn in (("graph_stream", stream), ("cluster chunks", chunked)):
+            fn()
+            torch.cuda.synchronize()
+            dropped = cc.stats["dropped_probes"]
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                d, rows = fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            top = rows.gather(1, torch.sort(d, dim=1, stable=True).indices[:, :K]).cpu().numpy()
+            recall = recall_of(np.where(top >= 0, seg.ids[np.maximum(top, 0)], -1), gt)
+            res[name] = (sorted(times)[1], recall, cc.stats["dropped_probes"] - dropped)
+        out[nq] = (n_chunks, res)
+        print(f"cached uniform batch by route (the graph_cached source alone, {nq} queries, "
+              f"{len(cc._wanted(probes))} probed clusters, {n_chunks} chunks of at most "
+              f"{cc.c}): " + "; ".join(
+                  f"{name} {t * 1e3:.3f} ms = {nq / t:.0f} QPS, recall@10 {r:.5f}, dropped "
+                  f"{dr}" for name, (t, r, dr) in res.items()) + f" [{card}]", flush=True)
+        for name, (_, r, dr) in res.items():
+            check(dr == 0 and r >= UNIFORM_RECALL_FLOOR, f"uniform route {name} at {nq} "
+                  f"queries: recall {r}, dropped {dr}")
+    return out
 
 
 def timed_search(db, q_np, **kw):
@@ -1509,15 +1685,37 @@ def cached_phase(st, rng, card):
     del full, d_c, d_f
     scan_topk.launches = coded_group_scan.launches = 0
 
-    # Uniform traffic: ~3,000 unique probes cannot fit 256 cached clusters;
-    # the probes that do not fit are dropped, as the reference drops them.
-    before = dict(cc.stats)
-    got, uni_s = timed_search(db, st["queries"][1])
-    recall = recall_vs_exact(got, torch.from_numpy(st["queries"][1]).to(dev), x_all, live, all_ids)
-    print(f"cached uniform batch ({BATCH} queries over all centres): {BATCH / uni_s:.0f} QPS, "
-          f"dropped_probes {cc.stats['dropped_probes'] - before['dropped_probes']}, misses "
-          f"{cc.stats['misses'] - before['misses']}, recall@10 {recall:.5f} (no floor) [{card}]",
-          flush=True)
+    # Uniform traffic: ~3,000 probed clusters, past the cache's 256 slots.
+    # No probe is dropped: the engine streams such a batch (the segment's
+    # rows are in host memory); the other route scans the cache chunk by
+    # chunk. Both routes at the source level on the same batch and on its
+    # prefixes (their launches do not count), then the engine's route end
+    # to end, read from what it ran: the stream launches no kernel B and
+    # never builds the cache (the batch is probed on the centroids alone).
+    uni = st["queries"][1]
+    q_uni = torch.from_numpy(uni).to(dev)
+    cached_routes(db, seg, q_uni, card)
+    seg.release_cache()
+    scan_topk.launches = coded_group_scan.launches = 0
+    timed_search(db, uni)  # the stream's host transport is built by now; warm
+    runs = [timed_search(db, uni) for _ in range(3)]
+    got, uni_s = runs[0][0], sorted(r[1] for r in runs)[1]
+    recall = recall_vs_exact(got, q_uni, x_all, live, all_ids)
+    cc = seg._ccache
+    stats = {"batches": 0, "dropped_probes": 0, "misses": 0} if cc is None else cc.stats
+    b_runs = coded_group_scan.launches
+    route = "cluster chunks" if stats["batches"] else "graph_stream"
+    expect = "graph_stream" if seg.rows_loaded else "cluster chunks"
+    print(f"cached uniform batch ({BATCH} queries over all centres, through the engine): "
+          f"{BATCH / uni_s:.0f} QPS (median of 3), route {route} (kernel B launches {b_runs}, "
+          f"cache built {cc is not None}, cache batches {stats['batches']}; the planner's "
+          f"route for a segment with its rows in memory: {expect}), dropped_probes "
+          f"{stats['dropped_probes']}, misses {stats['misses']}, recall@10 {recall:.5f} (floor "
+          f"{UNIFORM_RECALL_FLOOR}) [{card}]", flush=True)
+    check(route == expect and (b_runs == 0 and cc is None) == (route == "graph_stream"),
+          f"the uniform batch's route {route}, kernel B launches {b_runs}")
+    check(stats["dropped_probes"] == 0, "the uniform batch dropped no probe")
+    check(recall >= UNIFORM_RECALL_FLOOR, f"the uniform batch: recall {recall}")
     check(launches["coded_group_scan"] > 0, "graph_cached launched kernel B")
     db.close()
     seg.release_cache()
@@ -1620,6 +1818,175 @@ def cached_phase(st, rng, card):
     return launches, cases
 
 
+# Phase 7's beam build: the flat phase's rows, cut to BEAM_ROWS where the
+# full build would not finish inside BEAM_BUILD_LIMIT_S on the card.
+BEAM_ROWS = N
+BEAM_BUILD_LIMIT_S = 300.0
+FRESH_ROWS = 65_536
+FRESH_FIRST = 1024  # the first insert connects everything to everything
+FRESH_BATCH = 4096
+FRESH_RECALL_FLOOR = 0.85  # tests/test_fresh_vamana.py's streaming floor
+COMPACT_TOOL_ROWS = 40_000
+HOSTOPS_ROWS = 1 << 18
+
+
+def beam_phase(st, card):
+    """Phase 7: the flat phase's rows compacted with graph_build_mode="beam"
+    (build_graph, build_ivf_table) and served; then FreshVamana, the
+    compaction tool in a subprocess, entry(), and ingest with and without
+    the native host path. Returns both kernels' launches on the beam path
+    and kernel B's case on the beam table."""
+    import gc
+    import os
+    import tempfile
+
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.entry import entry
+    from vecgo_tpu_torch.index.fresh import FreshVamana
+    from vecgo_tpu_torch.index.vamana import VamanaSegment
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+    from vecgo_tpu_torch.utils import hostops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    x = st["x1"][:BEAM_ROWS]
+    queries = st["queries"]
+    scan_topk.launches = coded_group_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62,
+                                        graph_build_mode="beam"), device="cuda")
+    ids = np.asarray(db.insert_batch(x), np.int64)
+    db.commit()
+    t0 = time.perf_counter()
+    db.compact([h.seg_id for h in db.engine._segments])
+    build_s = time.perf_counter() - t0
+    seg = db.engine._segments[0].segment
+    check(type(seg) is VamanaSegment and seg.meta["alpha"] == 1.2, "a beam-built VamanaSegment")
+    k_tab, s_tab = seg.ivf_members.shape
+    print(f"beam compact: {len(x)} rows (cut to {BEAM_ROWS} of the flat phase's {N}: "
+          f"{'none' if BEAM_ROWS == N else 'see PERF.md'}) into one VamanaSegment (r {seg.r}, "
+          f"l_build {seg.meta['l_build']}, alpha 1.2) in {build_s:.3f} s; IVF table K={k_tab} x "
+          f"S={s_tab} (build_ivf_table, overlap 4); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    check(len(np.unique(seg.ivf_members[seg.ivf_members >= 0])) == len(x), "every row covered")
+    x_dev = torch.from_numpy(x).to(dev)
+    every = np.ones(len(x), bool)
+    q0 = torch.from_numpy(queries[0]).to(dev)
+    gt = exact_ids(q0, x_dev, every, ids)
+    # The engine's defaults (ef 64: 16 probes, one refine round, the pool
+    # rescore) carry the floor; the graph phase's serving profile (4 probes,
+    # no refine) is printed beside them: a probe of the overlap-4 table holds
+    # a quarter of the rows a probe of the overlap-2 table holds.
+    recall = {}
+    for name, kw in (("defaults", {}),
+                     ("serving profile", dict(ef=48, nprobes=4, graph_refine=0,
+                                              graph_rescore=False))):
+        got, dist = db.search_arrays(queries[0], k=K, **kw)
+        check(got.shape == (BATCH, K) and np.isfinite(dist).all(), f"beam {name}: shape/finite")
+        recall[name] = recall_of(got, gt)
+        windows = sorted(sync_qps(db, queries[0], kw) for _ in range(TIER_WINDOWS))
+        print(f"beam search_arrays {name}: {windows[len(windows) // 2]:.0f} QPS (B={BATCH}; "
+              f"median of {TIER_WINDOWS} windows, range {windows[0]:.0f}-{windows[-1]:.0f}), "
+              f"recall@10 {recall[name]:.5f} [{card}]", flush=True)
+    launches = {"scan_topk": scan_topk.launches, "coded_group_scan": coded_group_scan.launches}
+    print(f"beam path launches {launches} [{card}]", flush=True)
+    check(launches["coded_group_scan"] > 0, "the beam path launched kernel B")
+    case = coded_case(seg, queries[1], np.random.default_rng(7), "beam-table", 4, 16, 1.0, card)
+    db.close()
+    del db, seg, x_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(recall["defaults"] >= GRAPH_RECALL_FLOOR, f"beam defaults: recall {recall['defaults']}")
+
+    # FreshVamana: streaming inserts, soft deletes, consolidate, recall.
+    xf = st["x1"][-FRESH_ROWS:]
+    fv = FreshVamana(DIM, device="cuda")
+    t0 = time.perf_counter()
+    fv.insert_batch(xf[:FRESH_FIRST])
+    for s0 in range(FRESH_FIRST, FRESH_ROWS, FRESH_BATCH):
+        fv.insert_batch(xf[s0 : s0 + FRESH_BATCH])
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    qf = torch.from_numpy(queries[2][:1024]).to(dev)
+    xf_dev = torch.from_numpy(xf).to(dev)
+    gt_f = exact_ids(qf, xf_dev, np.ones(FRESH_ROWS, bool), np.arange(FRESH_ROWS))
+    rec_ins = recall_of(fv.search(qf, K, ef=128)[1].cpu().numpy(), gt_f)
+    gone = rng.choice(FRESH_ROWS, int(0.35 * FRESH_ROWS), replace=False)
+    for row in gone:
+        fv.delete(int(row))
+    got = fv.search(qf, K, ef=128)[1].cpu().numpy()
+    check(not np.isin(got, gone).any(), "FreshVamana: a deleted row was returned")
+    t0 = time.perf_counter()
+    check(fv.maybe_consolidate(), "FreshVamana consolidated past its threshold")
+    torch.cuda.synchronize()
+    cons_s = time.perf_counter() - t0
+    live = np.setdiff1d(np.arange(FRESH_ROWS), gone)
+    gt_l = exact_ids(qf, xf_dev[torch.from_numpy(live).to(dev)], np.ones(len(live), bool),
+                     np.arange(len(live)))
+    rec_cons = recall_of(fv.search(qf, K, ef=128)[1].cpu().numpy(), gt_l)
+    print(f"FreshVamana: {FRESH_ROWS} rows inserted ({FRESH_FIRST}, then batches of "
+          f"{FRESH_BATCH}) in {insert_s:.3f} s = {FRESH_ROWS / insert_s:.0f} rows/s, recall@10 "
+          f"{rec_ins:.5f} (ef 128); {len(gone)} soft deletes absent; consolidate {cons_s:.3f} s to "
+          f"{fv.n} rows, recall@10 {rec_cons:.5f} [{card}]", flush=True)
+    check(min(rec_ins, rec_cons) >= FRESH_RECALL_FLOOR, "FreshVamana recall")
+    del fv, xf_dev
+    gc.collect()
+
+    # The compaction tool in a writer process over a Local directory.
+    with tempfile.TemporaryDirectory() as d:
+        xc = st["x1"][:COMPACT_TOOL_ROWS]
+        w = vg.Open(vg.Local(d), vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
+        cids = w.insert_batch(xc[: COMPACT_TOOL_ROWS // 2])
+        w.commit()
+        cids += w.insert_batch(xc[COMPACT_TOOL_ROWS // 2 :])
+        w.commit()
+        w.close()
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "vecgo_tpu_torch.tools.compact", d, "--all"],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=os.path.dirname(os.path.dirname(os.path.abspath(vg.__file__))))
+        tool_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"tools.compact exit {r.returncode}: {r.stderr[-2000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        rd = vg.Open(vg.Local(d), device="cuda")
+        kinds = [type(h.segment).__name__ for h in rd.engine._segments]
+        hit = rd.search(xc[55], k=1)[0].id
+        rd.close()
+        print(f"tools.compact subprocess: {out} in {tool_s:.3f} s (process included); the "
+              f"reopened directory holds {kinds}, search finds row 55 [{card}]", flush=True)
+        check(out["rows"] == COMPACT_TOOL_ROWS and kinds == ["VamanaSegment"] and hit == cids[55],
+              "tools.compact compacted the directory")
+
+    # entry() on the card.
+    t0 = time.perf_counter()
+    fn, args = entry()
+    res_d, res_i = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: fn(*args), reps=5)
+    check(res_i.shape == (64, 10) and res_i.is_cuda and bool(torch.isfinite(res_d).all()),
+          "entry() on the card")
+    print(f"entry(): build + first step {entry_s:.3f} s, step {ms:.3f} ms, out "
+          f"{tuple(res_i.shape)} on {res_i.device} [{card}]", flush=True)
+
+    # Ingest with and without the native host path (utils/hostops).
+    check(hostops.available(), "the native host path (utils/hostops) is available")
+    xi = st["x1"][:HOSTOPS_ROWS]
+    rates = {}
+    for name in ("hostops", "numpy", "hostops", "numpy"):
+        db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
+        with (hostops.disabled() if name == "numpy" else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            db.insert_batch(xi)
+            rates.setdefault(name, []).append(HOSTOPS_ROWS / (time.perf_counter() - t0))
+        db.close()
+    print(f"ingest (insert_batch of {HOSTOPS_ROWS} x {DIM} rows, no metadata; in turns): with "
+          f"hostops {', '.join(f'{r:.0f}' for r in rates['hostops'])} rows/s, numpy "
+          f"{', '.join(f'{r:.0f}' for r in rates['numpy'])} rows/s [{card}]", flush=True)
+    return launches, case
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1641,6 +2008,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    from vecgo_tpu_torch.utils import hostops
+
+    t0 = time.perf_counter()
+    native = hostops.available()
+    print(f"host library (utils/hostops.cpp, g++) "
+          f"{'built' if native else 'unavailable'} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(args.seed)
     # The engine's shapes: the segment's bf16 pool scan at k + 8 (clean) and
@@ -1665,6 +2038,8 @@ def main() -> int:
     st = engine_phase(args, card)
     seg, graph_launches = graph_phase(st, card)
     coded = [coded_case(seg, st["queries"][1], rng, *case, card) for case in CODED_CASES]
+    compact_launches, compact_case = compact_phase(st, seg, rng, card)
+    coded.append(compact_case)
     # The memtable's rows become a segment, so the reopened database of the
     # streamed case holds every row the graph phase searched.
     st["db"].commit()
@@ -1678,6 +2053,9 @@ def main() -> int:
     cases += tier_cases
     cached_launches, cached_cases = cached_phase(st, np.random.default_rng(args.seed + 6), card)
     coded += cached_cases
+    torch.cuda.empty_cache()
+    beam_launches, beam_case = beam_phase(st, card)
+    coded.append(beam_case)
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
@@ -1685,9 +2063,12 @@ def main() -> int:
         "source": "vecgo_tpu_torch/csrc/scan_topk.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
         "launches": (st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values())
-                     + cached_launches["scan_topk"]),
+                     + cached_launches["scan_topk"] + compact_launches["scan_topk"]
+                     + beam_launches["scan_topk"]),
         "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"],
-                             **tier_launches, "cached": cached_launches["scan_topk"]},
+                             "compact": compact_launches["scan_topk"], **tier_launches,
+                             "cached": cached_launches["scan_topk"],
+                             "beam": beam_launches["scan_topk"]},
         "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1702,9 +2083,12 @@ def main() -> int:
         "route": "cuda",
         "source": "vecgo_tpu_torch/csrc/coded_group_scan.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:247",
-        "launches": graph_launches["coded_group_scan"] + cached_launches["coded_group_scan"],
+        "launches": (graph_launches["coded_group_scan"] + compact_launches["coded_group_scan"]
+                     + cached_launches["coded_group_scan"] + beam_launches["coded_group_scan"]),
         "launches_by_path": {"graph": graph_launches["coded_group_scan"],
-                             "cached": cached_launches["coded_group_scan"]},
+                             "compact": compact_launches["coded_group_scan"],
+                             "cached": cached_launches["coded_group_scan"],
+                             "beam": beam_launches["coded_group_scan"]},
         "max_abs_err": max(c["err"] for c in coded),
         "ms": coded[0]["ms"],
         "plain_ms": coded[0]["plain_ms"],
@@ -1713,7 +2097,8 @@ def main() -> int:
         "share": coded[0]["bound_ms"] / coded[0]["ms"],
         "library_ms": None,
         "cases": {c["name"]: {k: c[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
-                                                 "bound_ms_all_clusters", "code_tbps")}
+                                                 "bound_ms_all_slots", "bound_ms_all_clusters",
+                                                 "code_tbps")}
                   for c in coded},
     }]}))
     print(card_line())

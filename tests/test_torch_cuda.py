@@ -977,3 +977,104 @@ def test_engine_wide_pools_on_card(cuda):
         same = np.mean([len(set(s) & set(t)) / len(t) for s, t in zip(a, b)])
         # bf16 pools, exact rerank: rows differ only at ties of the last rank.
         assert same >= 0.995, (key, same)
+
+
+def _clustered_rows(n, d, clusters, seed):
+    r = np.random.default_rng(seed)
+    centers = r.standard_normal((clusters, d)).astype(np.float32)
+    return (centers[r.integers(0, clusters, n)]
+            + 0.35 * r.standard_normal((n, d))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["compact", "overlap4"])
+def test_coded_kernel_on_compact_and_overlap4_tables(cuda, table):
+    """Kernel B at the two new table shapes, against its plain version
+    (tolerance as above): the serve_compact table (S' a multiple of 128,
+    at most the build's S) at twice the probes, and the beam build's table
+    (build_ivf_table: overlap 4, S = ivf_capacity 512)."""
+    from vecgo_tpu_torch.index.build_fast import build_graph_clustered
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan, coded_group_scan_reference
+
+    x = _clustered_rows(60_000, 128, 96, seed=13)
+    xd = torch.from_numpy(x).to(cuda)
+    if table == "compact":
+        members = build_graph_clustered(xd, r=16, return_membership=True)[4]
+        t = ivf_ops.device_table_coded(members, xd, compact=True)
+        assert t.rows.shape[1] % 128 == 0 and t.rows.shape[1] <= members.shape[1]
+        n_probe = 8
+    else:
+        _, members = ivf_ops.build_ivf_table(x, capacity=512, device=cuda)
+        t = ivf_ops.device_table_coded(members, xd)
+        assert t.rows.shape[1] == 512 and len(np.unique(members[members >= 0])) == len(x)
+        n_probe = 16
+    assert (t.rows >= 0).sum() >= len(x)
+    q = xd[:2048] + 0.01
+    k_pad = t.bnorm2.shape[0]
+    cd = (q * q).sum(1)[:, None] + t.cnorm2[None, :] - 2.0 * (
+        q.to(torch.bfloat16).float() @ t.centroids.to(torch.bfloat16).float().T)
+    probes = torch.sort(cd, dim=1, stable=True).indices[:, :n_probe]
+    qtab, _ = ivf_ops._invert_probes(probes, k_pad, ivf_ops.default_qcap(2048, n_probe, k_pad))
+    args = (q, qtab, t.codes, t.bnorm2, t.scale, t.centroids)
+    before = coded_group_scan.launches
+    d_k, i_k = coded_group_scan(*args, 16)
+    d_r, i_r = coded_group_scan_reference(*args, 16)
+    torch.cuda.synchronize()
+    assert coded_group_scan.launches == before + 1
+    _check_coded(args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serve_compact", [False, True])
+def test_engine_beam_build_on_card(cuda, serve_compact):
+    """graph_build_mode="beam" compacts on the card (its table from
+    build_ivf_table) and serves through kernel B, from the overlap table or
+    the one-slot-per-row table, at recall@10 >= 0.95."""
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.index.vamana import VamanaSegment
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+    x = _clustered_rows(20_000, 32, 64, seed=6)
+    db = vg.Open(vg.Memory(), vg.Create(dim=32, graph_threshold=8192, graph_build_mode="beam",
+                                        serve_compact=serve_compact), device="cuda")
+    ids = np.asarray(db.insert_batch(x))
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    seg = db.engine._segments[0].segment
+    assert type(seg) is VamanaSegment and seg.meta["alpha"] == 1.2
+    assert seg.ivf_members.shape[1] == 512
+    q = x[:256] + 0.01
+    before = coded_group_scan.launches
+    got, _ = db.search_arrays(q, k=10)
+    assert coded_group_scan.launches > before
+    rows = seg.device_state(cuda)["ivfq"].rows
+    assert ((rows >= 0).sum() == len(x)) == serve_compact
+    d2 = ((q[:, None] - x[None]) ** 2).sum(-1)
+    want = ids[np.argsort(d2, 1)[:, :10]]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
+    assert rec >= 0.95, rec
+    db.close()
+
+
+@pytest.mark.cuda
+def test_cached_search_in_chunks_on_card(cuda):
+    """A broad batch over an 8-cluster cache on the card: scanned in chunks
+    through kernel B with no probe dropped, the ids of the CPU search over
+    a cache that holds every cluster (>= 0.99: bf16 products summed in
+    another order move near-ties)."""
+    from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter
+
+    x = _clustered_rows(20_000, 32, 64, seed=7)
+    w = VamanaWriter(32, device=cuda)
+    w.add_batch(x, np.arange(len(x)))
+    blob = w.finish()
+    small, big = VamanaSegment.open(blob), VamanaSegment.open(blob)
+    small.CACHE_CLUSTERS = 8
+    q = x[::80]
+    _, r_s = small.search_cached(torch.from_numpy(q).to(cuda), 10)
+    _, r_b = big.search_cached(torch.from_numpy(q), 10)
+    st = small._ccache.stats
+    assert st["dropped_probes"] == 0 and st["batches"] > 1 and small._ccache.device.type == "cuda"
+    r_s, r_b = r_s.cpu().numpy(), r_b.numpy()
+    assert sum(len(set(a) & set(b)) for a, b in zip(r_s, r_b)) >= 0.99 * r_b.size

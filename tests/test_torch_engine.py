@@ -139,14 +139,19 @@ def test_db_directory_opens_in_the_other_package(tmp_path, writer):
 
 
 def test_not_ported_paths_raise_with_their_roadmap_item():
+    """What is left of the port queue raises with its ROADMAP item (the
+    sharded searcher, hybrid and lexical search); graph_build_mode="beam"
+    (item 3d) compacts and serves now."""
     db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", graph_threshold=4,
                                         graph_build_mode="beam"))
-    db.insert_batch(np.eye(4, dtype=np.float32))
+    ids = db.insert_batch(np.eye(4, dtype=np.float32))
     db.commit()
-    db.insert_batch(np.eye(4, dtype=np.float32))
+    ids += db.insert_batch(2 * np.eye(4, dtype=np.float32))
     db.commit()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.compact([h.seg_id for h in db.engine._segments])
+    db.compact([h.seg_id for h in db.engine._segments])
+    seg = db.engine._segments[0].segment
+    assert type(seg).__name__ == "VamanaSegment" and seg.n == 8 and seg.meta["alpha"] == 1.2
+    assert [c.id for c in db.search(np.eye(4, dtype=np.float32)[2], k=1)] == [ids[2]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         db.sharded_searcher(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -159,6 +164,52 @@ def test_not_ported_paths_raise_with_their_roadmap_item():
     q.commit()
     assert q.engine._segments[0].segment.quant.kind == "sq8"
     assert [c.id for c in q.search(np.eye(4, dtype=np.float32)[2], k=1)] == [ids[2]]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_compact_tool_round_trip_across_packages(tmp_path, writer):
+    """tests/test_integration.py::test_subprocess_compact_worker across the
+    packages: one package writes two segments, the other package's
+    `tools.compact` merges them in a separate process (--all, the same
+    build flags; the port's with --device cpu), and the writing package
+    reopens the directory and reads the compacted graph segment."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    d = str(tmp_path / "db")
+    opts = dict(dim=16, flush_threshold=10**9, graph_threshold=500, graph_r=12,
+                graph_l_build=24)
+    x = tu.gaussian_vectors(700, 16, seed=211)
+    if writer == "jax":
+        db = vg.DB(JaxEngine.open(d, JaxEngineOptions(**opts), create=True))
+    else:
+        db = vg.Open(vg.Local(d), vg.Create(device="cpu", **opts))
+    ids = db.insert_batch(x[:400], [{"i": i} for i in range(400)])
+    db.commit()
+    ids += db.insert_batch(x[400:], [{"i": 400 + i} for i in range(300)])
+    db.commit()
+    assert len(db.engine._segments) == 2
+    db.close()
+    tool = ["vecgo_tpu.tools.compact"] if writer == "port" else [
+        "vecgo_tpu_torch.tools.compact", "--device", "cpu"]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", *tool, d, "--all", "--graph-threshold", "500",
+                        "--graph-r", "12", "--graph-l-build", "24"],
+                       capture_output=True, text=True, timeout=600, cwd=repo)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rows"] == 700 and out["segment"] == "VamanaSegment" and out["inputs"]
+    if writer == "jax":
+        db = vg.DB(JaxEngine.open(d, JaxEngineOptions()))
+    else:
+        db = vg.Open(vg.Local(d), device="cpu")
+    assert len(db.engine._segments) == 1
+    assert type(db.engine._segments[0].segment).__name__ == "VamanaSegment"
+    res = db.search(x[55], k=1, ef=64)
+    assert res[0].id == ids[55] and res[0].metadata == {"i": 55}
+    db.close()
 
 
 def test_option_the_port_does_not_honour_raises_when_set():

@@ -172,3 +172,64 @@ def test_partitioned_flat_compaction_and_auto_compact_default():
     np.testing.assert_array_equal(db.search_arrays(q, k=5, nprobes=2)[0], got)
     one, _ = db.search_arrays(q, k=5, nprobes=1)
     assert (one[:, 0] == got[:, 0]).all()  # a row's own partition is its nearest
+
+
+def _state_bytes(seg, device="cpu") -> int:
+    state = seg.device_state(device)
+    return sum(t.numel() * t.element_size()
+               for t in (state["graph"], *state["ivfq"]) if t is not None)
+
+
+def test_engine_serve_compact_recall():
+    """tests/test_engine.py::test_engine_serve_compact_recall through the port
+    engine: the graph segment serves from the one-slot-per-row coded table
+    (the doubled automatic probes) with at least 9 of the exact top 10, and
+    the JAX engine on the same rows keeps one slot per row too."""
+    x, _ = tu.clustered_vectors(9000, D, n_clusters=32, seed=71)
+    db = vg.Open(vg.Memory(), vg.Create(dim=D, device="cpu", graph_threshold=4096,
+                                        flush_threshold=10**9, serve_compact=True))
+    ids = db.insert_batch(x)
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    seg = db.engine._segments[-1].segment
+    assert isinstance(seg, VamanaSegment) and seg.serve_compact
+    rows = seg.device_state("cpu")["ivfq"].rows.numpy()
+    assert (rows >= 0).sum() == 9000 and rows.shape[1] < seg.ivf_members.shape[1]
+    _, ti = tu.brute_force_knn(x[123][None], x, 10, "l2")
+    got = {c.id for c in db.search(x[123], k=10)}
+    assert len(got & {ids[j] for j in ti[0]}) >= 9
+    je = JaxEngine.open(MemoryStore(), JaxEngineOptions(
+        dim=D, graph_threshold=4096, flush_threshold=10**9, serve_compact=True), create=True)
+    jids = je.insert_batch(x)
+    je.commit()
+    je.compact([h.seg_id for h in je._segments])
+    jt = je._segments[-1].segment.device_state()["ivfq"]
+    assert (np.asarray(jt.rows) >= 0).sum() == 9000
+    jgot = {c.id for c in je.search(x[123], k=10)}
+    assert len(jgot & {jids[j] for j in ti[0]}) >= 9
+    db.close()
+    je.close()
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_device_bytes_holds_the_built_tensors(compact):
+    """device_bytes() is the bytes of the tensors device_state() builds (the
+    medoid entry aside): under serve_compact, the compact table's own S'
+    once it has been built, and the overlap table's S, an upper bound,
+    before (the JAX package always counts S)."""
+    x, _ = tu.clustered_vectors(6000, D, n_clusters=24, seed=43)
+    w = vg.Open(vg.Memory(), vg.Create(dim=D, device="cpu", **GRAPH))
+    w.insert_batch(x)
+    w.commit()
+    w.compact([h.seg_id for h in w.engine._segments])
+    seg = w.engine._segments[-1].segment
+    seg.release_device()
+    seg.serve_compact = compact
+    before = seg.device_bytes()
+    held = _state_bytes(seg)
+    assert seg.device_bytes() == held
+    if compact:
+        assert held < before  # S' < S
+    else:
+        assert held == before
+    w.close()

@@ -5,10 +5,13 @@ Runs in a subprocess, because this test process has jax loaded already
 vecgo_tpu_torch, drives a small slice of the flat path and of the graph path
 (compaction into a Vamana segment, filtered and unfiltered search), a
 quantized and partitioned flat segment with probing, a streamed search
-under a device budget over both transports, and the cluster cache
+under a device budget over both transports, the cluster cache
 (graph_cached) over persisted PQ codes reopened from the store, with a
-caching store and a counting observer, on the CPU, and checks sys.modules for jax and for vecgo_tpu / vecgo_tpu.*; without
-a CUDA device it also checks that the default device ("cuda") is refused.
+caching store and a counting observer, a beam-mode compaction served from a
+compact table, FreshVamana, the compaction tool, entry() and the native
+ingest path (utils/hostops), on the CPU, and checks sys.modules for jax and
+for vecgo_tpu / vecgo_tpu.*; without a CUDA device it also checks that the
+default device ("cuda") is refused.
 """
 
 import os
@@ -118,6 +121,51 @@ CHILD = textwrap.dedent(
     assert seg._vectors_arr is None and obs.counters["searches"] == 4
     assert db.engine.cache_stats()
     db.close()
+
+    # The beam build served from the one-slot-per-row table, FreshVamana,
+    # the compaction tool, entry() and the native ingest path.
+    import tempfile
+    from vecgo_tpu_torch.entry import entry
+    from vecgo_tpu_torch.index.fresh import FreshVamana
+    from vecgo_tpu_torch.tools import compact as compact_tool
+    from vecgo_tpu_torch.utils import hostmem, hostops
+
+    db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu", graph_threshold=4096,
+                                        graph_build_mode="beam", serve_compact=True))
+    ids = db.insert_batch(y)
+    db.commit()
+    db.compact([h.seg_id for h in db.engine._segments])
+    seg = db.engine._segments[0].segment
+    assert type(seg) is VamanaSegment and seg.serve_compact and seg.meta["alpha"] == 1.2
+    got, _ = db.search_arrays(y[:4], k=3)
+    assert got[:, 0].tolist() == ids[:4]
+    assert (seg.device_state("cpu")["ivfq"].rows >= 0).sum() == len(y)
+    db.close()
+    fv = FreshVamana(8, r=8, l_build=16, device="cpu")
+    fv.insert_batch(z[:500])
+    fv.insert_batch(z[500:1000])
+    fv.delete(3)
+    assert fv.search(z[:2], 1)[1][0, 0] == 0 and 3 not in fv.search(z[3:4], 5)[1]
+    fv.consolidate()
+    assert fv.n == 999
+    with tempfile.TemporaryDirectory() as d:
+        db = vg.Open(vg.Local(d), vg.Create(dim=8, device="cpu", graph_threshold=500,
+                                            flush_threshold=10**9))
+        db.insert_batch(z[:400])
+        db.commit()
+        db.insert_batch(z[400:700])
+        db.commit()
+        db.close()
+        assert compact_tool.main([d, "--all", "--graph-threshold", "500", "--device", "cpu"]) == 0
+        db = vg.Open(vg.Local(d), device="cpu")
+        assert type(db.engine._segments[0].segment) is VamanaSegment
+        db.close()
+    fn, args = entry(device="cpu")
+    assert fn(*args)[1].shape == (64, 10)
+    ok = hostops.available()
+    with hostops.disabled():
+        assert not hostops.available() and hostmem.all_finite(z)
+    assert hostops.available() == ok and hostmem.all_finite(z)
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
     assert not jax_pkg, jax_pkg
@@ -138,7 +186,7 @@ def test_port_runs_without_importing_jax():
     env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     out = subprocess.run(
         [sys.executable, "-c", CHILD], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
+        capture_output=True, text=True, timeout=600,
     )
     assert out.returncode == 0, out.stderr
     assert "NOJAX-OK" in out.stdout

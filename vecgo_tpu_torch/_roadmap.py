@@ -1,8 +1,6 @@
 """What the port does not cover yet, by its item in ROADMAP.md's port queue."""
 
 QUEUE = {
-    3: ("the rest of graph segments: serve_compact (3c), the beam build mode with the "
-        "uncoded IVF table (3d), FreshVamana (3e), tools/compact (3f)"),
     4: "device BM25 hybrid search",
     5: "the multi-device plane",
 }

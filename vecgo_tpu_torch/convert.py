@@ -6,15 +6,23 @@ directory moves between them simply by opening it with the other package.
 its codes and its quantizer's trained arrays, `quantizer_from_jax` moves a
 trained quantizer, and `host_table_from_jax` moves the host side of a cluster
 cache (its coded table), so both packages score the same codes with the same
-arrays.
+arrays. `ivf_table_from_jax` moves a device IVF table (bf16 residual blocks
+or SQ8 codes), `vamana_segment_from_arrays` makes a port VamanaSegment from
+a graph and membership another build made (the JAX package's beam build or
+`build_ivf_table`), so that a search parity does not rest on two builds'
+random draws, and `fresh_from_jax` moves a JAX FreshVamana's state.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from vecgo_tpu_torch import quantization as Q
-from vecgo_tpu_torch.index.flat import FlatSegment
+from vecgo_tpu_torch.index import common
+from vecgo_tpu_torch.index.flat import FlatSegment, segment_stats
+from vecgo_tpu_torch.model import Metric
+from vecgo_tpu_torch.ops import ivf as ivf_ops
 from vecgo_tpu_torch.ops.ivf_cache import MemHostTable
 
 
@@ -63,3 +71,65 @@ def host_table_from_jax(h: dict) -> MemHostTable:
     training, so holding both caches to the same codes takes this."""
     return MemHostTable({name: None if arr is None else np.asarray(arr)
                          for name, arr in h.items()})
+
+
+def ivf_table_from_jax(table, device):
+    """The port's IVFDeviceTable or IVFCodedTable over a JAX table's arrays
+    (vecgo_tpu.ops.ivf), on `device`; bf16 blocks stay bf16."""
+    def t(arr):
+        if arr is None:
+            return None
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    cls = ivf_ops.IVFCodedTable if hasattr(table, "codes") else ivf_ops.IVFDeviceTable
+    return cls(**{name: t(getattr(table, name)) for name in cls._fields})
+
+
+def vamana_segment_from_arrays(x: np.ndarray, graph: np.ndarray, medoid: int,
+                               entry_centroids: np.ndarray, entry_nodes: np.ndarray,
+                               members=None, metric: Metric = Metric.L2, r: int = 0,
+                               seg_id: int = 0):
+    """A port VamanaSegment over rows x [N, d] (ids 0..N-1) with a graph and
+    IVF membership built elsewhere: the sections and meta `VamanaWriter`
+    writes, without a build."""
+    from vecgo_tpu_torch.index.vamana import SEGMENT_KIND, VamanaSegment
+
+    x = np.ascontiguousarray(x, np.float32)
+    n, d = x.shape
+    sections, md_meta, cm = common.row_sections(x, np.arange(n, dtype=np.int64), [None] * n,
+                                                [None] * n)
+    sections["graph"] = np.ascontiguousarray(graph, np.int32)
+    sections["entry.centroids"] = np.asarray(entry_centroids, np.float32)
+    sections["entry.nodes"] = np.asarray(entry_nodes, np.int32)
+    ivf_meta = None
+    if members is not None:
+        sections["ivf.members"] = np.ascontiguousarray(members, np.int32)
+        ivf_meta = {"capacity": int(members.shape[1]), "k": int(members.shape[0]),
+                    "coded": True}
+    meta = {"kind": SEGMENT_KIND, "dim": d, "metric": Metric(metric).value, "count": n,
+            "medoid": int(medoid), "r": int(r or graph.shape[1]), "l_build": 0, "alpha": 0.0,
+            "quantizer": {"kind": "none", "params": {}}, "ivf": ivf_meta,
+            "metadata": md_meta, "stats": segment_stats(x, cm)}
+    return VamanaSegment(meta, sections, seg_id)
+
+
+def fresh_from_jax(fv, device):
+    """The port's FreshVamana with a JAX FreshVamana's parameters, rows,
+    soft deletes, medoid and graph, on `device`."""
+    from vecgo_tpu_torch.index.fresh import FreshVamana
+
+    out = FreshVamana(fv.dim, Metric(fv.metric.value), r=fv.r, l_build=fv.l_build,
+                      alpha=fv.alpha, beam_width=fv.beam_width,
+                      consolidate_threshold=fv.consolidate_threshold, device=device)
+    if fv.n:
+        out._ensure_capacity(fv.capacity)
+        out.n = fv.n
+        out.x[:] = fv.x
+        out.deleted[:] = fv.deleted
+        out.medoid = fv.medoid
+        out._set_rows_device(np.arange(fv.capacity), out.x)
+        out._dev["graph"][:] = torch.from_numpy(np.array(fv._dev["graph"])).to(device)
+    return out

@@ -413,13 +413,24 @@ def _cached_source(src, qd, kk: int, opts, options):
     """A graph segment beyond the device budget whose cluster cache fits it:
     the cached two-stage search (`VamanaSegment.search_cached`), reranked
     exactly from the host's rows. Codes stored as PQ order coarsely, so they
-    hand the rerank a pool four times as wide (source widths may differ)."""
+    hand the rerank a pool four times as wide (source widths may differ).
+
+    A batch whose probed clusters outnumber the cache's slots (broad
+    traffic) drops no probe: a segment whose rows are in host memory
+    streams them (`_stream_source`), which served broad batches faster than
+    scanning the cache chunk by chunk (PERF.md); a lazily opened one, whose
+    rows are in the store, scans the cache chunk by chunk. The batch is
+    probed on the centroids alone, so a batch that streams never builds the
+    cache."""
     seg = src.source
     kk2 = kk
     if str((seg.meta.get("ivf") or {}).get("codes_stored")) in ("pq", "opq"):
         kk2 = min(src.n, 4 * kk)
     ef = max(opts.ef or options.ef_search, kk2)
-    _, rows = seg.search_cached(qd, kk2, mask=src.mask, ef=ef)
+    probes = seg.cached_probes(qd, kk2, ef)
+    if seg.rows_loaded and not seg.cache_fits(probes):
+        return _stream_source(src, qd, kk, opts, options)
+    _, rows = seg.search_cached(qd, kk2, mask=src.mask, ef=ef, probes=probes)
     return seg.rerank_host(qd, rows), rows
 
 

@@ -5,8 +5,8 @@ KNN computed as batched [G, C, C] distance products.
 
   1. JL-project the corpus to 32 dims; k-means partition and top-`overlap`
      assignment run in the projection,
-  2. each point joins its `overlap` nearest clusters (capacity-capped; the
-     sort form of the membership),
+  2. each point joins its `overlap` nearest clusters (capacity-capped by
+     hash-scatter rounds in distance waves, the JAX package's default form),
   3. per cluster batch: full-dim bf16 distances -> exact top-knn per member,
   4. NN-descent rounds on a pure-KNN working list,
   5. one RobustPrune pass over [working list | random far ids | reverse
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from vecgo_tpu_torch.ops import beam as beam_ops
+from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.quantization import kmeans as km
 
 logger = logging.getLogger("vecgo_tpu_torch")
@@ -177,47 +178,67 @@ def _prune_all(cand_table, vectors, rnorm2, x_occ, rn_occ, r_out: int, alpha: fl
 
 
 def _assign_topk(z, znorm2, centers, overlap: int, block: int):
-    """Per-point `overlap` nearest centroids in projection space (bf16
-    products). Returns (assign [N_pad, ov] int64, dist [N_pad, ov] f32)."""
+    """Per-point `overlap` nearest centroids (bf16 products), in projection
+    space for the clustered build, over the full dimension for
+    `ops/ivf.build_ivf_table`; padded rows carry +inf znorm2. Returns
+    (assign [N_pad, ov] int64, dist [N_pad, ov] f32), ties to the lower id."""
     c16 = centers.to(torch.bfloat16).float()
     cn = (centers.float() ** 2).sum(1)
     a, dd = [], []
     for b0 in range(0, z.shape[0], block):
         prod = z[b0 : b0 + block].to(torch.bfloat16).float() @ c16.T
         dmat = znorm2[b0 : b0 + block, None] + cn[None, :] - 2.0 * prod
-        nd, idx = torch.topk(dmat, overlap, dim=1, largest=False)
+        nd, idx = T.topk_smallest(dmat, overlap)
         a.append(idx)
         dd.append(nd)
     return torch.cat(a), torch.cat(dd)
 
 
-def _membership_sort(assign, dists, k: int, cmax: int):
-    """Capacity-capped membership, sort form. assign/dists [N, ov]; within a
-    cluster, members order by (overlap rank, distance, point), and the first
-    cmax stay. Returns (members [k, cmax] int32 (-1 pad), mem_slot [k, cmax]
-    int32, entry_nodes [k] int32, covered [N] bool)."""
+def _membership_scatter(assign, dists, k: int, cmax: int):
+    """Capacity-capped membership by hash-scatter rounds (the JAX package's
+    default form). assign/dists [N, ov]; cluster k - 1 is the callers' dump
+    cluster for padded rows. Each (point, overlap rank) membership tries six
+    hashed positions in its cluster's row per distance wave; of the points
+    that reach one free position in a round, the largest id wins (a max
+    scatter). Ranks go in order, so primaries take capacity first, and four
+    waves place the nearest quarter of the memberships (by the quantiles of
+    the valid rows' primary distances) before the next. Returns (members
+    [k, cmax] int32 (-1 pad), mem_slot [k, cmax] int32, entry_nodes [k]
+    int32 (a cluster's first occupied column, -1 if empty), covered [N])."""
     n, ov = assign.shape
     dev = assign.device
-    cl = assign.reshape(-1).long()
-    dd = dists.reshape(-1)
-    pt = torch.arange(n, device=dev).repeat_interleave(ov)
-    sl = torch.arange(ov, device=dev).repeat(n)
-    o1 = torch.sort(dd, stable=True).indices
-    order = o1[torch.sort((cl * ov + sl)[o1], stable=True).indices]
-    cl_s, sl_s, pt_s = cl[order], sl[order], pt[order]
-    m = n * ov
-    pos_all = torch.arange(m, device=dev)
-    boundary = torch.ones(m, dtype=torch.bool, device=dev)
-    boundary[1:] = cl_s[1:] != cl_s[:-1]
-    pos = pos_all - torch.cummax(torch.where(boundary, pos_all, 0), 0).values
-    keep = pos < cmax
-    members = torch.full((k, cmax), -1, dtype=torch.int32, device=dev)
-    mem_slot = torch.zeros((k, cmax), dtype=torch.int32, device=dev)
-    members[cl_s[keep], pos[keep]] = pt_s[keep].to(torch.int32)
-    mem_slot[cl_s[keep], pos[keep]] = sl_s[keep].to(torch.int32)
-    covered = torch.zeros(n, dtype=torch.bool, device=dev)
-    covered[pt_s[keep]] = True
-    return members, mem_slot, members[:, 0].clone(), covered
+    pt = torch.arange(n, device=dev)
+    members = torch.full(((k + 1) * cmax,), -1, dtype=torch.int64, device=dev)
+    mem_slot = torch.zeros(((k + 1) * cmax,), dtype=torch.int32, device=dev)
+    placed = torch.zeros(n, dtype=torch.bool, device=dev)
+    d0 = dists[:, 0].float()
+    row_valid = (assign[:, 0] < k - 1) & torch.isfinite(d0)
+    qs = torch.nanquantile(torch.where(row_valid, d0, math.nan),
+                           torch.tensor([0.25, 0.5, 0.75], device=dev))
+    bucket = (dists > qs[0]).int() + (dists > qs[1]).int() + (dists > qs[2]).int()
+    hbase = (pt * 2654435761) & 0xFFFFFFFF
+    for s in range(ov):
+        cl = assign[:, s].long().clamp_max(k)
+        need = torch.ones(n, dtype=torch.bool, device=dev)
+        for w in range(4):
+            eligible = bucket[:, s] <= w
+            for r in range(6):
+                salt = ((w * 7 + r) * 0x9E3779B9 + s * 0x85EBCA6B) & 0xFFFFFFFF
+                pos = (hbase ^ salt) % cmax
+                trying = need & eligible
+                row = torch.where(trying, cl, k)
+                free = members[row * cmax + pos] < 0
+                cell = torch.where(free, row, k) * cmax + pos
+                members.scatter_reduce_(0, cell, pt, reduce="amax", include_self=True)
+                won = (members[cell] == pt) & trying & free
+                mem_slot[cell[won]] = s
+                placed |= won
+                need &= ~won
+    members = members.view(k + 1, cmax)[:k].to(torch.int32)
+    mem_slot = mem_slot.view(k + 1, cmax)[:k]
+    first = torch.argmax((members >= 0).int(), dim=1)
+    entry_nodes = members.gather(1, first[:, None])[:, 0]
+    return members, mem_slot, entry_nodes, placed
 
 
 def _complete_membership(members, covered_n):
@@ -360,7 +381,8 @@ def build_graph_clustered(
             # Padded rows go to a dump cluster beyond k_pad.
             k_pad = -(-k_clusters // g_batch) * g_batch
             a_dev = torch.where(row_ok[:, None], a_dev, k_pad)
-            members, mem_slot, enodes_t, covered = _membership_sort(a_dev, d_dev, k_pad + 1, cmax)
+            members, mem_slot, enodes_t, covered = _membership_scatter(a_dev, d_dev, k_pad + 1,
+                                                                        cmax)
             members, mem_slot = members[:k_pad], mem_slot[:k_pad]
             enodes_t = enodes_t[:k_clusters]
             nd = n - int(covered[:n].sum())

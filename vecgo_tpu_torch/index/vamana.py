@@ -1,15 +1,20 @@
 """Vamana (graph) segment of the port (vecgo_tpu/index/vamana.py).
 
 The container format is shared: `VamanaWriter` writes the same sections and
-meta as the JAX writer's clustered build, and either package opens the
-other's segments. The host half (row buffer, sections, metadata, docs and
-payloads) is the JAX module's; the build, the device state and the searches
-are the port's.
+meta as the JAX writer, and either package opens the other's segments. The
+host half (row buffer, sections, metadata, docs and payloads) is the JAX
+module's; the builds, the device state and the searches are the port's.
+
+Two builds, as in the JAX package: "clustered" (index/build_fast.py, the
+default) and "beam" (`build_graph`: two passes of blockwise lockstep beam
+search from IVF-guided entries, RobustPrune, then a reverse-edge re-prune;
+its serving membership comes from `ops.ivf.build_ivf_table`).
 
 Serving (`search`): a segment of at least `ivf_min_n` rows carries the
 build's IVF membership, from which `device_state` encodes the SQ8-residual
 coded table plus the int16 refinement plane: the only vector data on the
-device. A query batch takes an IVF shortlist through kernel B
+device (`serve_compact` repacks it to one slot per row first, and doubles
+the automatic probes). A query batch takes an IVF shortlist through kernel B
 (`ops.ivf.ivf_scan`), optionally one lockstep graph-refine round over the
 codes, and an optional rescore of the pool on the int16 plane. Smaller
 segments walk the graph from IVF-guided entry nodes over a bf16 copy.
@@ -17,7 +22,9 @@ segments walk the graph from IVF-guided entry nodes over a bf16 copy.
 Beyond the device budget a coded segment serves through the cluster cache
 (`search_cached`, ops/ivf_cache.py: a fixed number of cluster blocks on the
 device, admitted by LRU from the host's coded table or, with persisted codes
-(`store_codes`, the `ivfq.*` sections), from ranged reads of the store), or
+(`store_codes`, the `ivfq.*` sections), from ranged reads of the store; a
+batch whose probed clusters outnumber the cache's slots is scanned in
+chunks of clusters that fit, so no probe is dropped), or
 streams its rows (`stream_state`); callers rerank either exactly from the
 host's rows (`rerank_host`).
 """
@@ -31,7 +38,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vecgo_tpu_torch._roadmap import not_ported
 from vecgo_tpu_torch.errors import ErrCorrupt
 from vecgo_tpu_torch.index import common
 from vecgo_tpu_torch.index.flat import segment_stats
@@ -76,6 +82,117 @@ def cached_scan_params(k: int, ef: int, n_clusters: int, slots: int, pq: bool):
     return n_probe, min(kk, slots), pool
 
 
+def coarse_quantize(x: np.ndarray, n_centroids: int, seed: int = 42, device="cuda"):
+    """Coarse k-means over the corpus on `device`: (centroids [C, d],
+    assign [N], entry_nodes [C], the row nearest each centroid; an empty
+    cluster points at the globally nearest row). Beam search starts at the
+    entry nodes of the query's nearest centroids (IVF-guided entries)."""
+    from vecgo_tpu_torch.quantization import kmeans as km
+
+    centroids, _ = km.train_kmeans(x, n_centroids, seed=seed, device=device)
+    assign, dist = km.assign_partitions(x, centroids, device=device)
+    entry_nodes = np.zeros(n_centroids, np.int32)
+    order = np.lexsort((dist, assign))
+    a_s = assign[order]
+    first = np.r_[True, a_s[1:] != a_s[:-1]] if len(a_s) else np.zeros(0, bool)
+    entry_nodes[a_s[first]] = order[first]
+    seen = np.zeros(n_centroids, bool)
+    seen[a_s[first]] = True
+    if not seen.all():
+        entry_nodes[~seen] = int(np.argmin(dist))
+    return centroids, assign, entry_nodes
+
+
+def _cluster_aware_init(n: int, r: int, assign: np.ndarray, rng) -> np.ndarray:
+    """Initial graph: half cluster-local random edges, half global random
+    (the JAX package's numpy draws)."""
+    g = rng.integers(0, n, size=(n, r), dtype=np.int64).astype(np.int32)
+    local = r // 2
+    order = np.argsort(assign, kind="stable")
+    starts = np.searchsorted(assign[order], assign)
+    ends = np.searchsorted(assign[order], assign, side="right")
+    width = np.maximum(ends - starts, 1)
+    offs = rng.integers(0, 1 << 62, size=(n, local)) % width[:, None]
+    g[:, :local] = order[starts[:, None] + offs]
+    g[g == np.arange(n, dtype=np.int32)[:, None]] = -1
+    return g
+
+
+def _reverse_candidates(g: np.ndarray, cap: int, rng) -> np.ndarray:
+    """For each node v, up to `cap` nodes u with an edge u -> v ([N, cap]
+    int32, -1 padded), a random sample where more exist."""
+    n, r = g.shape
+    src = np.repeat(np.arange(n, dtype=np.int64), r)
+    dst = g.reshape(-1).astype(np.int64)
+    keep = dst >= 0
+    src, dst = src[keep], dst[keep]
+    perm = rng.permutation(len(src))
+    src, dst = src[perm], dst[perm]
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    out = np.full((n, cap), -1, np.int32)
+    starts = np.searchsorted(dst, np.arange(n))
+    ends = np.searchsorted(dst, np.arange(n) + 1)
+    take = np.minimum(ends - starts, cap)
+    rows = np.repeat(np.arange(n), take)
+    offs = np.arange(len(rows)) - np.repeat(np.cumsum(take) - take, take)
+    out[rows, offs] = src[np.repeat(starts, take) + offs]
+    return out
+
+
+def build_graph(x: np.ndarray, r: int = DEFAULT_R, l_build: int = DEFAULT_L_BUILD,
+                alpha: float = DEFAULT_ALPHA, block: int = 8192, seed: int = 42,
+                beam_width: int = 8, passes: int = 2, n_centroids: int = 0, device="cuda"):
+    """The beam build of a Vamana graph over host rows x [N, d] on `device`:
+    a cluster-aware random init, then `passes` passes (alpha 1, then alpha)
+    of blockwise lockstep beam search from each row's cluster entry and the
+    medoid, RobustPrune of the visited list with the current neighbours,
+    and a reverse-edge re-prune of every row. Returns (graph [N, r] int32,
+    medoid, centroids [C, d], entry_nodes [C])."""
+    from vecgo_tpu_torch.index.build_fast import _tiny_graph
+
+    n, d = x.shape
+    rng = np.random.default_rng(seed)
+    if n == 0:
+        return np.zeros((0, r), np.int32), 0, np.zeros((0, d), np.float32), np.zeros(0, np.int32)
+    x = np.ascontiguousarray(x, np.float32)
+    if n <= r + 1:
+        g, medoid = _tiny_graph(x, r)
+        return g, medoid, x[medoid : medoid + 1].copy(), np.asarray([medoid], np.int32)
+    if n_centroids <= 0:
+        n_centroids = int(np.clip(n // 1024, 16, 4096))
+    centroids, assign, entry_nodes = coarse_quantize(x, n_centroids, seed, device)
+    g_init = _cluster_aware_init(n, r, assign, rng)
+    medoid = int(((x - x.mean(0)) ** 2).sum(1).argmin())
+
+    dev = torch.device(device)
+    vectors = torch.from_numpy(x).to(dev)
+    # bf16 traversal copy for the build's searches; RobustPrune reads f32.
+    trav16 = vectors.to(torch.bfloat16)
+    rnorm2 = (vectors * vectors).sum(1)
+    graph = torch.from_numpy(g_init).to(dev)
+    entry_of = torch.from_numpy(entry_nodes[assign].astype(np.int64)).to(dev)
+    max_steps = l_build // beam_width + 12
+    for a in [1.0] * (passes - 1) + [alpha]:
+        for s in range(0, n, block):
+            rows = torch.arange(s, min(s + block, n), device=dev)
+            q_blk = vectors[rows]
+            entries = torch.stack([entry_of[rows], torch.full_like(rows, medoid)], 1)
+            _, _, _, cand_ids = beam_ops.beam_search(
+                q_blk, trav16, rnorm2, graph, entries, ef=l_build, k=1,
+                beam_width=beam_width, max_steps=max_steps, with_visited=True)
+            cand_all = torch.cat([cand_ids, graph[rows].long()], 1)
+            graph[rows] = beam_ops.robust_prune(rows, q_blk, cand_all, vectors, rnorm2,
+                                                r_out=r, alpha=a).to(torch.int32)
+        rev = torch.from_numpy(_reverse_candidates(graph.cpu().numpy(), r, rng)).to(dev)
+        for s in range(0, n, block):
+            rows = torch.arange(s, min(s + block, n), device=dev)
+            cand_all = torch.cat([graph[rows], rev[rows]], 1).long()
+            graph[rows] = beam_ops.robust_prune(rows, vectors[rows], cand_all, vectors, rnorm2,
+                                                r_out=r, alpha=a).to(torch.int32)
+    return graph.cpu().numpy(), medoid, centroids, entry_nodes
+
+
 def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A host section on `device` (sections are often read-only views of the
     container; device state is never written, so sharing them is safe)."""
@@ -86,8 +203,8 @@ def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
 
 
 class VamanaWriter:
-    """Builds an immutable vamana segment with the clustered build on
-    `device` (the JAX writer's default build mode)."""
+    """Builds an immutable vamana segment on `device` (reference:
+    diskann.NewWriter:97)."""
 
     def __init__(
         self,
@@ -108,11 +225,11 @@ class VamanaWriter:
         store_codes: bool = False,
         device="cpu",
     ):
-        """build_mode: only "clustered" (cluster-local KNN + RobustPrune,
-        index/build_fast.py) is ported; the JAX package's "beam" build is
-        ROADMAP.md port queue item 3. alpha=None resolves per mode as in the
-        JAX writer: 1.5 for clustered (1.2 for beam). store_codes: False, or
-        True / "sq8" / "pq" / "opq" to persist the coded table."""
+        """build_mode: "clustered" (cluster-local KNN + RobustPrune,
+        index/build_fast.py) or "beam" (the search-based build,
+        `build_graph`). alpha=None resolves per mode as in the JAX writer:
+        1.5 for clustered, 1.2 for beam. store_codes: False, or True /
+        "sq8" / "pq" / "opq" to persist the coded table."""
         if build_mode not in ("clustered", "beam"):
             raise ValueError(f"unknown build_mode {build_mode!r} (clustered|beam)")
         self.compress = compress
@@ -140,8 +257,6 @@ class VamanaWriter:
         self.seed = seed
         self._rows = common.RowBuffer(dim)
         self._preset = None
-        if self.build_mode != "clustered":
-            raise not_ported(f"build_mode={self.build_mode!r}", 3)
         self.device = torch.device(device)
 
     def add(self, vector, id: int, metadata=None, payload: Optional[bytes] = None,
@@ -165,12 +280,23 @@ class VamanaWriter:
         n = len(self._rows)
         x, ids = self._rows.stacked(self.metric)
         want_ivf = self.serve_ivf and n >= self.ivf_min_n
-        out = build_graph_clustered(
-            torch.from_numpy(x).to(self.device).to(torch.bfloat16),
-            r=self.r, alpha=self.alpha, seed=self.seed, return_membership=want_ivf,
-            **self.build_params,
-        )
-        graph, medoid, centroids, entry_nodes = out[:4]
+        members = None
+        if self.build_mode == "clustered":
+            out = build_graph_clustered(
+                torch.from_numpy(x).to(self.device).to(torch.bfloat16),
+                r=self.r, alpha=self.alpha, seed=self.seed, return_membership=want_ivf,
+                **self.build_params,
+            )
+            graph, medoid, centroids, entry_nodes = out[:4]
+            if want_ivf:
+                members = out[4]
+        else:
+            graph, medoid, centroids, entry_nodes = build_graph(
+                x, r=self.r, l_build=self.l_build, alpha=self.alpha, seed=self.seed,
+                device=self.device, **self.build_params)
+            if want_ivf:
+                _, members = ivf_ops.build_ivf_table(x, capacity=self.ivf_capacity,
+                                                     seed=self.seed, device=self.device)
         if self._preset is not None:
             sections, md_meta, cm = common.preset_row_sections(x, ids, self._rows.lsns,
                                                                self._preset)
@@ -181,8 +307,8 @@ class VamanaWriter:
         sections["entry.centroids"] = centroids
         sections["entry.nodes"] = entry_nodes
         ivf_meta = None
-        if want_ivf:
-            members = np.ascontiguousarray(out[4], np.int32)
+        if members is not None:
+            members = np.ascontiguousarray(members, np.int32)
             sections["ivf.members"] = members
             ivf_meta = {"capacity": int(members.shape[1]), "k": int(members.shape[0]),
                         "coded": True}
@@ -293,8 +419,10 @@ class VamanaSegment(common.RowBlobAccess):
                 self._ivfq["codes"] = sections["ivfq.codes"]
         self._attach_row_blobs(sections, lazy)
         self._dev = None
+        self._compact_s = None  # S' of the one-slot-per-row table once built
         self._stream: dict = {}
         self._ccache = None
+        self._probe_host = None  # (cent, cnorm2, pq) the cache probes with
 
     @property
     def vectors(self) -> np.ndarray:
@@ -305,6 +433,11 @@ class VamanaSegment(common.RowBlobAccess):
         if self._vectors_arr is None:
             self._vectors_arr = self._lazy.load("vectors")
         return self._vectors_arr
+
+    @property
+    def rows_loaded(self) -> bool:
+        """The full-precision rows are in host memory (not deferred)."""
+        return self._vectors_arr is not None
 
     # ---------------- IO ----------------
 
@@ -339,23 +472,23 @@ class VamanaSegment(common.RowBlobAccess):
     # ---------------- device ----------------
 
     def device_state(self, device) -> dict:
-        """Coded table (+ int16 plane with serve_refine) and graph on `device`;
-        segments without a membership keep a bf16 traversal copy, norms and
-        the f32 table for the graph walk and its exact rerank."""
+        """Coded table (one slot per row with serve_compact; + int16 plane
+        with serve_refine) and graph on `device`; segments without a
+        membership keep a bf16 traversal copy, norms and the f32 table for
+        the graph walk and its exact rerank."""
         device = torch.device(device)
         if self._dev is not None and self._dev["graph"].device == device:
             return self._dev
-        if self.serve_compact:
-            raise not_ported("the one-slot-per-row table (serve_compact)", 3)
         graph = _tensor(self.graph, device, torch.int32)
         entry = torch.tensor([self.medoid], dtype=torch.int64, device=device)
         if self.ivf_members is not None:
             xf = _tensor(self.vectors, device, torch.float32)
-            if self.serve_refine:
-                table = ivf_ops.device_table_coded(self.ivf_members, xf, refine=xf)
-            else:
-                table = ivf_ops.device_table_coded(self.ivf_members, xf.to(torch.bfloat16))
-            del xf
+            src = xf if self.serve_refine else xf.to(torch.bfloat16)
+            table = ivf_ops.device_table_coded(self.ivf_members, src, compact=self.serve_compact,
+                                               refine=xf if self.serve_refine else None)
+            del xf, src
+            if self.serve_compact:
+                self._compact_s = int(table.rows.shape[1])
             self._dev = {"graph": graph, "entry": entry, "ivfq": table}
             return self._dev
         full = _tensor(self.vectors, device, torch.float32)
@@ -397,6 +530,9 @@ class VamanaSegment(common.RowBlobAccess):
             kt, s = table.bnorm2.shape
             if n_probe <= 0:
                 n_probe = int(min(kt, max(8, min(32, (ef + 15) // 16 * 4))))
+                if self.serve_compact:
+                    # One slot per row loses the boundary secondaries.
+                    n_probe = int(min(kt, 2 * n_probe))
             kk = min(max(8, min(16, -(-2 * ef // max(n_probe, 1)))), s)
             mflat = None if dmask is None else ivf_ops.slot_mask_from_rows(table, dmask)
             qcap = 0
@@ -514,11 +650,15 @@ class VamanaSegment(common.RowBlobAccess):
     # ---------------- beyond the device budget ----------------
 
     def device_bytes(self) -> int:
-        """Device footprint of device_state() (for DeviceBudget admission)."""
+        """Device footprint of device_state() (for DeviceBudget admission).
+        Under serve_compact the table's S' is known once it has been built;
+        until then the overlap table's S bounds it from above."""
         n, d = self.n, self.dim
         if self.ivf_members is not None:
             k, s = self.ivf_members.shape
             k = -(-k // 8) * 8  # the table pads to whole groups of 8 clusters
+            if self.serve_compact and self._compact_s is not None:
+                s = self._compact_s
             # codes + three [K, S] planes (norms, rows) + slot map + centroids,
             # scale and centroid norms + graph (+ the int16 refinement plane)
             total = k * s * (d + 12) + n * 4 + k * (d * 4 + 8) + self.graph.size * 4
@@ -594,38 +734,98 @@ class VamanaSegment(common.RowBlobAccess):
         (ops/ivf_cache.ClusterCachedTable): from the persisted codes when the
         open holds them, from ranged reads of the store when a lazy open left
         them there, else encoded from the vectors on the host."""
-        from vecgo_tpu_torch.ops.ivf_cache import ClusterCachedTable, LazyHostTable, MemHostTable
+        from vecgo_tpu_torch.ops.ivf_cache import (
+            ClusterCachedTable, LazyHostTable, MemHostTable, _encode_host)
 
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if self._ccache is not None and self._ccache.device == device:
             return self._ccache
-        cc = self.CACHE_CLUSTERS
+        members = self.ivf_members
         if self._ivfq is not None:
-            host = MemHostTable(dict(self._ivfq,
-                                     rows=np.ascontiguousarray(self.ivf_members, np.int32)))
-            self._ccache = ClusterCachedTable(host=host, cache_clusters=cc, device=device)
+            host = MemHostTable(dict(self._ivfq, rows=np.ascontiguousarray(members, np.int32)))
         elif (self._vectors_arr is None and self._lazy is not None
               and (self._lazy.has("ivfq.codes") or self._lazy.has("ivfq.pq"))):
-            self._ccache = ClusterCachedTable(host=LazyHostTable(self._lazy, self.ivf_members),
-                                              cache_clusters=cc, device=device)
+            host = LazyHostTable(self._lazy, members)
         else:
-            self._ccache = ClusterCachedTable(self.ivf_members, np.asarray(self.vectors, np.float32),
-                                              cache_clusters=cc, device=device)
+            # The centroids the batch was probed with, when it was.
+            cent = self._probe_host[0] if self._probe_host is not None else None
+            host = MemHostTable(_encode_host(members, np.asarray(self.vectors, np.float32),
+                                             cent=cent))
+        self._ccache = ClusterCachedTable(host=host, cache_clusters=self.CACHE_CLUSTERS,
+                                          device=device)
         return self._ccache
 
     def release_cache(self):
         self._ccache = None
 
-    def search_cached(self, q, k: int, mask: Optional[np.ndarray] = None, ef: int = 0):
+    def _probe_table(self):
+        """(cent [K, d], cnorm2 [K], pq) on the host: the centroids the cluster
+        cache probes with and whether its host table is PQ, without building
+        the cache (a built cache's own; the persisted codes' sections; else
+        the member means of the rows, `ivf_cache.host_centroids`, the
+        encode's own arithmetic)."""
+        from vecgo_tpu_torch.ops.ivf_cache import host_centroids
+
+        if self._ccache is not None:
+            h = self._ccache.host
+            return h.cent, h.cnorm2, h.kind == "pq"
+        if self._probe_host is None:
+            lazy = self._lazy
+            if self._ivfq is not None:
+                self._probe_host = (self._ivfq["cent"], self._ivfq["cnorm2"], "pq" in self._ivfq)
+            elif (self._vectors_arr is None and lazy is not None
+                  and (lazy.has("ivfq.codes") or lazy.has("ivfq.pq"))):
+                self._probe_host = (np.asarray(lazy.load("ivfq.cent"), np.float32),
+                                    np.asarray(lazy.load("ivfq.cnorm2"), np.float32),
+                                    lazy.has("ivfq.pq"))
+            else:
+                self._probe_host = (*host_centroids(self.ivf_members,
+                                                    np.asarray(self.vectors, np.float32)), False)
+        return self._probe_host
+
+    def cached_probes(self, q, k: int, ef: int = 0) -> np.ndarray:
+        """The probes [B, P] (cluster ids, numpy) that `search_cached` at
+        (k, ef) takes for q [B, d] on the device; the cache is not built."""
+        from vecgo_tpu_torch.ops.ivf_cache import _probe
+        from vecgo_tpu_torch.utils.tensors import host_tensor
+
+        cent, cn, pq = self._probe_table()
+        n_clusters, slots = self.ivf_members.shape
+        ef = max(ef or max(self.DEFAULT_EF_SEARCH, k), k)
+        n_probe = cached_scan_params(k, ef, n_clusters, slots, pq)[0]
+        cc = self._ccache
+        if cc is not None and cc.device == q.device:
+            cent_d, cn_d = cc.cent_dev, cc.cnorm2_dev
+        else:
+            cent_d, cn_d = (host_tensor(a).to(q.device, torch.float32) for a in (cent, cn))
+        return _probe(q.float().contiguous(), cent_d, cn_d,
+                      int(min(n_probe, n_clusters))).cpu().numpy()
+
+    def cache_fits(self, probes: np.ndarray) -> bool:
+        """Whether the clusters that probes [B, P] want fit the cluster cache
+        at once (one chunk in `search_cached`); the cache is not built."""
+        from vecgo_tpu_torch.ops.ivf_cache import cache_slots, wanted_clusters
+
+        n_clusters = self.ivf_members.shape[0]
+        wanted = wanted_clusters(probes, self._probe_table()[1], n_clusters)
+        return len(wanted) <= cache_slots(n_clusters, self.CACHE_CLUSTERS)
+
+    def search_cached(self, q, k: int, mask: Optional[np.ndarray] = None, ef: int = 0,
+                      probes: Optional[np.ndarray] = None):
         """The two-stage search's first stage through the cluster cache:
         probe every centroid on the device, scan only the cached cluster
         blocks (misses are admitted on demand). q [B, d] f32 on the device;
-        mask [N] bool on the host. Returns (dists [B, k] to the decoded rows,
-        rows [B, k] int64, -1 missing); callers rerank exactly with
-        rerank_host. No graph refinement: the cache holds only the probed
-        clusters, so the default probes are wider instead."""
+        mask [N] bool on the host; probes: `cached_probes(q, k, ef)` when the
+        caller has them. A batch whose probed clusters outnumber the cache's
+        slots is scanned in chunks of clusters that fit (the resident ones
+        first), each (query, probe) pair in the chunk that holds its cluster,
+        so no probe is dropped and the answer is that of a cache holding
+        every cluster. Returns (dists [B, k] to the decoded rows, rows [B, k]
+        int64, -1 missing); callers rerank exactly with rerank_host. No graph
+        refinement: the cache holds only the probed clusters, so the default
+        probes are wider instead."""
         b = q.shape[0]
         if self.n == 0 or self.ivf_members is None:
             return (torch.full((b, k), math.inf, device=q.device),
@@ -633,7 +833,24 @@ class VamanaSegment(common.RowBlobAccess):
         cc = self.cluster_cache(device=q.device)
         ef = max(ef or max(self.DEFAULT_EF_SEARCH, k), k)
         n_probe, kk, pool = cached_scan_params(k, ef, cc.k, cc.s, cc.host.kind == "pq")
-        sd, srows = cc.probe_and_scan(q, n_probe, kk, row_mask=mask)
+        qd = q.to(cc.device, torch.float32).contiguous()
+        if probes is None:
+            probes = cc.probe(qd, n_probe)
+        chunks = cc.chunks(probes)
+        if len(chunks) == 1:
+            sd, srows = cc.probe_and_scan(qd, n_probe, kk, row_mask=mask, probes=probes)
+        else:
+            sd = torch.full((b, probes.shape[1] * kk), math.inf, device=qd.device)
+            srows = torch.full(sd.shape, -1, dtype=torch.int64, device=qd.device)
+            for chunk in chunks:
+                inside = np.isin(probes, chunk)
+                sel = np.flatnonzero(inside.any(1))
+                sel_t = torch.from_numpy(sel).to(qd.device)
+                d_c, r_c = cc.probe_and_scan(qd[sel_t], n_probe, kk, row_mask=mask,
+                                             probes=np.where(inside[sel], probes[sel], cc.k))
+                keep = torch.from_numpy(np.repeat(inside[sel], kk, axis=1)).to(qd.device)
+                sd[sel_t] = torch.where(keep, d_c, sd[sel_t])
+                srows[sel_t] = torch.where(keep, r_c, srows[sel_t])
         cd, crows = beam_ops._dedup_topk(sd, srows, pool)
         cd, crows = cd[:, :k], crows[:, :k]
         return cd, torch.where(torch.isfinite(cd), crows, -1)

@@ -1,9 +1,11 @@
-"""Coded IVF shortlist scan (port of the coded half of vecgo_tpu/ops/ivf.py).
+"""Blocked IVF tables and their scan (port of vecgo_tpu/ops/ivf.py).
 
 A graph segment serves from an SQ8-residual coded table: rows are bucketed
-into K capacity-capped clusters (the graph build's own membership), each
-cluster's residuals x - centroid are int8-coded with a per-cluster scale,
-and the codes are the only vector data on the device. A query batch
+into K capacity-capped clusters (the graph build's own membership, or
+`build_ivf_table`'s for the beam build), each cluster's residuals
+x - centroid are int8-coded with a per-cluster scale, and the codes are the
+only vector data on the device. `compact=True` first repacks the membership
+to one slot per row (`compact_members_primary`). A query batch
 
   1. scores the centroids [B, K] and takes its `n_probe` nearest clusters,
   2. inverts the probe lists into, per cluster, the queries that probe it
@@ -19,17 +21,21 @@ only the clusters it holds, so its probe space and its scan space differ.
 On a CUDA tensor step 3 launches the kernel at every dimension (the JAX
 package's d % 128 and VMEM gates were the TPU compiler's); on a CPU tensor
 it runs the kernel's plain version, the coded branch of `_scan_groups`.
+
+The uncoded table (`IVFDeviceTable`, bf16 residual blocks, `device_table`)
+is scanned with plain torch ops, as the JAX package scans it with XLA: no
+Pallas kernel lies on that branch.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from vecgo_tpu_torch._roadmap import not_ported
 from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
 
@@ -39,6 +45,19 @@ RSCALE_RATIO = 127.0 / 32767.0
 _BUILD_CLUSTERS = 64
 # Rows encoded per step of the int16 refinement plane.
 _REFINE_ROWS = 131072
+# Elements of the [clusters, qcap, S] distance block of the uncoded scan.
+_SCAN_ELEMS = 1 << 24
+
+
+class IVFDeviceTable(NamedTuple):
+    """bf16 residual blocked layout on the device (see vecgo_tpu.ops.ivf):
+    the scan scores d(q, x) = |q-c|^2 + |x-c|^2 - 2 (q-c).(x-c)."""
+
+    blocks: torch.Tensor  # [K, S, d] bf16 residuals (x - centroid), padding zero
+    bnorm2: torch.Tensor  # [K, S] f32 |x - c|^2, +inf at padded slots
+    rows: torch.Tensor  # [K, S] int32 segment row per slot, -1 padded
+    centroids: torch.Tensor  # [K, d] f32
+    cnorm2: torch.Tensor  # [K] f32, +inf for empty/padded clusters
 
 
 class IVFCodedTable(NamedTuple):
@@ -112,27 +131,194 @@ def _refine_codes(xf: torch.Tensor, slot_of_row, cents, scale, s: int) -> torch.
     return out
 
 
-def device_table_coded(members, vectors: torch.Tensor, group: int = 8,
-                       compact: bool = False, refine=None) -> IVFCodedTable:
-    """The SQ8-residual serving table on `vectors.device` from a membership
-    table [K, S] (numpy or tensor; -1 padded), padded to a multiple of
-    `group` clusters as the JAX package pads it. refine: an f32 [N, d]
-    source for the int16 refinement plane (`rcodes`), or None."""
-    if compact:
-        raise not_ported("the one-slot-per-row table (serve_compact)", 3)
-    dev = vectors.device
+def _padded_members(members, group: int, dev) -> torch.Tensor:
+    """Membership [K, S] (numpy or tensor) as int32 on dev, padded with
+    empty clusters to a multiple of `group`."""
     m = torch.as_tensor(np.asarray(members) if not isinstance(members, torch.Tensor)
                         else members).to(device=dev, dtype=torch.int32)
     k, s = m.shape
     k_pad = -(-k // group) * group
     if k_pad > k:
         m = torch.cat([m, torch.full((k_pad - k, s), -1, dtype=torch.int32, device=dev)])
-    table = _coded_build(m.contiguous(), vectors)
+    return m.contiguous()
+
+
+def _member_res_norms(mdev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-slot |x - cluster mean|^2 [K, S] (+inf padded): pass 1 of the
+    compact repack."""
+    k_pad, s = mdev.shape
+    rn = torch.empty((k_pad, s), dtype=torch.float32, device=x.device)
+    for g0 in range(0, k_pad, _BUILD_CLUSTERS):
+        mg = mdev[g0 : g0 + _BUILD_CLUSTERS]
+        valid = mg >= 0
+        v = x[mg.clamp_min(0).reshape(-1).long()].reshape(mg.shape[0], s, -1).float()
+        v = torch.where(valid[:, :, None], v, 0.0)
+        cent = v.sum(1) / valid.sum(1).float().clamp_min(1.0)[:, None]
+        res = v - cent[:, None, :]
+        rn[g0 : g0 + _BUILD_CLUSTERS] = torch.where(valid, (res * res).sum(-1), math.inf)
+    return rn
+
+
+def compact_members_primary(members, vectors: torch.Tensor, group: int = 8) -> np.ndarray:
+    """Repack a (possibly overlapping) membership so that every row keeps
+    one slot, the one whose cluster mean is nearest (ties to the smallest
+    slot id): the serve_compact table. Returns the host membership [K', S']
+    (K' the clusters padded to `group`; S' the largest occupancy left,
+    rounded up to 128, at least 32, at most S), each cluster's rows first."""
+    dev = vectors.device
+    mdev = _padded_members(members, group, dev)
+    n = vectors.shape[0]
+    flat_rows = mdev.reshape(-1).long()
+    flat_rn = _member_res_norms(mdev, vectors).reshape(-1)
+    safe = torch.where(flat_rows >= 0, flat_rows, n)
+    best = torch.full((n + 1,), math.inf, dtype=torch.float32, device=dev)
+    best.scatter_reduce_(0, safe, flat_rn, reduce="amin", include_self=True)
+    is_best = (flat_rn <= best[safe]) & (flat_rows >= 0)
+    slot_ids = torch.arange(flat_rows.shape[0], device=dev)
+    big = 1 << 30
+    best_slot = torch.full((n + 1,), big, dtype=torch.int64, device=dev)
+    best_slot.scatter_reduce_(0, torch.where(is_best, safe, n),
+                              torch.where(is_best, slot_ids, big), reduce="amin",
+                              include_self=True)
+    kept = torch.where(slot_ids == best_slot[safe], flat_rows, -1).reshape(mdev.shape)
+    # Valid entries first within each cluster (their order carries no meaning).
+    kept = kept.gather(1, torch.sort((kept < 0).int(), dim=1, stable=True).indices)
+    occupancy = int((kept >= 0).sum(1).max())
+    s2 = max(32, -(-occupancy // 128) * 128)
+    return kept[:, :s2].to(torch.int32).cpu().numpy()
+
+
+def device_table_coded(members, vectors: torch.Tensor, group: int = 8,
+                       compact: bool = False, refine=None) -> IVFCodedTable:
+    """The SQ8-residual serving table on `vectors.device` from a membership
+    table [K, S] (numpy or tensor; -1 padded), padded to a multiple of
+    `group` clusters as the JAX package pads it. compact=True first repacks
+    the membership to one slot per row (`compact_members_primary`). refine:
+    an f32 [N, d] source for the int16 refinement plane (`rcodes`), or None."""
+    dev = vectors.device
+    if compact:
+        members = compact_members_primary(members, vectors, group)
+    m = _padded_members(members, group, dev)
+    table = _coded_build(m, vectors)
     if refine is not None:
         xf = torch.as_tensor(refine, dtype=torch.float32).to(dev)
         table = table._replace(rcodes=_refine_codes(
-            xf, table.slot_of_row, table.centroids, table.scale, s))
+            xf, table.slot_of_row, table.centroids, table.scale, m.shape[1]))
     return table
+
+
+def device_table(members, centroids: np.ndarray, vectors: torch.Tensor,
+                 group: int = 8) -> IVFDeviceTable:
+    """The bf16 residual table on `vectors.device` ([N, d], any float type):
+    residuals against the given centroids; K padded to a multiple of `group`
+    with empty clusters (+inf centroid norm, never probed)."""
+    dev = vectors.device
+    m = _padded_members(members, group, dev)
+    k_pad, s = m.shape
+    k, d = centroids.shape
+    c = np.zeros((k_pad, d), np.float32)
+    c[:k] = centroids
+    cn = np.full(k_pad, np.inf, np.float32)
+    cn[:k] = np.einsum("kd,kd->k", centroids, centroids, dtype=np.float64)
+    cdev = torch.from_numpy(c).to(dev)
+    valid = m >= 0
+    blocks = torch.empty((k_pad, s, d), dtype=torch.bfloat16, device=dev)
+    bn = torch.empty((k_pad, s), dtype=torch.float32, device=dev)
+    for g0 in range(0, k_pad, _BUILD_CLUSTERS):
+        mg, vg = m[g0 : g0 + _BUILD_CLUSTERS], valid[g0 : g0 + _BUILD_CLUSTERS]
+        v = vectors[mg.clamp_min(0).reshape(-1).long()].reshape(mg.shape[0], s, d).float()
+        res = torch.where(vg[:, :, None], v - cdev[g0 : g0 + _BUILD_CLUSTERS, None, :], 0.0)
+        bn[g0 : g0 + _BUILD_CLUSTERS] = torch.where(vg, (res * res).sum(-1), math.inf)
+        blocks[g0 : g0 + _BUILD_CLUSTERS] = res.to(torch.bfloat16)
+    return IVFDeviceTable(blocks, bn, m, cdev, torch.from_numpy(cn).to(dev))
+
+
+def build_ivf_table(x: np.ndarray, *, capacity: int = 512, slack: float = 1.5,
+                    overlap: int = 4, seed: int = 42, kmeans_iters: int = 5,
+                    device="cuda"):
+    """Train centroids on a sample and bucket every row into its `overlap`
+    nearest of K = ceil(N * slack / capacity) capacity-capped clusters (the
+    beam build's serving membership). k-means and the assignment run on
+    `device`; the membership is the build's hash-scatter form. Returns
+    (centroids [K, d] f32, members [K, capacity] int32, -1 padded), every
+    row in at least one slot (`_fixup_coverage`)."""
+    from vecgo_tpu_torch.index import build_fast as bf
+    from vecgo_tpu_torch.quantization import kmeans as km
+
+    n, d = x.shape
+    x = np.ascontiguousarray(x, np.float32)
+    k = max(2, math.ceil(n * slack / capacity))
+    rng = np.random.default_rng(seed)
+    n_sample = min(n, max(32768, 12 * k))
+    idx = rng.choice(n, n_sample, replace=False)
+    centroids, _ = km.train_kmeans(x[idx], k, iters=kmeans_iters, seed=seed, sample=n_sample,
+                                   device=device)
+    block = 8192
+    n_pad = -(-n // block) * block
+    dev = torch.device(device)
+    x16 = torch.zeros((n_pad, d), dtype=torch.bfloat16, device=dev)
+    x16[:n] = torch.from_numpy(x).to(dev)
+    rn = np.full(n_pad, np.inf, np.float32)
+    rn[:n] = np.einsum("nd,nd->n", x, x, dtype=np.float64).astype(np.float32)
+    ov = max(1, min(overlap, 4, k))
+    a_dev, d_dev = bf._assign_topk(x16, torch.from_numpy(rn).to(dev),
+                                   torch.from_numpy(centroids).to(dev), ov, block)
+    del x16
+    # Padded rows go to a dump cluster k, then the capacity-capped membership.
+    a_dev = torch.where((torch.arange(n_pad, device=dev) < n)[:, None], a_dev, k)
+    members, _, _, covered = bf._membership_scatter(a_dev, d_dev, k + 1, capacity)
+    members = members[:k].cpu().numpy()
+    covered = covered[:n].cpu().numpy()
+    if not covered.all():
+        _fixup_coverage(members, covered, a_dev[:n].cpu().numpy())
+    return np.asarray(centroids, np.float32), members
+
+
+def _fixup_coverage(members: np.ndarray, covered: np.ndarray, assign: np.ndarray):
+    """Place every uncovered point in a slot, preferring its own clusters
+    (host numpy, a copy of the JAX package's). Free slots come from unused
+    padding first, then from evicting redundant overlap memberships (entries
+    whose point is covered elsewhere), so coverage holds whenever the slots
+    outnumber the rows. Mutates `members` in place."""
+    rows_idx, cols_idx = np.nonzero(members >= 0)
+    pts = members[rows_idx, cols_idx]
+    # Evictable = all-but-one slot of every multiply-covered point.
+    order = np.argsort(pts, kind="stable")
+    pe = pts[order]
+    first = np.concatenate([[True], pe[1:] != pe[:-1]]) if len(pe) else np.zeros(0, bool)
+    ev_ok = np.ones(len(pts), bool)
+    ev_ok[order[first]] = False
+    ev_sel = np.nonzero(ev_ok)[0]
+    sp_rows, sp_cols = np.nonzero(members == -1)
+    # Spares first in pool order so eviction is the last resort per cluster.
+    pool_rows = np.concatenate([sp_rows, rows_idx[ev_sel]])
+    pool_cols = np.concatenate([sp_cols, cols_idx[ev_sel]])
+    porder = np.argsort(pool_rows, kind="stable")
+    pr = pool_rows[porder]
+    k = members.shape[0]
+    ends = np.searchsorted(pr, np.arange(k) + 1)
+    cursor = np.searchsorted(pr, np.arange(k))
+    used = np.zeros(len(pool_rows), bool)
+    spill = []
+    for p in np.flatnonzero(~covered):
+        for c in assign[p]:
+            c = int(c)
+            if c < k and cursor[c] < ends[c]:
+                i = porder[cursor[c]]
+                cursor[c] += 1
+                members[pool_rows[i], pool_cols[i]] = p
+                used[i] = True
+                break
+        else:
+            spill.append(p)
+    if spill:
+        free = np.nonzero(~used)[0]
+        take = min(len(spill), len(free))
+        members[pool_rows[free[:take]], pool_cols[free[:take]]] = np.asarray(
+            spill[:take], members.dtype)
+        if take < len(spill):
+            logging.getLogger("vecgo_tpu_torch").warning(
+                "ivf table: %d rows uncovered", len(spill) - take)
 
 
 def slot_mask_from_rows(table: IVFCodedTable, row_mask: torch.Tensor) -> torch.Tensor:
@@ -175,12 +361,14 @@ def default_qcap(b: int, n_probe: int, k_pad: int) -> int:
     return min(max(32, ((3 * b * n_probe // max(k_pad, 1)) + 31) // 32 * 32), b)
 
 
-def ivf_scan(q: torch.Tensor, table: IVFCodedTable, *, n_probe: int, kk: int,
+def ivf_scan(q: torch.Tensor, table, *, n_probe: int, kk: int,
              qcap: int = 0, mask_flat: Optional[torch.Tensor] = None):
-    """Blocked coded IVF scan. q [B, d] f32 (normalized upstream for cosine);
-    mask_flat [K, S] bool or None (filters and tombstones in slot space).
-    Returns (dists [B, n_probe*kk] f32 vs the decoded rows, rows
-    [B, n_probe*kk] int64 segment rows, -1 missing)."""
+    """Blocked IVF scan over an IVFCodedTable (kernel B) or an
+    IVFDeviceTable (plain torch). q [B, d] f32 (normalized upstream for
+    cosine); mask_flat [K, S] bool or None (filters and tombstones in slot
+    space). Returns (dists [B, n_probe*kk] f32 vs the decoded (coded) or
+    bf16-residual rows, rows [B, n_probe*kk] int64 segment rows, -1
+    missing)."""
     b = q.shape[0]
     k_pad = table.bnorm2.shape[0]
     n_probe = min(n_probe, k_pad)
@@ -209,8 +397,11 @@ def scan_groups(qf: torch.Tensor, table, probes: torch.Tensor,
     qtab, qslot = _invert_probes(probes, k_pad, qcap)
     bn = table.bnorm2 if mask_flat is None else torch.where(
         mask_flat.reshape(k_pad, s), table.bnorm2, math.inf)
-    ld, lc = coded_group_scan(qf, qtab, table.codes, bn.contiguous(), table.scale,
-                              table.centroids, kk)
+    if isinstance(table, IVFDeviceTable):
+        ld, lc = _scan_residual_blocks(qf, qtab, table.blocks, bn, table.centroids, kk)
+    else:
+        ld, lc = coded_group_scan(qf, qtab, table.codes, bn.contiguous(), table.scale,
+                                  table.centroids, kk)
     base = (torch.arange(k_pad, device=qf.device) * s)[:, None, None]
     lrow = torch.where(lc >= 0, base + lc, -1)
     # Scatter every (cluster, slot) pair into [B + 1, n_probe, kk] with no
@@ -227,11 +418,34 @@ def scan_groups(qf: torch.Tensor, table, probes: torch.Tensor,
     return torch.where(seg_rows >= 0, out_d, math.inf), seg_rows
 
 
-def compact_members_primary(*args, **kw):
-    raise not_ported("the one-slot-per-row table (serve_compact)", 3)
+def _scan_residual_blocks(qf, qtab, blocks, bn, cent, kk: int):
+    """The uncoded table's grouped scan (plain torch, as the JAX package's
+    XLA scan): per cluster and query slot, the kk nearest of its S slots by
+    |q-c|^2 + |x-c|^2 - 2 bf16(q-c).blocks, summed in f32, ties to the lower
+    slot. qtab [K, qcap] (B = empty). Returns (d [K, qcap, kk] f32, +inf
+    where nothing scored; slot [K, qcap, kk] int64, -1 there)."""
+    b, d = qf.shape
+    k_pad, s, _ = blocks.shape
+    qcap = qtab.shape[1]
+    kk_eff = min(kk, s)
+    q_ext = torch.cat([qf, qf.new_zeros((1, d))])
+    out_d = torch.full((k_pad, qcap, kk), math.inf, dtype=torch.float32, device=qf.device)
+    out_i = torch.full((k_pad, qcap, kk), -1, dtype=torch.int64, device=qf.device)
+    g = max(1, _SCAN_ELEMS // max(1, qcap * s))
+    for c0 in range(0, k_pad, g):
+        c1 = min(k_pad, c0 + g)
+        qr = q_ext[qtab[c0:c1].long()] - cent[c0:c1, None, :]  # [g, qcap, d]
+        prod = torch.bmm(qr.to(torch.bfloat16).float(), blocks[c0:c1].float().transpose(1, 2))
+        dd = (qr * qr).sum(-1)[:, :, None] + bn[c0:c1, None, :] - 2.0 * prod
+        ld, lc = T.topk_smallest(dd, kk_eff)
+        ok = torch.isfinite(ld)
+        out_d[c0:c1, :, :kk_eff] = torch.where(ok, ld, math.inf)
+        out_i[c0:c1, :, :kk_eff] = torch.where(ok, lc, -1)
+    return out_d, out_i
 
 
 __all__ = [
-    "IVFCodedTable", "RSCALE_RATIO", "compact_members_primary", "device_table_coded",
-    "ivf_scan", "scan_groups", "slot_mask_from_rows",
+    "IVFCodedTable", "IVFDeviceTable", "RSCALE_RATIO", "build_ivf_table",
+    "compact_members_primary", "device_table", "device_table_coded", "ivf_scan",
+    "scan_groups", "slot_mask_from_rows",
 ]

@@ -42,10 +42,53 @@ from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.utils.tensors import host_tensor
 
 
+def cache_slots(k: int, cache_clusters: int = 256, group: int = 8) -> int:
+    """The cache's C for a K-cluster table: the JAX cache's size, at least a
+    group, at most the table rounded to whole groups, in whole groups of
+    `group` clusters."""
+    c = int(min(max(group, cache_clusters), ((k + group - 1) // group) * group))
+    return ((c + group - 1) // group) * group
+
+
+def wanted_clusters(probes: np.ndarray, cnorm2: np.ndarray, k: int) -> np.ndarray:
+    """The clusters a probe matrix [B, P] wants, each once, in probe-rank
+    order (rank-0 probes matter most under cache pressure), empty clusters
+    (+inf cnorm2) and the skip id K never."""
+    flat = probes.T.reshape(-1)
+    _, first = np.unique(flat, return_index=True)
+    wanted = flat[np.sort(first)]
+    wanted = wanted[wanted < k]
+    return wanted[np.isfinite(cnorm2[wanted])]
+
+
+def _chunk_means(v: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Member means of a chunk of clusters: v [c, S, d] (0 at empty slots)."""
+    cnt = valid.sum(axis=1).astype(np.float32)
+    return v.sum(axis=1) / np.maximum(cnt, 1.0)[:, None]
+
+
+def host_centroids(members: np.ndarray, x: np.ndarray, chunk: int = 64):
+    """The centroids `_encode_host` computes (member means) and their squared
+    norms (+inf for an empty cluster, which probing never selects), without
+    the encode: what a segment probes with before its cache is built."""
+    k = members.shape[0]
+    cent = np.zeros((k, x.shape[1]), np.float32)
+    for c0 in range(0, k, chunk):
+        m = members[c0 : c0 + chunk]
+        valid = m >= 0
+        v = x[np.maximum(m, 0)].astype(np.float32)
+        v[~valid] = 0.0
+        cent[c0 : c0 + chunk] = _chunk_means(v, valid)
+    cn = np.einsum("kd,kd->k", cent, cent).astype(np.float32)
+    cn[(members >= 0).sum(axis=1) == 0] = np.inf
+    return cent, cn
+
+
 def _encode_host(
     members: np.ndarray,  # [K, S] int32, -1 padded
     x: np.ndarray,  # [N, d] f32 host vectors
     chunk: int = 64,
+    cent: Optional[np.ndarray] = None,  # [K, d] host_centroids' when the caller has them
 ) -> dict:
     """Numpy SQ8-residual encode, chunked over clusters (the host twin of
     ops/ivf._coded_build; member means = the Lloyd update). Byte for byte the
@@ -56,15 +99,14 @@ def _encode_host(
     bn = np.full((k, s), np.inf, np.float32)
     xn = np.full((k, s), np.inf, np.float32)
     scale = np.zeros(k, np.float32)
-    cent = np.zeros((k, d), np.float32)
+    means, cent = cent, np.zeros((k, d), np.float32)
     for c0 in range(0, k, chunk):
         c1 = min(c0 + chunk, k)
         m = members[c0:c1]
         valid = m >= 0
         v = x[np.maximum(m, 0)].astype(np.float32)
         v[~valid] = 0.0
-        cnt = valid.sum(axis=1).astype(np.float32)
-        ce = v.sum(axis=1) / np.maximum(cnt, 1.0)[:, None]
+        ce = _chunk_means(v, valid) if means is None else means[c0:c1]
         res = np.where(valid[:, :, None], v - ce[:, None, :], 0.0)
         sc = np.maximum(np.abs(res).max(axis=(1, 2)) / 127.0, 1e-12)
         cd = np.clip(np.round(res / sc[:, None, None]), -127, 127).astype(np.int8)
@@ -311,11 +353,7 @@ class ClusterCachedTable:
         self.host = host
         k, s = host.rows.shape
         self.k, self.s, self.d = k, s, host.cent.shape[1]
-        # The JAX cache's size: at least a group, at most the table rounded
-        # to whole groups, in whole groups of `group` clusters.
-        c = int(min(max(group, cache_clusters), ((k + group - 1) // group) * group))
-        c = ((c + group - 1) // group) * group
-        self.c = c
+        self.c = c = cache_slots(k, cache_clusters, group)
         self.group = group
         self.cent_dev = host_tensor(host.cent).to(device, torch.float32)
         self.device = dev = self.cent_dev.device  # "cuda" resolved to its index
@@ -437,19 +475,40 @@ class ClusterCachedTable:
     def table(self) -> CacheTable:
         return CacheTable(self.codes_c, self.scale_c, self.bn_c, self.rows_c, self.cent_c)
 
-    def probe_slots(self, qd: torch.Tensor, n_probe: int, qcap: int = 0):
+    def probe(self, qd: torch.Tensor, n_probe: int) -> np.ndarray:
+        """The batch's probes: qd [B, d] f32 on the cache's device -> [B, P]
+        cluster ids (numpy: a small D2H)."""
+        return _probe(qd, self.cent_dev, self.cnorm2_dev, int(min(n_probe, self.k))).cpu().numpy()
+
+    def _wanted(self, probes: np.ndarray) -> np.ndarray:
+        """The clusters a probe matrix wants (`wanted_clusters`)."""
+        return wanted_clusters(probes, self.host.cnorm2, self.k)
+
+    def chunks(self, probes: np.ndarray) -> list:
+        """The clusters that probes [B, P] want, in chunks of at most C: one
+        chunk when they fit the cache, else the resident ones first (in LRU
+        order), then the rest in probe-rank order. Scanning each chunk's
+        (query, probe) pairs in turn admits every cluster once and drops no
+        probe."""
+        wanted = self._wanted(probes)
+        if len(wanted) <= self.c:
+            return [wanted]
+        want = set(wanted.tolist())
+        resident = np.asarray([cl for cl in self._lru if cl in want], np.int64)
+        order = np.concatenate([resident, wanted[~np.isin(wanted, resident)]])
+        return [order[i : i + self.c] for i in range(0, len(order), self.c)]
+
+    def probe_slots(self, qd: torch.Tensor, n_probe: int, qcap: int = 0,
+                    probes: Optional[np.ndarray] = None):
         """Probe, admit the misses and remap: qd [B, d] f32 on the cache's
         device -> (probes [B, P] int64 cache slots on that device, a probe
         left out being the dump id C; qcap, sized to the batch's peak
-        per-slot load when 0; cluster -> slot of everything resident)."""
-        n_probe = int(min(n_probe, self.k))
-        probes = _probe(qd, self.cent_dev, self.cnorm2_dev, n_probe).cpu().numpy()  # small D2H
-        # Admission order = probe rank (rank-0 probes matter most under cache
-        # pressure), each cluster once, empty clusters never.
-        flat = probes.T.reshape(-1)
-        _, first = np.unique(flat, return_index=True)
-        wanted = flat[np.sort(first)]
-        wanted = wanted[np.isfinite(self.host.cnorm2[wanted])]
+        per-slot load when 0; cluster -> slot of everything resident).
+        probes: the batch's [B, P] cluster ids when the caller has them (K
+        skips a probe)."""
+        if probes is None:
+            probes = self.probe(qd, n_probe)
+        wanted = self._wanted(probes)
         slot_of = self._ensure_cached(wanted.astype(np.int64))
         lut = np.full(self.k + 1, self.c, np.int64)
         for cl, slot in slot_of.items():
@@ -470,6 +529,7 @@ class ClusterCachedTable:
         kk: int,
         qcap: int = 0,
         row_mask: Optional[np.ndarray] = None,  # [N] bool host mask
+        probes: Optional[np.ndarray] = None,  # [B, P] cluster ids, K skips
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The first stage of the two-stage search with a fixed device
         footprint. Returns (dists [B, P*kk] f32, seg_rows [B, P*kk] int64,
@@ -477,7 +537,7 @@ class ClusterCachedTable:
         self.stats["batches"] += 1
         qd = q if isinstance(q, torch.Tensor) else torch.from_numpy(np.asarray(q, np.float32))
         qd = qd.to(self.device, torch.float32).contiguous()
-        probes_m, qcap, slot_of = self.probe_slots(qd, n_probe, qcap)
+        probes_m, qcap, slot_of = self.probe_slots(qd, n_probe, qcap, probes)
         mask_flat = None
         if row_mask is not None:
             # The [N] row mask lifted into the cached slot space on the host
