@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat, graph, compact, quantized, streamed, cached
-and beam-built engine paths once on one CUDA card.
+"""Drive the PyTorch port's flat, graph, compact, quantized, streamed, cached,
+beam-built and hybrid (BM25 + vector) engine paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -114,9 +114,30 @@ and beam-built engine paths once on one CUDA card.
    card; and ingest rows/s with and without the native host path
    (utils/hostops, which must be available).
 
+8. BM25 and hybrid search (bench.py's phase_hybrid at the smoke's scale):
+   the flat phase's 1,048,576 rows with 12 zipf(1.3) words each over a
+   20,000-word vocabulary, through insert_batch(texts=) with lexical=True
+   (the per-row path; ingest rows/s, commit s); enable_device_lexical() at
+   the JAX defaults (4096 hot terms, min_df 8: build s, H, device_bytes()
+   against what it allocates); 4096-query batches of 3-word texts and
+   vectors near the corpus: lexical-only QPS and the share of queries that
+   take the rare merge; 256 queries held to the exact host index (hit
+   counts, shared scores within 2e-2, and where ids differ, exact scores
+   rank by rank within a bf16 near-tie; top-1 and overlap printed, mean
+   overlap floor 0.7); hybrid_search_batch QPS through the snapshot with
+   the lexical half's scan_topk launches; the exact host path
+   (lexical_device="off") on 256 queries, held to hybrid_search on 32 (ids,
+   RRF mass within 1e-6) and compared with the snapshot's batch; 1,000
+   deletes and 1,000 inserts, after which the next batch rebuilds the
+   snapshot by itself (timed), no deleted id is returned and a new doc is
+   found by its term; then `scan_topk` at the sweep's shape (B 4096, N
+   1,048,576, H 4096 bf16, dot, the alive mask, k 36) against its plain
+   version, its time beside its dense bound and the bound of the data's
+   nonzeros.
+
 With --profile, the flat phase's unfiltered case, the graph phase's serving
 case, the SQ8 engine path (unfiltered and probed), both streamed
-transports, graph_stream and a warm graph_cached batch also print a
+transports, graph_stream, a warm graph_cached batch and a hybrid batch also print a
 breakdown of one sync batch: its wall time (the
 median of 7 sync batches), the device's busy time in 3 batches under
 torch.profiler (the union of kernel and copy intervals), the host's share
@@ -312,26 +333,36 @@ def routes_agree(name, q, rn, routed, plain):
     return gap, tol, int(((i_r != i_p) & fin).sum())
 
 
-def sync_qps(db, queries, kw, k=K) -> float:
-    """QPS of back-to-back search_arrays calls over one window of QPS_WINDOW_S."""
+def window_qps(run, n) -> float:
+    """QPS of back-to-back calls of `run` (n queries each) over one window
+    of QPS_WINDOW_S."""
     t0 = time.perf_counter()
     done = 0
     while (elapsed := time.perf_counter() - t0) < QPS_WINDOW_S:
-        db.search_arrays(queries, k=k, **kw)
-        done += len(queries)
+        run()
+        done += n
     return done / elapsed
 
 
-def profile_batch(db, queries, kw, label, card, reps=3):
-    """Where one sync search_arrays batch spends its time: wall (median of 7
-    sync batches), device busy (the union of the kernel and copy intervals
-    that torch.profiler records over `reps` batches, per batch), the rest
-    (host work and idle device), and the largest device items."""
+def sync_qps(db, queries, kw, k=K) -> float:
+    """QPS of back-to-back search_arrays calls over one window of QPS_WINDOW_S."""
+    return window_qps(lambda: db.search_arrays(queries, k=k, **kw), len(queries))
+
+
+def profile_batch(db, queries, kw, label, card, reps=3, run=None):
+    """Where one sync search_arrays batch (or one call of `run`) spends its
+    time: wall (median of 7 sync batches), device busy (the union of the
+    kernel and copy intervals that torch.profiler records over `reps`
+    batches, per batch), the rest (host work and idle device), and the
+    largest device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def batch():
-        db.search_arrays(queries, k=K, **kw)
+        if run is None:
+            db.search_arrays(queries, k=K, **kw)
+        else:
+            run()
         torch.cuda.synchronize()
 
     walls = []
@@ -837,7 +868,13 @@ BLOCK_ROWS = 131072  # rows a quantized or streamed scan hands the kernel at onc
 
 
 def median_qps(db, queries, kw, windows=TIER_WINDOWS, k=K):
-    w = sorted(sync_qps(db, queries, kw, k) for _ in range(windows))
+    return timed_qps(lambda: db.search_arrays(queries, k=k, **kw), len(queries), windows)
+
+
+def timed_qps(run, n, windows=TIER_WINDOWS) -> tuple:
+    """(median, lowest, highest) QPS of `run` (n queries a call) over
+    `windows` windows."""
+    w = sorted(window_qps(run, n) for _ in range(windows))
     return w[len(w) // 2], w[0], w[-1]
 
 
@@ -1987,12 +2024,299 @@ def beam_phase(st, card):
     return launches, case
 
 
+HYBRID_DOCS = N  # bench.py's phase_hybrid text model at the smoke's scale
+HYBRID_INGEST_LIMIT_S = 300.0  # past it, cut HYBRID_DOCS to 524,288 (PERF.md §4)
+HYBRID_VOCAB = 20_000
+HYBRID_WORDS = 12  # words a doc (bench.py:837-843)
+HYBRID_INGEST_BATCH = 65_536
+HYBRID_CHECK = 256  # queries held to the exact host index
+HYBRID_SINGLE = 32  # queries held to the per-query hybrid_search
+HYBRID_WRITES = 1000
+HYBRID_POOL = max(2 * K, 20)  # hybrid_search_batch's rank window at k = K
+# tests/test_lexical_device.py's criteria: shared scores within 2e-2, and
+# ids overlap >= 0.7 of the exact top 10.
+LEX_SCORE_TOL = 2e-2
+LEX_OVERLAP_FLOOR = 0.7
+# A weight rounded to bf16 moves by at most 2^-9 of itself, so a doc's
+# score by at most 2^-9 of the score, and two docs swap places only where
+# their exact scores are within 2^-8 of the larger: a bf16 near-tie.
+BF16_NEAR_TIE = 2.0 ** -8
+
+
+def zipf_texts(rng, n, words):
+    """bench.py's text model: `words` zipf(1.3) words from a 20,000-word
+    vocabulary, clipped at 19,999."""
+    ids = np.minimum(rng.zipf(1.3, (n, words)) - 1, HYBRID_VOCAB - 1)
+    return [" ".join(f"w{w}" for w in row) for row in ids.tolist()]
+
+
+def exact_bm25(snap, text, slots, cache):
+    """The f64 sum of each slot's BM25 weights for the query's terms (the
+    snapshot's f32 weight formula, BM25Index's), slot by slot."""
+    from vecgo_tpu_torch.lexical.bm25 import tokenize
+
+    out = np.zeros(len(slots))
+    for t in sorted(set(tokenize(text))):
+        if t not in snap.index._postings:
+            continue
+        if t not in cache:
+            cache[t] = snap._weights_for(t)
+        s, w = cache[t]
+        pos = np.minimum(np.searchsorted(s, slots), max(len(s) - 1, 0))
+        hit = (s[pos] == slots) if len(s) else np.zeros(len(slots), bool)
+        out[hit] += w[pos[hit]]
+    return out
+
+
+def lexical_check(idx, snap, texts, card):
+    """The snapshot against the exact host index (BM25Index.search_batch)
+    on these queries, by tests/test_lexical_device.py's criteria: the same
+    number of hits, shared scores within LEX_SCORE_TOL, and wherever the
+    ids differ, the device's hits score (exactly) what the host's score
+    rank by rank within a bf16 near-tie. Prints the top-1 and top-10
+    agreement; returns the mean overlap."""
+    want = idx.search_batch(texts, K)
+    got_ids, got_sc = snap.search_batch_arrays(texts, K)
+    top1 = swaps = 0
+    overlaps, cache = [], {}
+    for r, hits in enumerate(want):
+        w_ids = np.asarray([i for i, _ in hits], np.int64)
+        w_sc = np.asarray([s for _, s in hits])
+        g_ids = got_ids[r][got_ids[r] >= 0]
+        check(len(g_ids) == len(w_ids), f"lexical query {r}: {len(g_ids)} hits, host {len(w_ids)}")
+        if not len(w_ids):
+            continue
+        wmap = dict(hits)
+        for i, s in zip(g_ids, got_sc[r]):
+            if int(i) in wmap:
+                check(abs(s - wmap[int(i)]) < LEX_SCORE_TOL * max(1.0, abs(wmap[int(i)])),
+                      f"lexical query {r}: id {i} scores {s}, host {wmap[int(i)]}")
+        overlaps.append(len(set(g_ids.tolist()) & set(w_ids.tolist())) / len(w_ids))
+        top1 += int(g_ids[0] == w_ids[0])
+        if not np.array_equal(g_ids, w_ids):
+            swaps += 1
+            slots = np.asarray([idx._doc_slot[int(i)] for i in g_ids], np.int64)
+            e = np.sort(exact_bm25(snap, texts[r], slots, cache))[::-1]
+            gap = float(np.abs(e - w_sc).max())
+            check(gap <= BF16_NEAR_TIE * w_sc[0],
+                  f"lexical query {r}: exact scores of the device's hits differ from the "
+                  f"host's by {gap} > a bf16 near-tie ({BF16_NEAR_TIE * w_sc[0]})")
+    n = len(overlaps)
+    print(f"lexical vs exact host index on {len(texts)} queries ({n} with hits): top-1 equal on "
+          f"{top1}/{n}, ids overlap mean {np.mean(overlaps):.5f} (min {min(overlaps):.2f}, "
+          f"below {LEX_OVERLAP_FLOOR} on {sum(o < LEX_OVERLAP_FLOOR for o in overlaps)}); "
+          f"{swaps} queries whose ids differ, each within a bf16 near-tie of the host's exact "
+          f"scores rank by rank [{card}]", flush=True)
+    return float(np.mean(overlaps))
+
+
+def hybrid_kernel_case(snap, texts, k, card):
+    """`scan_topk` at the device BM25 sweep's shape, held to its plain
+    version: the snapshot's bf16 table (N = n_slots, H padded to 64), the
+    multi-hot queries of these texts, metric dot, the alive mask. Scores
+    agree within REL_TOL of the score itself (f32 sums of the same exact
+    products in another order); ids agree except where the kernel's row
+    ties the plain version's exactly within that. Prints the time beside
+    the dense bound (2 B N H operations at the bf16 peak) and beside the
+    bound of the data's nonzeros (the table's bytes; the product of the
+    <= 16 columns each query holds), the plain version and torch.mm."""
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+
+    w, alive = snap._device()
+    c, q = snap.multi_hot(snap.encode_queries(texts)[0])
+    args = (q, w, None, k, Metric.DOT, alive)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), "bm25 sweep: +inf slots differ")
+    fin = torch.isfinite(d_r)
+    tol = REL_TOL * d_r.abs()
+    err = float((d_k - d_r).abs()[fin].max())
+    rel = float(((d_k - d_r).abs() / d_r.abs().clamp_min(1e-30))[fin].max())
+    check(bool(((d_k - d_r).abs() <= tol)[fin].all()), f"bm25 sweep: relative error {rel}")
+    bad = (i_k != i_r) & fin
+    if bad.any():
+        bq, bj = bad.nonzero(as_tuple=True)
+        exact = -(q[bq].double() * w[i_k[bq, bj].long()].double()).sum(1)
+        gap = (exact - d_r[bq, bj].double()).abs()
+        check(bool((gap <= 2 * tol[bq, bj]).all()),
+              f"bm25 sweep: {int(bad.sum())} ids differ beyond exact ties")
+    check(bool(alive[i_k[fin].long()].all()), "bm25 sweep: a dead slot was returned")
+    ms = cuda_ms(lambda: scan_topk(*args), reps=3)
+    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    mm = mm_ms(q, w)
+    (b, h), n = q.shape, w.shape[0]
+    nbytes = b * h * 4 + n * h * 2 + n + b * k * 8
+    bound_ms, bound_by = bound(2.0 * b * n * h, nbytes, True)
+    nnz = int((c >= 0).sum())
+    sparse_ms, sparse_by = bound(2.0 * nnz * n, nbytes, True)
+    print(f"kernel hybrid-bm25: B={b} N={n} H={len(snap.hot)} (width {h}) k={k} bf16 dot mask "
+          f"{1 - float(alive.float().mean()):.3%} out: kernel {ms:.3f} ms, dense bound "
+          f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}; the data's nonzeros "
+          f"({nnz} query columns) bound {sparse_ms:.3f} ms ({sparse_by}), share "
+          f"{sparse_ms / ms:.1%}; plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
+          f"max_abs_err {err:.3g}, max relative {rel:.3g} (tol {REL_TOL:g}), tie swaps "
+          f"{int(bad.sum())} [{card}]", flush=True)
+    return {"name": "hybrid-bm25", "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "mm_ms": mm,
+            "sparse_bound_ms": sparse_ms}
+
+
+def hybrid_phase(st, card):
+    """Phase 8: BM25 and hybrid search over the flat phase's rows with
+    bench.py's text model. Returns scan_topk's launches on the hybrid path
+    and the kernel case at the sweep's shape."""
+    import gc
+
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    rng = np.random.default_rng(99)
+    x = st["x1"][:HYBRID_DOCS]
+    n = len(x)
+    t0 = time.perf_counter()
+    texts = zipf_texts(rng, n, HYBRID_WORDS)
+    texts_s = time.perf_counter() - t0
+    scan_topk.launches = 0
+    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, lexical=True, flush_threshold=2**62),
+                 device="cuda")
+    t0 = time.perf_counter()
+    ids = []
+    for s0 in range(0, n, HYBRID_INGEST_BATCH):
+        ids += db.insert_batch(x[s0 : s0 + HYBRID_INGEST_BATCH],
+                               texts=texts[s0 : s0 + HYBRID_INGEST_BATCH])
+    ingest_s = time.perf_counter() - t0
+    ids = np.asarray(ids, np.int64)
+    t0 = time.perf_counter()
+    db.commit()
+    commit_s = time.perf_counter() - t0
+    eng = db.engine
+    idx = eng._lexical
+    print(f"hybrid ingest: {n} docs ({HYBRID_WORDS} zipf(1.3) words over {HYBRID_VOCAB}, texts made "
+          f"in {texts_s:.3f} s) through insert_batch(texts=) in batches of {HYBRID_INGEST_BATCH}: "
+          f"{ingest_s:.3f} s = {n / ingest_s:.0f} rows/s (the per-row path: BM25Index.add); "
+          f"commit {commit_s:.3f} s [{card}]", flush=True)
+    check(ingest_s <= HYBRID_INGEST_LIMIT_S,
+          f"hybrid ingest {ingest_s:.0f} s > {HYBRID_INGEST_LIMIT_S:.0f} s: cut HYBRID_DOCS")
+
+    q_vec = st["queries"][0]
+    q_txt = zipf_texts(rng, BATCH, 3)
+    # The exact host path first (lexical_device="off" and no snapshot yet, as
+    # bench.py's phase_hybrid runs it; a fresh snapshot would serve even
+    # under "off", as in the JAX engine), held to hybrid_search query by
+    # query (tests/test_engine.py's criterion).
+    eng.options.lexical_device = "off"
+    t0 = time.perf_counter()
+    off, off_sc = db.hybrid_search_batch(q_vec[:HYBRID_CHECK], q_txt[:HYBRID_CHECK], k=K)
+    off_s = time.perf_counter() - t0
+    check(eng._lexical_dev is None, "the off leg built no snapshot")
+    t0 = time.perf_counter()
+    for i in range(HYBRID_SINGLE):
+        single = db.hybrid_search(q_vec[i], q_txt[i], k=K)
+        want = [c.id for c in single]
+        check([int(v) for v in off[i] if v >= 0] == want,
+              f"hybrid query {i}: batch {off[i]} != single {want}")
+        for j, c in enumerate(single):
+            check(abs(-c.distance - float(off_sc[i, j])) < 1e-6, f"hybrid query {i}: RRF mass")
+    single_s = time.perf_counter() - t0
+    print(f"hybrid exact host path (lexical_device=\"off\"): {HYBRID_CHECK / off_s:.1f} QPS "
+          f"({HYBRID_CHECK} queries in {off_s:.3f} s); equals hybrid_search on {HYBRID_SINGLE} "
+          f"queries ({single_s / HYBRID_SINGLE * 1e3:.1f} ms a query), RRF mass within 1e-6 "
+          f"[{card}]", flush=True)
+    eng.options.lexical_device = "auto"
+
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    snap = eng.enable_device_lexical()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    alloc = torch.cuda.memory_allocated() - alloc0
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"device BM25 snapshot (max_hot_terms 4096, min_df 8): built in {build_s:.3f} s, "
+          f"H={len(snap.hot)} (width {snap.width}), n_slots {snap.n_slots}, device_bytes() "
+          f"{snap.device_bytes()} ({snap.device_bytes() / total:.1%} of the card's "
+          f"{total / 2**30:.1f} GiB), allocated {alloc} [{card}]", flush=True)
+    check(len(snap.hot) == 4096 and snap.width == 4096, "the hot vocabulary fills its cap")
+    check(0 <= alloc - snap.device_bytes() <= snap.n_slots + (2 << 20),
+          "the snapshot allocates its table and its alive mask, nothing else")
+
+    _, rare = snap.encode_queries(q_txt)
+    rare_share = sum(1 for r_ in rare if r_) / BATCH
+    qps, lo, hi = timed_qps(lambda: snap.search_batch_arrays(q_txt, K), BATCH)
+    print(f"lexical-only search_batch_arrays(k={K}): {qps:.0f} QPS (B={BATCH}; median of "
+          f"{TIER_WINDOWS} windows, range {lo:.0f}-{hi:.0f}); {rare_share:.2%} of the queries take "
+          f"the rare merge [{card}]", flush=True)
+    overlap = lexical_check(idx, snap, q_txt[:HYBRID_CHECK], card)
+    check(overlap >= LEX_OVERLAP_FLOOR, f"lexical overlap {overlap}")
+
+    # Hybrid through the snapshot: pool 20, so the sweep runs at kk 36; the
+    # lexical half's launches are the batch's less a vector search's alone.
+    before = scan_topk.launches
+    got, sc = db.hybrid_search_batch(q_vec, q_txt, k=K)
+    mid = scan_topk.launches
+    db.search_arrays(q_vec, k=HYBRID_POOL)
+    lexical_launches = (mid - before) - (scan_topk.launches - mid)
+    check(got.shape == (BATCH, K) and np.isfinite(sc).all(), "hybrid: shape/finite")
+    check(lexical_launches > 0, "the lexical half launched scan_topk")
+    h_qps, h_lo, h_hi = timed_qps(lambda: db.hybrid_search_batch(q_vec, q_txt, k=K), BATCH)
+    agree = np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, (b >= 0).sum())
+                     for a, b in zip(got[:HYBRID_CHECK], off)])
+    same_rows = int((got[:HYBRID_CHECK] == off).all(1).sum())
+    print(f"hybrid_search_batch(k={K}, pool {HYBRID_POOL}) through the snapshot: {h_qps:.0f} QPS "
+          f"(B={BATCH}; median of {TIER_WINDOWS} windows, range {h_lo:.0f}-{h_hi:.0f}); "
+          f"scan_topk launches a batch: {mid - before} ({lexical_launches} by the lexical half); "
+          f"agrees with the exact host path on {agree:.5f} of the ids ({same_rows}/"
+          f"{HYBRID_CHECK} rows identical) [{card}]", flush=True)
+    if st["profile"]:
+        profile_batch(db, None, None, "hybrid batch", card,
+                      run=lambda: db.hybrid_search_batch(q_vec, q_txt, k=K))
+
+    # Writes: 1,000 deletes and 1,000 inserts (one with a unique term); the
+    # next batch rebuilds the snapshot by itself.
+    gone = rng.choice(ids, HYBRID_WRITES, replace=False)
+    for i in gone:
+        check(db.delete(int(i)), f"delete {i}")
+    new_x = clustered(rng, HYBRID_WRITES, st["centers"])
+    new_t = zipf_texts(rng, HYBRID_WRITES, HYBRID_WORDS)
+    new_t[7] = "uniqueterm " + new_t[7]
+    new_ids = np.asarray(db.insert_batch(new_x, texts=new_t), np.int64)
+    del snap
+    t0 = time.perf_counter()
+    got2, _ = db.hybrid_search_batch(q_vec, q_txt, k=K)
+    rebuild_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.hybrid_search_batch(q_vec, q_txt, k=K)
+    steady_s = time.perf_counter() - t0
+    key, snap2 = eng._lexical_dev
+    check(key == (eng._version, eng._lsn) and snap2.n_docs == n,
+          "the snapshot was rebuilt for the writes")
+    lex2, _ = snap2.search_batch_arrays(q_txt, K)
+    check(not np.isin(got2, gone).any() and not np.isin(lex2, gone).any(),
+          "a deleted id was returned")
+    found = snap2.search_batch(["uniqueterm"], K)[0]
+    hyb, _ = db.hybrid_search_batch(new_x[7:8], ["uniqueterm"], k=K)
+    check(found[0][0] == new_ids[7] and hyb[0, 0] == new_ids[7], "the new doc is found by its term")
+    print(f"writes: {HYBRID_WRITES} deletes and {HYBRID_WRITES} inserts; the next hybrid batch "
+          f"rebuilt the snapshot by itself: {rebuild_s:.3f} s with the rebuild, {steady_s:.3f} s "
+          f"after it; no deleted id returned, the new doc found by its term [{card}]", flush=True)
+    launches = scan_topk.launches
+    case = hybrid_kernel_case(snap2, q_txt, min(HYBRID_POOL + snap2.pool_margin, snap2.n_slots),
+                              card)
+    db.close()
+    del db, eng, snap2, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, case
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler breakdown of a flat, a graph, a quantized "
-                         "and a streamed batch")
+                    help="print a torch.profiler breakdown of a flat, a graph, a quantized, "
+                         "a streamed and a hybrid batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2056,6 +2380,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     beam_launches, beam_case = beam_phase(st, card)
     coded.append(beam_case)
+    torch.cuda.empty_cache()
+    hybrid_launches, hybrid_case = hybrid_phase(st, card)
+    cases.append(hybrid_case)
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
@@ -2064,11 +2391,11 @@ def main() -> int:
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
         "launches": (st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values())
                      + cached_launches["scan_topk"] + compact_launches["scan_topk"]
-                     + beam_launches["scan_topk"]),
+                     + beam_launches["scan_topk"] + hybrid_launches),
         "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"],
                              "compact": compact_launches["scan_topk"], **tier_launches,
                              "cached": cached_launches["scan_topk"],
-                             "beam": beam_launches["scan_topk"]},
+                             "beam": beam_launches["scan_topk"], "hybrid": hybrid_launches},
         "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2077,7 +2404,8 @@ def main() -> int:
         "share": main_case["bound_ms"] / main_case["ms"],
         "library_ms": None,
         "cases": {c["name"]: {k: c[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
-                                                 "mm_ms")} for c in cases},
+                                                 "mm_ms", "sparse_bound_ms") if k in c}
+                  for c in cases},
     }, {
         "name": "coded_group_scan",
         "route": "cuda",

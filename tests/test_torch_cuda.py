@@ -1078,3 +1078,140 @@ def test_cached_search_in_chunks_on_card(cuda):
     assert st["dropped_probes"] == 0 and st["batches"] > 1 and small._ccache.device.type == "cuda"
     r_s, r_b = r_s.cpu().numpy(), r_b.numpy()
     assert sum(len(set(a) & set(b)) for a, b in zip(r_s, r_b)) >= 0.99 * r_b.size
+
+
+# ---- BM25 and hybrid search: the dense H-wide sweep through scan_topk ----
+# Tolerance: a BM25 score is a sum of <= 16 bf16 weights; both sides add
+# the same exact products (0/1 x bf16) in f32, in another order, so scores
+# agree within 2e-5 of the score itself and ids agree except where their
+# exact (f64) scores tie within that.
+
+
+def _bm25_like(cuda, b, n, d, seed, nnz_row=12, nnz_query=16, mask_frac=0.1):
+    """An [n, d] bf16 table of BM25-like rows (about 12 positive weights a
+    row on zipf-drawn columns, drawn from 64 levels so that many scores
+    tie bit for bit), multi-hot 0/1 queries of up to 16 columns, a mask."""
+    r = np.random.default_rng(seed)
+    cols = np.minimum(r.zipf(1.3, (n, nnz_row)) - 1, d - 1)
+    levels = (r.random(64) * 3).astype(np.float32)
+    x = np.zeros((n, d), np.float32)
+    x[np.arange(n)[:, None], cols] = levels[r.integers(0, 64, (n, nnz_row))]
+    q = np.zeros((b, d), np.float32)
+    for i in range(b):
+        q[i, np.minimum(r.zipf(1.3, int(r.integers(1, nnz_query + 1))) - 1, d - 1)] = 1.0
+    mask = torch.from_numpy(r.random(n) >= mask_frac).to(cuda)
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, torch.bfloat16), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k", [(300, 6000, 2048, 36), (257, 5000, 4096, 36),
+                                     (200, 4000, 2917, 20), (64, 3000, 4096, 256)])
+def test_kernel_dot_over_bm25_tables(cuda, b, n, d, k):
+    """scan_topk with metric dot over a bf16 table with a mask, on
+    multi-hot queries: the device BM25 sweep's shape (H up to 4096, the
+    query tile not resident; an unpadded odd width too)."""
+    q, x, mask = _bm25_like(cuda, b, n, d, seed=d + k)
+    before = scan_topk.launches
+    d_k, i_k = scan_topk(q, x, None, k, "dot", mask)
+    d_r, i_r = scan_topk_reference(q, x, None, k, "dot", mask)
+    torch.cuda.synchronize()
+    assert scan_topk.launches == before + 1
+    assert torch.equal(torch.isfinite(d_k), torch.isfinite(d_r))
+    fin = torch.isfinite(d_r)
+    tol = REL * d_r.abs().clamp_min(1.0)
+    assert bool(((d_k - d_r).abs() <= tol)[fin].all())
+    swapped = (i_k != i_r) & fin
+    if swapped.any():
+        exact = _exact(q, x.float(), torch.where(swapped, i_k, -1), "dot")
+        assert bool(((exact - d_r.double()).abs() <= 2 * tol)[swapped].all())
+    assert bool(mask[i_k[fin].long()].all())
+    assert int(swapped.sum()) < int(fin.sum())  # ties, not a different answer
+
+
+def _zipf_texts(r, n, n_words=3000, length=12):
+    words = [f"word{i}" for i in range(n_words)]
+    return [" ".join(words[min(int(w) - 1, n_words - 1)] for w in r.zipf(1.3, length))
+            for _ in range(n)]
+
+
+def _lexical_corpus(n_docs=20_000, seed=3):
+    from vecgo_tpu_torch.lexical.bm25 import BM25Index
+
+    r = np.random.default_rng(seed)
+    idx = BM25Index()
+    for i, doc in enumerate(_zipf_texts(r, n_docs)):
+        idx.add(i + 1, doc + (f" rareterm{i}" if i % 97 == 0 else ""))
+    queries = _zipf_texts(r, 500, length=3)
+    return idx, queries + ["rareterm97 word1", "rareterm194", "zzz", "",
+                           " ".join(f"word{i}" for i in range(30))]
+
+
+@pytest.mark.cuda
+def test_device_bm25_on_card_matches_cpu(cuda, monkeypatch):
+    """The same snapshot on the card and on the CPU: the same table bit for
+    bit, the sweep through the kernel (never the plain version), ids equal
+    except among exact-score ties, scores within 1e-5 relative."""
+    from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    idx, queries = _lexical_corpus()
+    cpu = DeviceBM25(idx, max_hot_terms=2048, min_df=8, device="cpu")
+    ci, cs = cpu.search_batch_arrays(queries, 20)
+
+    def boom(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(st, "scan_topk_reference", boom)
+    dev = DeviceBM25(idx, max_hot_terms=2048, min_df=8, device=cuda)
+    assert dev._w.is_cuda and torch.equal(dev._w.cpu(), cpu._w)
+    before = scan_topk.launches
+    gi, gs = dev.search_batch_arrays(queries, 20)
+    assert scan_topk.launches == before + 1
+    np.testing.assert_array_equal(gi < 0, ci < 0)
+    np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=0)
+    for r in np.nonzero((gi != ci).any(1))[0]:
+        for j in np.nonzero(gi[r] != ci[r])[0]:
+            tied = cs[r] == cs[r, j]
+            assert tied.sum() > 1
+            if not tied[-1]:
+                assert set(gi[r][tied]) == set(ci[r][tied])
+
+
+@pytest.mark.cuda
+def test_engine_hybrid_batch_on_card_matches_cpu(cuda):
+    """hybrid_search_batch on the card (a flat segment, the memtable and a
+    device BM25 snapshot) against the CPU engine on the same writes. The
+    fusion is host code, so wherever the two halves' lists agree (all but
+    bf16 near-ties of the vector pool and exact BM25 ties), the fused ids
+    agree and the RRF mass within 1e-12; scan_topk is launched by both
+    halves."""
+    import vecgo_tpu_torch as vg
+
+    r = np.random.default_rng(8)
+    x = r.standard_normal((20_000, 32)).astype(np.float32)
+    texts = _zipf_texts(r, len(x))
+    texts[123] = "needle " + texts[123]
+    q = x[:256] + 0.05
+    qtexts = _zipf_texts(r, 255, length=3) + ["needle"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        db = vg.Open(vg.Memory(), vg.Create(dim=32, lexical=True, flush_threshold=10**9,
+                                            device=device))
+        ids = db.insert_batch(x[:15_000], texts=texts[:15_000])
+        db.commit()
+        ids += db.insert_batch(x[15_000:], texts=texts[15_000:])
+        for i in ids[::101]:
+            db.delete(i)
+        snap = db.engine.enable_device_lexical(max_hot_terms=1024, min_df=8)
+        before = scan_topk.launches
+        fused = db.hybrid_search_batch(q, qtexts, k=10)
+        assert device == "cpu" or scan_topk.launches >= before + 2
+        out[device] = (db.search_arrays(q, k=20)[0], snap.search_batch_arrays(qtexts, 20)[0],
+                       *fused)
+        db.close()
+    (vc, lc, ic, sc), (vd, ld, id_, sd) = out["cpu"], out["cuda"]
+    same = (vc == vd).all(1) & (lc == ld).all(1)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_array_equal(id_[same], ic[same])
+    np.testing.assert_allclose(sd[same], sc[same], rtol=0, atol=1e-12)
+    assert ids[123] in id_[255] and not np.isin(id_, ids[::101]).any()

@@ -140,8 +140,8 @@ def test_db_directory_opens_in_the_other_package(tmp_path, writer):
 
 def test_not_ported_paths_raise_with_their_roadmap_item():
     """What is left of the port queue raises with its ROADMAP item (the
-    sharded searcher, hybrid and lexical search); graph_build_mode="beam"
-    (item 3d) compacts and serves now."""
+    sharded searcher, item 5); graph_build_mode="beam" (item 3d) compacts
+    and serves now, and so do lexical and hybrid search (item 4)."""
     db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", graph_threshold=4,
                                         graph_build_mode="beam"))
     ids = db.insert_batch(np.eye(4, dtype=np.float32))
@@ -152,12 +152,16 @@ def test_not_ported_paths_raise_with_their_roadmap_item():
     seg = db.engine._segments[0].segment
     assert type(seg).__name__ == "VamanaSegment" and seg.n == 8 and seg.meta["alpha"] == 1.2
     assert [c.id for c in db.search(np.eye(4, dtype=np.float32)[2], k=1)] == [ids[2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
         db.sharded_searcher(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Hybrid search needs the lexical index, as in the JAX engine.
+    with pytest.raises(ValueError, match="lexical index not enabled"):
         db.hybrid_search(np.ones(4, np.float32), "text")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vg.Open(vg.Memory(), vg.Create(dim=4, lexical=True, device="cpu"))
+    lex = vg.Open(vg.Memory(), vg.Create(dim=4, lexical=True, device="cpu"))
+    lids = lex.insert_batch(np.eye(4, dtype=np.float32), texts=["red fox", "blue fox", "red hen",
+                                                                "green owl"])
+    assert [c.id for c in lex.hybrid_search(np.eye(4, dtype=np.float32)[2], "red hen", k=1)] == [
+        lids[2]]
     # Quantized profiles were item 2 of the queue: they commit and search now.
     q = vg.Open(vg.Memory(), vg.Create(dim=4, quantizer="sq8", device="cpu"))
     ids = q.insert_batch(np.eye(4, dtype=np.float32))
@@ -215,9 +219,13 @@ def test_compact_tool_round_trip_across_packages(tmp_path, writer):
 def test_option_the_port_does_not_honour_raises_when_set():
     """`stream_transport` was the one option whose other value raised; both
     the JAX engine's values are honoured now (tests/test_torch_streaming.py
-    drives them), and no `EngineOptions` field is left that raises when set
-    except `lexical` (port queue item 4)."""
+    drives them), and `lexical` (port queue item 4) is honoured too
+    (tests/test_torch_lexical.py): no `EngineOptions` field is left that
+    raises when set."""
     assert vg.Create(dim=4, device="cpu").stream_transport == "sq8"
     assert vg.Create(dim=4, device="cpu", stream_transport="pq").stream_transport == "pq"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", lexical=True))
+    db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", lexical=True))
+    ids = db.insert_batch(np.eye(4, dtype=np.float32), texts=["a b", "c d", "e f", "g h"])
+    assert db.engine._lexical is not None and len(db.engine._lexical) == 4
+    got, _ = db.hybrid_search_batch(np.eye(4, dtype=np.float32)[:2], ["c d", "g"], k=2)
+    assert got[0, 0] == ids[1] and ids[3] in got[1]

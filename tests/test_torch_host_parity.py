@@ -58,8 +58,9 @@ def test_port_never_imports_the_jax_package():
     for new in ("ops/hamming.py", "quantization/scalar.py", "quantization/pq.py",
                 "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py",
                 "ops/ivf_cache.py", "storage/cache.py", "engine/metrics.py", "index/fresh.py",
-                "tools/compact.py", "utils/hostops.py", "entry.py"):
-        assert new in rel, new  # the quantizers and their ops are covered
+                "tools/compact.py", "utils/hostops.py", "entry.py", "lexical/__init__.py",
+                "lexical/bm25.py", "lexical/device_bm25.py"):
+        assert new in rel, new  # the quantizers, their ops and the lexical modules are covered
 
 
 def _docs(n=500, seed=3):

@@ -8,8 +8,10 @@ quantized and partitioned flat segment with probing, a streamed search
 under a device budget over both transports, the cluster cache
 (graph_cached) over persisted PQ codes reopened from the store, with a
 caching store and a counting observer, a beam-mode compaction served from a
-compact table, FreshVamana, the compaction tool, entry() and the native
-ingest path (utils/hostops), on the CPU, and checks sys.modules for jax and
+compact table, FreshVamana, the compaction tool, entry(), the native
+ingest path (utils/hostops) and hybrid search (the BM25 index and
+hybrid_search_batch through a device BM25 snapshot), on the CPU, and checks
+sys.modules for jax and
 for vecgo_tpu / vecgo_tpu.*; without a CUDA device it also checks that the
 default device ("cuda") is refused.
 """
@@ -166,6 +168,23 @@ CHILD = textwrap.dedent(
     with hostops.disabled():
         assert not hostops.available() and hostmem.all_finite(z)
     assert hostops.available() == ok and hostmem.all_finite(z)
+
+    # BM25 and hybrid search through a device snapshot.
+    from vecgo_tpu_torch.lexical.bm25 import BM25Index
+    from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
+
+    words = [f"w{i}" for i in range(40)]
+    texts = [" ".join(words[(i * j) % 40] for j in range(1, 6)) for i in range(600)]
+    texts[9] = "needle " + texts[9]
+    db = vg.Open(vg.Memory(), vg.Create(dim=8, device="cpu", lexical=True))
+    ids = db.insert_batch(x, texts=texts)
+    db.commit()
+    snap = db.engine.enable_device_lexical(max_hot_terms=32, min_df=2)
+    assert isinstance(snap, DeviceBM25) and isinstance(db.engine._lexical, BM25Index)
+    got, _ = db.hybrid_search_batch(x[:4], ["needle w1", "w3", "w5 w7", "needle"], k=3)
+    assert got.shape == (4, 3) and got[0, 0] == ids[0] and ids[9] in got[3]
+    assert [c.id for c in db.hybrid_search(x[9], "needle", k=1)] == [ids[9]]
+    db.close()
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
     assert not jax_pkg, jax_pkg

@@ -1,7 +1,6 @@
 """What the port does not cover yet, by its item in ROADMAP.md's port queue."""
 
 QUEUE = {
-    4: "device BM25 hybrid search",
     5: "the multi-device plane",
 }
 

@@ -11,6 +11,9 @@ or SQ8 codes), `vamana_segment_from_arrays` makes a port VamanaSegment from
 a graph and membership another build made (the JAX package's beam build or
 `build_ivf_table`), so that a search parity does not rest on two builds'
 random draws, and `fresh_from_jax` moves a JAX FreshVamana's state.
+`bm25_from_jax` moves a JAX BM25Index's postings, slots, lengths and
+liveness, and `device_bm25_from_jax` a JAX DeviceBM25 snapshot with its hot
+vocabulary and bf16 table.
 """
 
 from __future__ import annotations
@@ -132,4 +135,39 @@ def fresh_from_jax(fv, device):
         out.medoid = fv.medoid
         out._set_rows_device(np.arange(fv.capacity), out.x)
         out._dev["graph"][:] = torch.from_numpy(np.array(fv._dev["graph"])).to(device)
+    return out
+
+
+def bm25_from_jax(index):
+    """The port's BM25Index with a JAX BM25Index's parameters, postings,
+    slots, document lengths and liveness (copies, not shared lists)."""
+    from vecgo_tpu_torch.lexical.bm25 import BM25Index
+
+    out = BM25Index(k1=index.k1, b=index.b)
+    with index._lock:
+        out._doc_slot = dict(index._doc_slot)
+        out._slot_id = list(index._slot_id)
+        out._doc_len = list(index._doc_len)
+        out._alive = list(index._alive)
+        out._postings = {t: (list(s), list(f)) for t, (s, f) in index._postings.items()}
+        out._doc_terms = {i: list(ts) for i, ts in index._doc_terms.items()}
+        out._total_len = index._total_len
+    return out
+
+
+def device_bm25_from_jax(dev, device):
+    """The port's DeviceBM25 over a JAX DeviceBM25 snapshot: its index
+    (through `bm25_from_jax`), its snapshot arrays, its hot vocabulary and
+    its bf16 table `w_host`, read through a uint16 view (no ml_dtypes)."""
+    from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
+
+    out = DeviceBM25(bm25_from_jax(dev.index), max_hot_terms=0,
+                     pool_margin=dev.pool_margin, device=device)
+    out.n_slots, out.n_docs = dev.n_slots, dev.n_docs
+    out.slot_id, out.alive = dev.slot_id.copy(), dev.alive.copy()
+    out.avg_len, out.doc_len = dev.avg_len, dev.doc_len.copy()
+    out.hot = dict(dev.hot)
+    if out.hot:
+        bits = np.ascontiguousarray(dev.w_host).view(np.uint16).view(np.int16)
+        out._set_table(torch.from_numpy(bits).view(torch.bfloat16))
     return out

@@ -1,12 +1,14 @@
 """The port's Engine (vecgo_tpu/engine/engine.py on PyTorch).
 
 Open/recovery, CRUD, the PK index, manifests, tombstones, commit,
-compaction, vacuum and close are the JAX engine's host code, copied. What
-differs is what creates or searches device state: segments and the
-memtable are the port's classes, compaction builds graphs on the options'
-device, the search entry points run the device planner in
-`vecgo_tpu_torch.engine.search`, and the paths not ported yet raise
-`NotImplementedError` naming their ROADMAP.md item.
+compaction, vacuum, close and the lexical hooks (BM25 indexing, RRF
+hybrid search and its batched fusion) are the JAX engine's host code,
+copied. What differs is what creates or searches device state: segments
+and the memtable are the port's classes, compaction builds graphs on the
+options' device, the search entry points run the device planner in
+`vecgo_tpu_torch.engine.search`, the device BM25 snapshot sweeps its table
+with `scan_topk`, and the one path not ported yet (`sharded_searcher`)
+raises `NotImplementedError` naming its ROADMAP.md item.
 
 Threading model (as in the JAX engine): one writer lock guards mutations;
 searches are lock-free against published immutable snapshots. File
@@ -46,6 +48,8 @@ from vecgo_tpu_torch.errors import (
 from vecgo_tpu_torch.index.common import csr_concat, csr_select
 from vecgo_tpu_torch.index.flat import FlatSegment, FlatWriter
 from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter
+from vecgo_tpu_torch.lexical.bm25 import BM25Index
+from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
 from vecgo_tpu_torch.metadata import Schema
 from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
 from vecgo_tpu_torch.model import Candidate, Metric, SearchOptions, SearchResult
@@ -55,9 +59,9 @@ from vecgo_tpu_torch.utils.hostmem import all_finite, huge_arange
 
 @dataclass
 class EngineOptions:
-    """The JAX engine's options (same fields and defaults) plus the device that holds segments and
-    memtable chunks, runs every scan and builds graphs ("cuda" by default;
-    "cpu" runs the kernels' plain PyTorch versions)."""
+    """The JAX engine's options (same fields and defaults) plus the device that holds segments,
+    memtable chunks and the BM25 snapshot's table, runs every scan and builds
+    graphs ("cuda" by default; "cpu" runs the kernels' plain PyTorch versions)."""
 
     dim: int = 0
     metric: Metric = Metric.L2
@@ -107,7 +111,7 @@ class EngineOptions:
     serve_compact: bool = False  # coded-table repack: half HBM, ~2x probes
     serve_refine: bool = True  # int16 pool-rescore plane (+2 B/dim/row HBM): recall to the pool bound
     serve_ivf_min_n: int = 4096  # min rows for a coded IVF serving table (below: pure graph walk)
-    lexical_device: str = "auto"  # "auto" | "off": MXU BM25 snapshot for batched hybrid at >=50k docs
+    lexical_device: str = "auto"  # "auto" | "off": device BM25 snapshot for batched hybrid at >=50k docs
     store_codes: Any = False  # persist ivfq.* codes for cloud serving: False | True/"sq8" | "pq" | "opq"
     stream_transport: str = "sq8"  # beyond-HBM stream coding: "sq8" (1 B/dim) | "pq" (d/2 B/row, 128-pooled exact rerank)
     selectivity_cutoff: float = 0.30
@@ -153,6 +157,10 @@ class EngineOptions:
 def _seg_blob(seg_id: int) -> str:
     return f"segment_{seg_id:06d}.vgt"
 
+
+# Live docs from which hybrid_search_batch builds the device BM25 snapshot by
+# itself (EngineOptions.lexical_device="auto"), as the JAX engine does.
+DEVICE_LEXICAL_MIN_DOCS = 50_000
 
 PK_SIDECAR = "PKCURRENT"  # {"version": N, "blob": "pk_%06d.ckpt"}
 
@@ -208,8 +216,6 @@ class Engine:
     def __init__(self, store: BlobStore, options: EngineOptions):
         if not isinstance(options, EngineOptions):
             raise TypeError("vecgo_tpu_torch.Engine needs vecgo_tpu_torch EngineOptions")
-        if options.lexical:
-            raise not_ported("lexical (BM25) indexing", 4)
         self.store = store
         self.options = options
         self.manifests = ManifestStore(store, commit_store=options.commit_store)
@@ -239,6 +245,8 @@ class Engine:
         # (snapshot, filter) -> plan LRU: plans are snapshot-invariant, so
         # repeated batches skip the O(N) mask/strategy rebuild (search.py).
         self._plan_cache = search_mod.PlanCache()
+        self._lexical = BM25Index() if options.lexical else None
+        self._lexical_dev = None  # (version key, DeviceBM25) serving snapshot
 
     # ==================== open / recovery ====================
 
@@ -290,6 +298,8 @@ class Engine:
             eng.pk = PKIndex.from_checkpoint(store.get(ckpt))
         else:
             eng._rebuild_pk()
+        if eng._lexical is not None:
+            eng._rebuild_lexical()
         eng._log.info("open: version=%d segments=%d lsn=%d", eng._version,
                       len(eng._segments), eng._lsn)
         return eng
@@ -337,6 +347,27 @@ class Engine:
         self.pk = PKIndex.rebuild_from_segments(
             [h.segment for h in self._segments], self._tombstones
         )
+
+    def _rebuild_lexical(self):
+        """BM25 rebuild on open. "_text" is an ordinary interned STRING
+        column in the segment's ColumnarMeta (insert_batch folds it into the
+        doc), so presence is an O(1) column lookup and the text itself comes
+        from the interned value table. Only the row the PK index sees for an
+        id is indexed: the JAX engine indexes every row with text, so after
+        a reopen a deleted doc (or an id's older version) scores again and
+        hybrid_search_batch returns it (ROADMAP.md §3)."""
+        for h in self._segments:
+            seg = h.segment
+            codes = seg.cm.str_codes.get("_text")
+            if codes is None:
+                continue
+            values = seg.cm.str_values["_text"]
+            ids = seg.ids
+            for row in np.flatnonzero(codes >= 0):
+                rid = int(ids[row])
+                ent = self.pk.get_entry(rid)
+                if ent is not None and ent[1] == h.seg_id and ent[2] == row:
+                    self._lexical.add(rid, values[int(codes[row])])
 
     # ==================== snapshots ====================
 
@@ -397,6 +428,7 @@ class Engine:
             ids is not None
             and texts is None
             and schema is None
+            and self._lexical is None
             and n >= 2
         ):
             # Explicit ids ride the vectorized path when strictly increasing
@@ -413,6 +445,7 @@ class Engine:
             (ids is None or explicit_bulk_ids is not None)
             and texts is None
             and schema is None
+            and self._lexical is None
             and n >= 2
         )
         row_bytes = self.options.dim * 4 + 64
@@ -514,6 +547,8 @@ class Engine:
                     payloads[i] if payloads is not None else None,
                 )
                 self.pk.upsert(rid, MEMTABLE_SEG, row, lsn)
+                if text is not None and self._lexical is not None:
+                    self._lexical.add(rid, text)
                 out.append(rid)
             obs = self.options.observer
             if obs is not None:
@@ -542,6 +577,8 @@ class Engine:
             self._lsn += 1
             self._apply_tombstone(ent[1], ent[2], self._lsn)
             self.pk.delete(int(id), self._lsn)
+            if self._lexical is not None:
+                self._lexical.delete(int(id))
             obs = self.options.observer
             if obs is not None:
                 obs.on_delete(1)
@@ -716,14 +753,143 @@ class Engine:
 
         return _run()
 
-    def hybrid_search(self, *args, **kw):
-        raise not_ported("hybrid (BM25 + vector) search", 4)
+    def hybrid_search(
+        self, q, text: str, k: int = 10, rrf_k: int = 60, pool: int = 0, **kw
+    ) -> SearchResult:
+        """Vector + BM25 with RRF fusion (reference: HybridSearch engine.go:1538
+        — vector top-2k + lexical top-2k -> 1/(rrfK+rank) merge).
 
-    def hybrid_search_batch(self, *args, **kw):
-        raise not_ported("hybrid (BM25 + vector) search", 4)
+        `pool` controls the per-modality rank window (default 2k, min 20).
+        Vector hits reuse their already-materialized candidates; only
+        lexical-only ids pay a point lookup."""
+        if self._lexical is None:
+            raise ValueError("lexical index not enabled (EngineOptions.lexical)")
+        pool = pool or max(2 * k, 20)
+        vres = self.search(q, pool, **kw)
+        lres = self._lexical.search(text, pool)
+        scores: Dict[int, float] = {}
+        vmap: Dict[int, Candidate] = {}
+        for rank, c in enumerate(vres.candidates):
+            scores[c.id] = scores.get(c.id, 0.0) + 1.0 / (rrf_k + rank + 1)
+            vmap[c.id] = c
+        for rank, (id, _) in enumerate(lres):
+            scores[id] = scores.get(id, 0.0) + 1.0 / (rrf_k + rank + 1)
+        # Deterministic tie-break (score desc, id asc) — matches the batched
+        # path's vectorized fusion exactly.
+        top = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        out = []
+        for id, s in top:
+            c = vmap.get(id)
+            if c is None:  # lexical-only hit: one point lookup
+                try:
+                    c = self.get(id)
+                except ErrNotFound:
+                    continue
+            c.distance = -s  # smaller-is-better convention
+            out.append(c)
+        return SearchResult(candidates=out)
 
-    def enable_device_lexical(self, *args, **kw):
-        raise not_ported("device BM25", 4)
+    def enable_device_lexical(self, max_hot_terms: int = 4096, min_df: int = 8):
+        """Build the device-resident BM25 serving snapshot (lexical/device_bm25):
+        hot-vocabulary BM25 weights as an [n_docs, H] bf16 table on the
+        options' device, swept by `scan_topk`, with an exact-f32 pool rescore.
+        Used automatically by hybrid_search_batch while the engine version is
+        unchanged; call again after writes to refresh. Returns the DeviceBM25."""
+        if self._lexical is None:
+            raise ValueError("lexical index not enabled (EngineOptions.lexical)")
+        snap = DeviceBM25(self._lexical, max_hot_terms=max_hot_terms, min_df=min_df,
+                          device=self.options.device)
+        self._lexical_dev = ((self._version, self._lsn), snap)
+        return snap
+
+    def hybrid_search_batch(
+        self, qs, texts, k: int = 10, rrf_k: int = 60, pool: int = 0, **kw
+    ):
+        """Batched hybrid search: ONE batched vector search (search_arrays)
+        + ONE batched BM25 pass + vectorized RRF fusion (the single-query
+        `hybrid_search` is a host loop; this is the serving path). Returns
+        (ids [B, k] int64 with -1 padding, scores [B, k] f32, HIGHER is
+        better — RRF mass, not a distance).
+
+        Reference: HybridSearch engine.go:1538 fuses vector top-2k + lexical
+        top-2k with 1/(rrfK+rank); this computes the identical fusion for a
+        whole query batch in a handful of numpy ops."""
+        if self._lexical is None:
+            raise ValueError("lexical index not enabled (EngineOptions.lexical)")
+        if len(texts) != (qs.shape[0] if hasattr(qs, "shape") else len(qs)):
+            raise ValueError("texts/queries length mismatch")
+        pool = pool or max(2 * k, 20)
+        vids, _ = self.search_arrays(qs, k=pool, **kw)  # [B, pool] int64
+        b = vids.shape[0]
+        dev = self._lexical_dev
+        if (
+            (dev is None or dev[0] != (self._version, self._lsn))
+            and self.options.lexical_device == "auto"
+            and len(self._lexical) >= DEVICE_LEXICAL_MIN_DOCS
+        ):
+            # Auto-build the device serving snapshot: at this corpus size the
+            # dense exact host batch costs seconds per call while the device
+            # sweep costs milliseconds; rebuild happens at most once per
+            # write->search transition (keyed to (version, lsn)).
+            self.enable_device_lexical()
+            dev = self._lexical_dev
+        if dev is not None and dev[0] == (self._version, self._lsn):
+            # Device-resident BM25 (enable_device_lexical): one scan_topk sweep
+            # + exact rescore; rare-term queries merge host-side inside. Array
+            # contract — no per-hit python.
+            lids, _ = dev[1].search_batch_arrays(list(texts), pool)
+            if lids.shape[1] < pool:
+                lids = np.pad(
+                    lids, ((0, 0), (0, pool - lids.shape[1])),
+                    constant_values=-1,
+                )
+        else:
+            lres = self._lexical.search_batch(list(texts), pool)
+            lids = np.full((b, pool), -1, np.int64)
+            for bi, hits in enumerate(lres):
+                for r, (id_, _) in enumerate(hits):
+                    lids[bi, r] = id_
+        # f64 rank weights + f64 segment sums: bit-identical RRF mass to the
+        # single-query path (within a row, entries sort stably to vector-
+        # before-lexical, rank ascending — the same accumulation order).
+        rank_w = 1.0 / (rrf_k + np.arange(pool, dtype=np.float64) + 1.0)
+        all_ids = np.concatenate([vids, lids], axis=1)  # [B, 2P]
+        all_sc = np.concatenate(
+            [
+                np.where(vids >= 0, rank_w[None, :], 0.0),
+                np.where(lids >= 0, rank_w[None, :], 0.0),
+            ],
+            axis=1,
+        )
+        # Vectorized dedup-sum per row: sort by id; an id appears at most
+        # ONCE per modality (per-row ids are unique within each list), so a
+        # run of equal ids has length <= 2 and the fused mass is an exact
+        # two-addend f64 sum — bit-identical to the single-query path.
+        order = np.argsort(all_ids, axis=1, kind="stable")
+        sid = np.take_along_axis(all_ids, order, axis=1)
+        ssc = np.take_along_axis(all_sc, order, axis=1)
+        w = sid.shape[1]
+        newseg = np.ones((b, w), bool)
+        newseg[:, 1:] = sid[:, 1:] != sid[:, :-1]
+        endseg = np.ones((b, w), bool)
+        endseg[:, :-1] = newseg[:, 1:]
+        prev = np.zeros_like(ssc)
+        prev[:, 1:] = np.where(~newseg[:, 1:], ssc[:, :-1], 0.0)
+        seg_sum = ssc + prev
+        fused = np.where(endseg & (sid >= 0), seg_sum, -1.0)
+        kk = min(k, w)
+        # Full row sort by (score desc, id asc): w = 2*pool is small, and the
+        # id tie-break matches the single-query path deterministically.
+        top = np.lexsort((sid, -fused), axis=1)[:, :kk]
+        tv = np.take_along_axis(fused, top, axis=1)
+        out_ids = np.full((b, k), -1, np.int64)
+        out_sc = np.zeros((b, k), np.float32)
+        got = tv > 0
+        out_ids[:, :kk] = np.where(
+            got, np.take_along_axis(sid, top, axis=1), -1
+        )
+        out_sc[:, :kk] = np.where(got, tv, 0.0)
+        return out_ids, out_sc
 
     def sharded_searcher(self, mesh):
         raise not_ported("sharded_searcher", 5)
