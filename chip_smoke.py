@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat, graph, compact, quantized, streamed, cached,
-beam-built and hybrid (BM25 + vector) engine paths once on one CUDA card.
+beam-built, hybrid (BM25 + vector) and sharded (device grid) engine paths
+once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -135,9 +136,28 @@ beam-built and hybrid (BM25 + vector) engine paths once on one CUDA card.
    version, its time beside its dense bound and the bound of the data's
    nonzeros.
 
+9. The device grid (vecgo_tpu_torch.parallel), four shards laid over the
+   cards present round-robin (cuda:0 four times on one card): ShardedFlat
+   over the flat phase's 1,048,576 rows at L2 and cosine against the
+   one-device scan_topk answer (ids up to ties, distances within 1e-4, QPS
+   of both), db.sharded_searcher(grid) on the flat phase's database after
+   its deletes (the exact one-device answer up to ties, no deleted id);
+   after the graph phase, 8 updates, then ShardedEngineSearcher over its
+   database (the coded segment through kernel B, the memtable through
+   kernel A) at (dp 1, shard 4) and (dp 2, shard 2), refine_steps 0 and 2:
+   recall@10 floor 0.95 against the exact visible answer, no deleted id,
+   updated ids only at their new rows, both kernels launched; at the end
+   sharded_kmeans_step over the 1M rows at 1,024 centres against a
+   one-entry grid's, build_graph_clustered(mesh=) over the 1M rows against
+   the one-device build (shape, no self-loop, degree >= 0.8x, beam recall
+   within 0.05, both build times), entry.dryrun_multichip(4), and every
+   example's main(device="cuda").
+
 With --profile, the flat phase's unfiltered case, the graph phase's serving
 case, the SQ8 engine path (unfiltered and probed), both streamed
-transports, graph_stream, a warm graph_cached batch and a hybrid batch also print a
+transports, graph_stream, a warm graph_cached batch, a hybrid batch, the
+grid's ShardedFlat (L2) and its engine plane (dp 1, shard 4, no refine)
+also print a
 breakdown of one sync batch: its wall time (the
 median of 7 sync batches), the device's busy time in 3 batches under
 torch.profiler (the union of kernel and copy intervals), the host's share
@@ -640,7 +660,8 @@ def graph_phase(st, card):
           f"building it {grown} bytes [{card}]", flush=True)
     check(abs(held - want) <= want // 100, f"device_bytes() {want} against {held} bytes of tensors")
     check(abs(grown - want) <= want // 100, f"device_bytes() {want} against {grown} allocated")
-    st.update(graph_ids=all_ids, graph_deleted=deleted, graph_x=x_all)
+    st.update(graph_ids=all_ids, graph_deleted=deleted, graph_x=x_all, graph_u=u_all,
+              graph_serving_qps=results["serving"][0])
     return seg, launches
 
 
@@ -2311,12 +2332,338 @@ def hybrid_phase(st, card):
     return launches, case
 
 
+# Phase 9: the device grid. Four shards laid over the cards present,
+# round-robin (cuda:0 four times on one card), at (dp 1, shard 4) and, for
+# the engine plane, also at (dp 2, shard 2).
+GRID_SHARDS = 4
+GRID_SHAPES = ((1, 4), (2, 2))
+# Sharded and one-device exact scans: the same kernel over the same rows, so
+# ids agree except at ties and distances within this, relative to the
+# largest.
+GRID_REL_TOL = 1e-4
+KMEANS_K = 1024
+# The sharded k-means step against a one-entry grid's: the same
+# [65,536-row, K] distance blocks and assignments; the sums differ only in
+# their order (atomic index_add_), a few fp32 ulp of each centre.
+KMEANS_REL_TOL = 1e-4
+GRID_BUILD_QUERIES = 256
+EXAMPLES = ("basic", "bulk_load", "cloud_tiered", "explain", "filtered_search", "hybrid_rag",
+            "multi_writer_commit_plane", "observability", "quantized_index", "time_travel")
+
+
+def grid(dp, shard):
+    """A (dp, shard) grid over the cards present, round-robin."""
+    from vecgo_tpu_torch.parallel.mesh import make_mesh
+
+    cards = torch.cuda.device_count()
+    return make_mesh(shard=shard, dp=dp, devices=[f"cuda:{i % cards}" for i in range(dp * shard)])
+
+
+def grid_line(mesh) -> str:
+    return (f"grid {mesh.shape} over {[str(d) for d in mesh.entries()]} "
+            f"(torch.cuda.device_count() {torch.cuda.device_count()})")
+
+
+def launch_counts():
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    return {"scan_topk": scan_topk.launches, "coded_group_scan": coded_group_scan.launches}
+
+
+def zero_launches():
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    scan_topk.launches = coded_group_scan.launches = 0
+
+
+def add_launches(total, part):
+    for name, n in part.items():
+        total[name] = total.get(name, 0) + n
+
+
+def same_up_to_ties(name, got_i, got_d, want_i, want_d, rel=GRID_REL_TOL):
+    """Ids equal wherever the distances do not tie within rel of the
+    largest; distances within that everywhere."""
+    got_d, want_d = got_d.double(), want_d.double()
+    check(torch.equal(torch.isfinite(got_d), torch.isfinite(want_d)), f"{name}: +inf slots")
+    fin = torch.isfinite(want_d)
+    tol = rel * max(1.0, float(want_d[fin].abs().max()))
+    check(float((got_d - want_d).abs()[fin].max()) <= tol, f"{name}: distances within {rel}")
+    diff = (got_i != want_i).any(1).nonzero()[:, 0].tolist()
+    for b in diff:
+        g, w, gd = got_i[b].tolist(), want_i[b].tolist(), got_d[b]
+        for j in range(len(g)):
+            if g[j] != w[j]:
+                ties = (gd - gd[j]).abs() <= tol
+                check({g[t] for t in range(len(g)) if ties[t]}
+                      == {w[t] for t in range(len(w)) if ties[t]}, f"{name}: ids beyond ties")
+    return len(diff)
+
+
+def sharded_flat_phase(st, card):
+    """Phase 9a-b, on the flat phase's database: ShardedFlat over its
+    1,048,576 committed rows at L2 and cosine against the one-device
+    scan_topk answer; then db.sharded_searcher(grid) after its deletes."""
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops.topk import blockwise_topk_search
+    from vecgo_tpu_torch.parallel.mesh import ShardedFlat, _norms_sq
+
+    mesh = grid(1, GRID_SHARDS)
+    print(f"phase 9: {grid_line(mesh)} [{card}]", flush=True)
+    x = st["x_all"][:N]
+    q = torch.from_numpy(st["queries"][1]).to(x.device)
+    launches = {}
+    for metric in (Metric.L2, Metric.COSINE):
+        xs = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-30) \
+            if metric == Metric.COSINE else x
+        xn = _norms_sq(xs)
+        zero_launches()
+        t0 = time.perf_counter()
+        sf = ShardedFlat(x, mesh, metric=metric)
+        d_g, i_g = sf.search(q, K)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        add_launches(launches, launch_counts())
+        check(launches["scan_topk"] > 0, "ShardedFlat launched scan_topk")
+        d_1, i_1 = blockwise_topk_search(q, xs, K, metric=metric, x_norms_sq=xn,
+                                         x_normalized=True)
+        ties = same_up_to_ties(f"sharded flat {metric.value}", i_g, d_g, i_1, d_1)
+        qps, lo, hi = timed_qps(lambda: sf.search(q, K)[1].cpu(), BATCH)
+        if st["profile"] and metric == Metric.L2:
+            profile_batch(None, None, None, "sharded flat l2", card,
+                          run=lambda: sf.search(q, K)[1].cpu())
+        qps1, lo1, hi1 = timed_qps(
+            lambda: blockwise_topk_search(q, xs, K, metric=metric, x_norms_sq=xn,
+                                          x_normalized=True)[1].cpu(), BATCH)
+        print(f"sharded flat {metric.value} over {N} x {DIM} rows, grid {mesh.shape}: ids equal "
+              f"to the one-device scan_topk answer ({ties} of {BATCH} queries differ, each at a "
+              f"tie), distances within {GRID_REL_TOL}; {qps:.0f} QPS (range {lo:.0f}-{hi:.0f}) "
+              f"against the one-device scan's {qps1:.0f} (range {lo1:.0f}-{hi1:.0f}); built and "
+              f"first batch {first_s:.3f} s [{card}]", flush=True)
+        del sf, xs, xn
+    # 9b: the flat phase's database after its deletes, committed rows only.
+    db, ids, deleted = st["db"], st["ids"], st["deleted"]
+    live = ~np.isin(ids[:N], deleted)
+    zero_launches()
+    t0 = time.perf_counter()
+    searcher = db.sharded_searcher(mesh)
+    build_s = time.perf_counter() - t0
+    got, dist = searcher.search(st["queries"][1], K)
+    add_launches(launches, launch_counts())
+    xn_host = torch.from_numpy(np.einsum("nd,nd->n", st["x1"], st["x1"], dtype=np.float64)
+                               .astype(np.float32)).to(x.device)
+    d_1, rows = blockwise_topk_search(q, x, K, metric=Metric.L2, x_norms_sq=xn_host,
+                                      mask=torch.from_numpy(live).to(x.device))
+    exact = ids[:N][rows.cpu().numpy()]
+    ties = same_up_to_ties("sharded searcher", torch.from_numpy(got), torch.from_numpy(dist),
+                           torch.from_numpy(exact), d_1.cpu())
+    recall = recall_of(got, exact)
+    plain = recall_vs_exact(got, q, x, live, ids[:N])
+    qps, lo, hi = timed_qps(lambda: searcher.search(st["queries"][1], K), BATCH)
+    print(f"db.sharded_searcher over the flat phase's {N} committed rows ({int((~live).sum())} "
+          f"of them deleted), grid {mesh.shape}: recall@10 {recall:.5f} against the exact "
+          f"one-device answer over the visible committed rows ({ties} queries differ, each at "
+          f"a tie), {plain:.5f} against the plain "
+          f"PyTorch answer; built in {build_s:.3f} s; {qps:.0f} QPS (range {lo:.0f}-{hi:.0f}) "
+          f"[{card}]", flush=True)
+    check(plain >= RECALL_FLOOR, f"sharded searcher: recall {plain} against the plain answer")
+    check(not np.isin(got, deleted).any(), "sharded searcher: a deleted id was returned")
+    del searcher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_engine_phase(st, seg, card):
+    """Phase 9c: ShardedEngineSearcher over the graph phase's database (the
+    coded Vamana segment, the memtable's 10k rows, deletes) after a few
+    updates, at both grid shapes and refine_steps 0 and 2."""
+    from vecgo_tpu_torch.parallel.engine_shard import ShardedEngineSearcher
+
+    db, rng = st["db"], np.random.default_rng(19)
+    all_ids, deleted, x_all = st["graph_ids"], st["graph_deleted"], st["graph_x"]
+    dev = x_all.device
+    q_np = st["queries"][0]
+    q0 = torch.from_numpy(q_np).to(dev)
+    live = ~np.isin(all_ids, deleted)
+    # Updates: ids that are some queries' exact nearest row get a new
+    # vector around a random centre, so their stale rows would surface.
+    top1 = exact_ids(q0, x_all, live, all_ids)[:, 0]
+    upd = np.unique(top1)[:8]
+    new = clustered(rng, len(upd), st["centers"])
+    pos = np.searchsorted(all_ids, upd)
+    check(bool((all_ids[pos] == upd).all()), "updated ids are known")
+    for i, v in zip(upd, new):
+        db.insert(v, {"u": int(st["graph_u"][np.searchsorted(all_ids, i)])}, id=int(i))
+    x_all[torch.from_numpy(pos).to(dev)] = torch.from_numpy(new).to(dev)
+    gt = exact_ids(q0, x_all, live, all_ids)
+    launches = {}
+    serving_qps = st["graph_serving_qps"]
+    for dp, shard in GRID_SHAPES:
+        mesh = grid(dp, shard)
+        zero_launches()
+        snap = db.engine.snapshot()
+        try:
+            t0 = time.perf_counter()
+            ses = ShardedEngineSearcher(snap, mesh, db.engine.options.metric, db.engine.pk)
+            build_s = time.perf_counter() - t0
+            for steps in (0, 2):
+                got, dist = ses.search(q_np, K, refine_steps=steps)
+                check(got.shape == (BATCH, K) and np.isfinite(dist).all(),
+                      f"sharded engine {dp}x{shard} refine {steps}: shape/finite")
+                check(not np.isin(got, deleted).any(), "sharded engine: a deleted id was returned")
+                check(_fresh_rows(got, dist, q0, x_all, all_ids, upd),
+                      "sharded engine: a stale row of an updated id was returned")
+                recall = recall_of(got, gt)
+                qps, lo, hi = timed_qps(lambda: ses.search(q_np, K, refine_steps=steps), BATCH)
+                if st["profile"] and steps == 0 and (dp, shard) == GRID_SHAPES[0]:
+                    profile_batch(None, None, None, "sharded engine plane", card,
+                                  run=lambda: ses.search(q_np, K))
+                print(f"sharded engine plane, {grid_line(mesh)}, refine_steps {steps}: recall@10 "
+                      f"{recall:.5f} against the exact visible answer ({len(upd)} updated ids, "
+                      f"{len(deleted)} deleted); {qps:.0f} QPS (range {lo:.0f}-{hi:.0f}) beside "
+                      f"the graph phase's one-device serving {serving_qps:.0f} QPS; searcher "
+                      f"built in {build_s:.3f} s [{card}]", flush=True)
+                check(recall >= GRAPH_RECALL_FLOOR,
+                      f"sharded engine {dp}x{shard} refine {steps}: recall {recall}")
+        finally:
+            snap.release()
+        part = launch_counts()
+        print(f"sharded engine plane {mesh.shape} launches {part} [{card}]", flush=True)
+        for name, n in part.items():
+            check(n > 0, f"the sharded engine plane launched {name}")
+        add_launches(launches, part)
+        del ses
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fresh_rows(got, dist, q, x_all, all_ids, upd) -> bool:
+    """Every updated id in the results sits at its new vector's distance."""
+    for b, j in zip(*np.nonzero(np.isin(got, upd))):
+        v = x_all[int(np.searchsorted(all_ids, got[b, j]))]
+        want = float(((q[b] - v) ** 2).sum())
+        if abs(float(dist[b, j]) - want) > GRID_REL_TOL * max(1.0, want):
+            return False
+    return True
+
+
+def grid_build_phase(st, card):
+    """Phase 9d-g: sharded_kmeans_step over the flat phase's 1,048,576 rows
+    at 1,024 centres against a one-entry grid's step; build_graph_clustered
+    over the same rows on the grid against the one-device build; then
+    entry.dryrun_multichip(4) and every example's main(device="cuda")."""
+    import contextlib
+    import importlib
+    import io
+
+    from vecgo_tpu_torch.entry import dryrun_multichip
+    from vecgo_tpu_torch.index.build_fast import build_graph_clustered
+    from vecgo_tpu_torch.ops import beam as beam_ops
+    from vecgo_tpu_torch.parallel.mesh import make_mesh, sharded_kmeans_step, split_rows
+
+    dev = torch.device("cuda")
+    mesh = grid(1, GRID_SHARDS)
+    x = st["x1"]
+    launches = {}
+    # 9d: one Lloyd step.
+    c0 = torch.from_numpy(x[:KMEANS_K]).to(dev)
+    out = {}
+    for name, m in (("grid", mesh), ("one entry", make_mesh(devices=["cuda:0"]))):
+        shards = split_rows(x, m)
+        step = sharded_kmeans_step(m)
+        step(shards, c0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, inertia = step(shards, c0)
+        torch.cuda.synchronize()
+        out[name] = (c, float(inertia), time.perf_counter() - t0)
+        del shards
+    (c_g, in_g, t_g), (c_1, in_1, t_1) = out["grid"], out["one entry"]
+    c_err = float((c_g - c_1).abs().max()) / float(c_1.abs().max())
+    in_err = abs(in_g - in_1) / in_1
+    print(f"sharded k-means step over {N} x {DIM} rows, {KMEANS_K} centres, grid {mesh.shape}: "
+          f"{t_g * 1e3:.3f} ms against {t_1 * 1e3:.3f} ms on a one-entry grid; centres within "
+          f"{c_err:.2e} of the largest, inertia {in_g:.6e} within {in_err:.2e} (tolerance "
+          f"{KMEANS_REL_TOL}) [{card}]", flush=True)
+    check(c_err <= KMEANS_REL_TOL and in_err <= KMEANS_REL_TOL, "sharded k-means step")
+    # 9e: the clustered build on the grid against one device.
+    graphs = {}
+    for name, kw in (("grid", {"mesh": mesh}), ("one device", {"device": "cuda"})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, medoid, ecent, enodes = build_graph_clustered(x, **kw)
+        graphs[name] = (g, (medoid, ecent, enodes), time.perf_counter() - t0)
+    g_sh, entries_sh, t_sh = graphs["grid"]
+    g_1, entries_1, t_1 = graphs["one device"]
+    check(g_sh.shape == g_1.shape == (N, g_1.shape[1]), "grid build: shape")
+    check(not (g_sh == np.arange(N)[:, None]).any() and g_sh.max() < N,
+          "grid build: no self-loop, every id < n")
+    deg_sh, deg_1 = (g_sh >= 0).sum(1).mean(), (g_1 >= 0).sum(1).mean()
+    xd = torch.from_numpy(x).to(dev)
+    rn = (xd * xd).sum(1)
+    x16 = xd.to(torch.bfloat16)
+    qb = xd[np.random.default_rng(23).choice(N, GRID_BUILD_QUERIES, replace=False)]
+    gt = exact_ids(qb, xd, np.ones(N, bool), np.arange(N))
+
+    def beam_recall(g, entries):
+        # IVF-guided entries, as the segment's graph walk takes them: the
+        # nodes of the 4 nearest entry centroids, and the medoid.
+        medoid, ecent, enodes = entries
+        cd = torch.cdist(qb, torch.from_numpy(ecent).to(dev))
+        near = torch.from_numpy(enodes).to(dev).long()[cd.topk(4, largest=False).indices]
+        start = torch.cat([near, torch.full((len(qb), 1), int(medoid), device=dev)], 1)
+        _, ids = beam_ops.beam_search(qb, x16, rn, torch.from_numpy(g).to(dev), start, ef=64,
+                                      k=K, beam_width=4)
+        return recall_of(ids.cpu().numpy(), gt)
+
+    r_sh, r_1 = beam_recall(g_sh, entries_sh), beam_recall(g_1, entries_1)
+    print(f"build_graph_clustered over {N} x {DIM} rows: on the grid {mesh.shape} {t_sh:.3f} s, "
+          f"on one device {t_1:.3f} s; mean degree {deg_sh:.3f} against {deg_1:.3f}; beam "
+          f"recall@10 (ef 64, the 4 nearest entry nodes and the medoid, {GRID_BUILD_QUERIES} "
+          f"queries) {r_sh:.5f} against {r_1:.5f}; "
+          f"{int((g_sh != g_1).any(1).sum())} rows differ [{card}]", flush=True)
+    check(deg_sh >= 0.8 * deg_1, "grid build: mean degree")
+    check(r_sh >= r_1 - 0.05, f"grid build: beam recall {r_sh} against {r_1}")
+    del xd, x16, rn, graphs
+    torch.cuda.empty_cache()
+    # 9f-g: the dry run and the examples.
+    zero_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(GRID_SHARDS)
+    part = launch_counts()
+    print(f"{buf.getvalue().strip().splitlines()[-1]} ({time.perf_counter() - t0:.3f} s, "
+          f"launches {part}) [{card}]", flush=True)
+    for name, n in part.items():
+        check(n > 0, f"dryrun_multichip launched {name}")
+    add_launches(launches, part)
+    zero_launches()
+    for name in EXAMPLES:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"vecgo_tpu_torch.examples.{name}").main(device="cuda")
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) > 0, f"example {name} printed nothing")
+        print(f"example {name}: {time.perf_counter() - t0:.3f} s, last line: {lines[-1][:160]}",
+              flush=True)
+    part = launch_counts()
+    print(f"examples on the card: launches {part} [{card}]", flush=True)
+    check(part["scan_topk"] > 0, "the examples launched scan_topk")
+    add_launches(launches, part)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler breakdown of a flat, a graph, a quantized, "
-                         "a streamed and a hybrid batch")
+                         "a streamed, a hybrid and a sharded batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2360,7 +2707,9 @@ def main() -> int:
     main_case = cases[0]
     torch.cuda.empty_cache()
     st = engine_phase(args, card)
+    grid_launches = sharded_flat_phase(st, card)
     seg, graph_launches = graph_phase(st, card)
+    add_launches(grid_launches, sharded_engine_phase(st, seg, card))
     coded = [coded_case(seg, st["queries"][1], rng, *case, card) for case in CODED_CASES]
     compact_launches, compact_case = compact_phase(st, seg, rng, card)
     coded.append(compact_case)
@@ -2383,6 +2732,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_case = hybrid_phase(st, card)
     cases.append(hybrid_case)
+    add_launches(grid_launches, grid_build_phase(st, card))
 
     print(json.dumps({"kernels": [{
         "name": "scan_topk",
@@ -2391,11 +2741,13 @@ def main() -> int:
         "replaces": "vecgo_tpu/ops/pallas_scan.py:141",
         "launches": (st["launches"] + graph_launches["scan_topk"] + sum(tier_launches.values())
                      + cached_launches["scan_topk"] + compact_launches["scan_topk"]
-                     + beam_launches["scan_topk"] + hybrid_launches),
+                     + beam_launches["scan_topk"] + hybrid_launches
+                     + grid_launches["scan_topk"]),
         "launches_by_path": {"flat": st["launches"], "graph": graph_launches["scan_topk"],
                              "compact": compact_launches["scan_topk"], **tier_launches,
                              "cached": cached_launches["scan_topk"],
-                             "beam": beam_launches["scan_topk"], "hybrid": hybrid_launches},
+                             "beam": beam_launches["scan_topk"], "hybrid": hybrid_launches,
+                             "grid": grid_launches["scan_topk"]},
         "max_abs_err": max(c["err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2412,11 +2764,13 @@ def main() -> int:
         "source": "vecgo_tpu_torch/csrc/coded_group_scan.cu",
         "replaces": "vecgo_tpu/ops/pallas_scan.py:247",
         "launches": (graph_launches["coded_group_scan"] + compact_launches["coded_group_scan"]
-                     + cached_launches["coded_group_scan"] + beam_launches["coded_group_scan"]),
+                     + cached_launches["coded_group_scan"] + beam_launches["coded_group_scan"]
+                     + grid_launches["coded_group_scan"]),
         "launches_by_path": {"graph": graph_launches["coded_group_scan"],
                              "compact": compact_launches["coded_group_scan"],
                              "cached": cached_launches["coded_group_scan"],
-                             "beam": beam_launches["coded_group_scan"]},
+                             "beam": beam_launches["coded_group_scan"],
+                             "grid": grid_launches["coded_group_scan"]},
         "max_abs_err": max(c["err"] for c in coded),
         "ms": coded[0]["ms"],
         "plain_ms": coded[0]["plain_ms"],

@@ -34,7 +34,7 @@ def overlap(a, b) -> float:
 def graph():
     x, _ = tu.clustered_vectors(N, D, n_clusters=20, seed=21)
     g, medoid, ecent, enodes, members = build_graph_clustered(
-        x, r=R, cluster_size=256, seed=3, return_membership=True)
+        x, r=R, cluster_size=256, seed=3, return_membership=True, device="cpu")
     rng = np.random.default_rng(22)
     q = (x[rng.choice(N, 48, replace=False)]
          + 0.02 * rng.standard_normal((48, D))).astype(np.float32)

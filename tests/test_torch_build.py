@@ -49,7 +49,7 @@ def test_clustered_build_recall_small():
     """Single-cluster exact path (n <= 2 * cluster_size)."""
     n, d = 1500, 32
     x, _ = tu.clustered_vectors(n, d, n_clusters=16, seed=7)
-    graph, medoid, ecent, enodes = bf.build_graph_clustered(x, r=24, seed=42)
+    graph, medoid, ecent, enodes = bf.build_graph_clustered(x, r=24, seed=42, device="cpu")
     assert graph.shape == (n, 24) and graph.dtype == np.int32
     assert not (graph == np.arange(n)[:, None]).any()
     q = x[:64] + np.random.default_rng(8).standard_normal((64, d)).astype(np.float32) * 0.01
@@ -66,7 +66,7 @@ def test_clustered_build_recall_multicluster():
     _, ti = tu.brute_force_knn(q, x, 10, "l2")
     for inp in (x, torch.from_numpy(x)):
         graph, medoid, ecent, enodes, members = bf.build_graph_clustered(
-            inp, r=24, cluster_size=512, seed=42, return_membership=True)
+            inp, r=24, cluster_size=512, seed=42, return_membership=True, device="cpu")
         deg = (graph >= 0).sum(1)
         assert deg.mean() > 4 and deg.max() <= 24
         assert not (graph == np.arange(n)[:, None]).any()
@@ -76,10 +76,10 @@ def test_clustered_build_recall_multicluster():
 
 
 def test_clustered_build_tiny_and_empty():
-    g, _, _, _ = bf.build_graph_clustered(np.zeros((0, 8), np.float32), r=8)
+    g, _, _, _ = bf.build_graph_clustered(np.zeros((0, 8), np.float32), r=8, device="cpu")
     assert g.shape == (0, 8)
     x = np.random.default_rng(0).standard_normal((5, 8)).astype(np.float32)
-    g, _, _, _ = bf.build_graph_clustered(x, r=8)
+    g, _, _, _ = bf.build_graph_clustered(x, r=8, device="cpu")
     assert g.shape == (5, 8)
     assert (np.sort(g[0][g[0] >= 0]) == [1, 2, 3, 4]).all()
 
@@ -89,8 +89,10 @@ def test_build_is_deterministic():
     indices resolves by a deterministic reduction."""
     n, d = 5000, 32
     x, _ = tu.clustered_vectors(n, d, n_clusters=16, seed=7)
-    a = bf.build_graph_clustered(x, r=16, cluster_size=256, return_membership=True, seed=3)
-    b = bf.build_graph_clustered(x, r=16, cluster_size=256, return_membership=True, seed=3)
+    a = bf.build_graph_clustered(x, r=16, cluster_size=256, return_membership=True, seed=3,
+                                 device="cpu")
+    b = bf.build_graph_clustered(x, r=16, cluster_size=256, return_membership=True, seed=3,
+                                 device="cpu")
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[4], b[4])
     assert a[1] == b[1]
@@ -109,7 +111,7 @@ def test_reverse_edges_are_in_edges():
 def test_writer_roundtrip_and_search():
     n, d = 600, 16
     x = tu.gaussian_vectors(n, d, seed=11)
-    w = VamanaWriter(d, PMetric.L2, r=16)
+    w = VamanaWriter(d, PMetric.L2, r=16, device="cpu")
     w.add_batch(x, np.arange(n))
     seg = VamanaSegment.open(w.finish())
     assert seg.n == n and seg.ivf_members is None  # under ivf_min_n: graph walk

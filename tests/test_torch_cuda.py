@@ -1215,3 +1215,92 @@ def test_engine_hybrid_batch_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(id_[same], ic[same])
     np.testing.assert_allclose(sd[same], sc[same], rtol=0, atol=1e-12)
     assert ids[123] in id_[255] and not np.isin(id_, ids[::101]).any()
+
+
+# --- the device grid on one card (vecgo_tpu_torch.parallel) ----------------
+
+
+def _card_grid(dp, shard):
+    from vecgo_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shard=shard, dp=dp, devices=["cuda:0"] * (dp * shard))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_sharded_flat_on_one_card(cuda, metric):
+    """ShardedFlat on ["cuda:0"] * 4 at (dp 1, shard 4) and (dp 2, shard 2)
+    against the one-device scan of the same rows (kernel A tolerance):
+    one scan_topk launch per grid entry, no shard copied (the rows are
+    views of the caller's tensor)."""
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops.topk import blockwise_topk_search
+    from vecgo_tpu_torch.parallel.mesh import ShardedFlat
+
+    x = torch.from_numpy(_clustered_rows(100_003, 64, 64, seed=21)).to(cuda)
+    q = x[:1001] + 0.01
+    mask = torch.arange(len(x), device=cuda) % 9 != 4
+    xs = x / x.norm(dim=1, keepdim=True) if metric == "cosine" else x
+    xn = (xs * xs).sum(1)
+    d_1, i_1 = blockwise_topk_search(q, xs, 10, metric=Metric(metric), x_norms_sq=xn, mask=mask,
+                                     x_normalized=True)
+    for dp, shard in ((1, 4), (2, 2)):
+        sf = ShardedFlat(x, _card_grid(dp, shard), metric=Metric(metric), mask=mask)
+        if metric == "l2":
+            assert sf._shards[1][sf.mesh.devices[0, 1]][0].untyped_storage().data_ptr() == \
+                x.untyped_storage().data_ptr()
+        before = scan_topk.launches
+        d_g, i_g = sf.search(q, 10)
+        torch.cuda.synchronize()
+        assert scan_topk.launches - before == dp * shard
+        qs = q / q.norm(dim=1, keepdim=True) if metric == "cosine" else q
+        _check_against_plain(qs, xs, xn, 10, "l2" if metric == "l2" else "cos", mask,
+                             d_g, i_g, d_1, i_1)
+
+
+@pytest.mark.cuda
+def test_sharded_ivf_on_one_card(cuda):
+    """ShardedIVF on ["cuda:0"] * 4 over a 60,000-row coded table against
+    the same grid on the CPU (kernel B against its plain version): the
+    pools' rows equal on >= 0.999 of the entries, one coded_group_scan
+    launch per grid entry, the shards' codes views of the table's."""
+    from vecgo_tpu_torch.index.build_fast import build_graph_clustered
+    from vecgo_tpu_torch.ops import ivf as ivf_ops
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+    from vecgo_tpu_torch.parallel.mesh import ShardedIVF, make_mesh
+
+    x = _clustered_rows(60_000, 128, 96, seed=22)
+    xd = torch.from_numpy(x).to(cuda)
+    members = build_graph_clustered(xd, r=16, return_membership=True)[4]
+    t = ivf_ops.device_table_coded(members, xd)
+    q = xd[:2049] + 0.01
+    tc = type(t)(*(None if a is None else a.cpu() for a in t))
+    want_d, want_r = ShardedIVF(tc, make_mesh(shard=4, devices=["cpu"] * 4)).search(q.cpu(), 8, 16)
+    for dp, shard in ((1, 4), (2, 2)):
+        siv = ShardedIVF(t, _card_grid(dp, shard))
+        dev0 = siv.mesh.devices[0, 0]
+        assert siv._shards[1][dev0].codes.untyped_storage().data_ptr() == \
+            t.codes.untyped_storage().data_ptr()
+        before = coded_group_scan.launches
+        d, r = siv.search(q, 8, 16)
+        torch.cuda.synchronize()
+        assert coded_group_scan.launches - before == dp * shard
+        if dp == 1:
+            same = (r.cpu() == want_r).float().mean()
+            assert float(same) >= 0.999, float(same)
+            fin = (r.cpu() == want_r) & (want_d < 1e30)
+            scale = float(want_d[fin].max())
+            assert float((d.cpu() - want_d).abs()[fin].max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_card(cuda, capsys):
+    """entry.dryrun_multichip(4) on one card: four grid entries on cuda:0,
+    both kernels launched."""
+    from vecgo_tpu_torch.entry import dryrun_multichip
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
+
+    a, b = scan_topk.launches, coded_group_scan.launches
+    dryrun_multichip(4)
+    assert scan_topk.launches > a and coded_group_scan.launches > b
+    assert "dryrun_multichip OK: mesh={'dp': 2, 'shard': 2}" in capsys.readouterr().out

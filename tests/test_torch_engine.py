@@ -139,9 +139,11 @@ def test_db_directory_opens_in_the_other_package(tmp_path, writer):
 
 
 def test_not_ported_paths_raise_with_their_roadmap_item():
-    """What is left of the port queue raises with its ROADMAP item (the
-    sharded searcher, item 5); graph_build_mode="beam" (item 3d) compacts
-    and serves now, and so do lexical and hybrid search (item 4)."""
+    """The paths the port queue held work now, none raises: the sharded
+    searcher (item 5, the last) serves the committed rows from a grid of
+    CPU entries, graph_build_mode="beam" (item 3d) compacts and serves, and
+    so do lexical and hybrid search (item 4) and quantized profiles (item
+    2). The name is the one the test had while item 5 raised."""
     db = vg.Open(vg.Memory(), vg.Create(dim=4, device="cpu", graph_threshold=4,
                                         graph_build_mode="beam"))
     ids = db.insert_batch(np.eye(4, dtype=np.float32))
@@ -152,8 +154,11 @@ def test_not_ported_paths_raise_with_their_roadmap_item():
     seg = db.engine._segments[0].segment
     assert type(seg).__name__ == "VamanaSegment" and seg.n == 8 and seg.meta["alpha"] == 1.2
     assert [c.id for c in db.search(np.eye(4, dtype=np.float32)[2], k=1)] == [ids[2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        db.sharded_searcher(None)
+    from vecgo_tpu_torch.parallel.mesh import make_mesh
+
+    got, dist = db.sharded_searcher(make_mesh(shard=2, dp=2, devices=["cpu"] * 4)).search(
+        np.eye(4, dtype=np.float32)[2:4], k=1)
+    assert got[:, 0].tolist() == [ids[2], ids[3]] and np.allclose(dist[:, 0], 0.0)
     # Hybrid search needs the lexical index, as in the JAX engine.
     with pytest.raises(ValueError, match="lexical index not enabled"):
         db.hybrid_search(np.ones(4, np.float32), "text")

@@ -107,7 +107,7 @@ def test_cosine_segment_searched_by_both():
     from vecgo_tpu_torch.index.vamana import VamanaWriter
 
     x, q, _ = corpus(seed=47)
-    w = VamanaWriter(D, PMetric.COSINE)
+    w = VamanaWriter(D, PMetric.COSINE, device="cpu")
     w.add_batch(x, np.arange(N))
     data = w.finish()
     js, ts = JaxVamanaSegment.open(data), VamanaSegment.open(data)

@@ -59,8 +59,9 @@ def test_port_never_imports_the_jax_package():
                 "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py",
                 "ops/ivf_cache.py", "storage/cache.py", "engine/metrics.py", "index/fresh.py",
                 "tools/compact.py", "utils/hostops.py", "entry.py", "lexical/__init__.py",
-                "lexical/bm25.py", "lexical/device_bm25.py"):
-        assert new in rel, new  # the quantizers, their ops and the lexical modules are covered
+                "lexical/bm25.py", "lexical/device_bm25.py", "parallel/mesh.py",
+                "parallel/engine_shard.py", "examples/basic.py", "examples/time_travel.py"):
+        assert new in rel, new  # the quantizers, their ops, lexical, parallel and examples
 
 
 def _docs(n=500, seed=3):

@@ -9,11 +9,13 @@ under a device budget over both transports, the cluster cache
 (graph_cached) over persisted PQ codes reopened from the store, with a
 caching store and a counting observer, a beam-mode compaction served from a
 compact table, FreshVamana, the compaction tool, entry(), the native
-ingest path (utils/hostops) and hybrid search (the BM25 index and
-hybrid_search_batch through a device BM25 snapshot), on the CPU, and checks
-sys.modules for jax and
-for vecgo_tpu / vecgo_tpu.*; without a CUDA device it also checks that the
-default device ("cuda") is refused.
+ingest path (utils/hostops), hybrid search (the BM25 index and
+hybrid_search_batch through a device BM25 snapshot), the device grid
+(`entry.dryrun_multichip(8, device="cpu")`, parallel/*) and every example
+(examples/*), on the CPU, and checks sys.modules for jax and for
+vecgo_tpu / vecgo_tpu.*; without a CUDA device it also checks that the
+default device ("cuda") is refused by Create, VamanaWriter,
+build_graph_clustered and make_mesh.
 """
 
 import os
@@ -185,6 +187,17 @@ CHILD = textwrap.dedent(
     assert got.shape == (4, 3) and got[0, 0] == ids[0] and ids[9] in got[3]
     assert [c.id for c in db.hybrid_search(x[9], "needle", k=1)] == [ids[9]]
     db.close()
+
+    # The device grid (parallel/*) and every example (examples/*).
+    import contextlib
+    import io
+    from vecgo_tpu_torch import examples
+    from vecgo_tpu_torch.entry import dryrun_multichip
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        dryrun_multichip(8, device="cpu")
+        for mod in pkgutil.iter_modules(examples.__path__):
+            importlib.import_module(f"vecgo_tpu_torch.examples.{mod.name}").main(device="cpu")
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     jax_pkg = sorted(m for m in sys.modules if m == "vecgo_tpu" or m.startswith("vecgo_tpu."))
     assert not jax_pkg, jax_pkg
@@ -195,6 +208,18 @@ CHILD = textwrap.dedent(
             pass
         else:
             raise AssertionError("Create() with the default device must need CUDA")
+        from vecgo_tpu_torch.index.build_fast import build_graph_clustered
+        from vecgo_tpu_torch.index.vamana import VamanaWriter
+        from vecgo_tpu_torch.parallel.mesh import make_mesh
+
+        for build in (lambda: VamanaWriter(8), lambda: build_graph_clustered(z[:40]),
+                      lambda: make_mesh(shard=4)):
+            try:
+                build()
+            except RuntimeError as e:
+                assert "needs a CUDA device" in str(e), e
+            else:
+                raise AssertionError("the default device must need CUDA")
     print("NOJAX-OK")
     """
 )

@@ -7,8 +7,8 @@ copied. What differs is what creates or searches device state: segments
 and the memtable are the port's classes, compaction builds graphs on the
 options' device, the search entry points run the device planner in
 `vecgo_tpu_torch.engine.search`, the device BM25 snapshot sweeps its table
-with `scan_topk`, and the one path not ported yet (`sharded_searcher`)
-raises `NotImplementedError` naming its ROADMAP.md item.
+with `scan_topk`, and `sharded_searcher` serves the committed snapshot
+from a grid of devices (`vecgo_tpu_torch.parallel`).
 
 Threading model (as in the JAX engine): one writer lock guards mutations;
 searches are lock-free against published immutable snapshots. File
@@ -27,7 +27,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from vecgo_tpu_torch._roadmap import not_ported
 from vecgo_tpu_torch.blobstore import BlobStore, LocalStore
 from vecgo_tpu_torch.engine import search as search_mod
 from vecgo_tpu_torch.engine.manifest import Manifest, ManifestStore, SegmentInfo
@@ -55,6 +54,7 @@ from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
 from vecgo_tpu_torch.model import Candidate, Metric, SearchOptions, SearchResult
 from vecgo_tpu_torch.storage import container
 from vecgo_tpu_torch.utils.hostmem import all_finite, huge_arange
+from vecgo_tpu_torch.utils.tensors import checked_device
 
 
 @dataclass
@@ -125,14 +125,7 @@ class EngineOptions:
     device: Any = "cuda"
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "EngineOptions(device='cuda') needs a CUDA device; none is "
-                "available (pass device='cpu' to run the plain PyTorch path)"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = checked_device(self.device, "EngineOptions")
 
     def to_config(self) -> dict:
         return {
@@ -892,7 +885,17 @@ class Engine:
         return out_ids, out_sc
 
     def sharded_searcher(self, mesh):
-        raise not_ported("sharded_searcher", 5)
+        """Row-shard the committed snapshot across a device grid
+        (`parallel.mesh.make_mesh`) and return its exact searcher
+        (`parallel.engine_shard.ShardedSnapshotSearcher`; the memtable is
+        not included, as in the JAX engine)."""
+        from vecgo_tpu_torch.parallel.engine_shard import ShardedSnapshotSearcher
+
+        snap = self.snapshot()
+        try:
+            return ShardedSnapshotSearcher(snap, mesh, self.options.metric)
+        finally:
+            snap.release()
 
     # ==================== durability ====================
 

@@ -13,8 +13,12 @@ KNN computed as batched [G, C, C] distance products.
      edges of the working list], with alpha occlusion measured in a 16-dim
      projection at >= 100k rows.
 
-The JAX package's environment knobs (`BUILD_*`), its TPU-runtime retries and
-its mesh branches have no counterpart: their defaults are built in. Where
+Under a device grid (`mesh=`, `parallel.mesh.make_mesh`) the corpus and
+its norms are replicated to the grid's devices, and the cluster-KNN stage
+and the prune split over them (`parallel.engine_shard.sharded_cluster_knn`,
+`sharded_prune`, one pass); the rest runs on the grid's first device. The
+JAX package's environment knobs (`BUILD_*`) and its TPU-runtime retries
+have no counterpart: their defaults are built in. Where
 the JAX build scattered with duplicate indices (reverse-edge hashing), the
 port resolves collisions deterministically (the largest source id wins).
 The random far ids come from a seeded `torch.Generator`, so a graph built
@@ -33,6 +37,7 @@ import torch
 from vecgo_tpu_torch.ops import beam as beam_ops
 from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.quantization import kmeans as km
+from vecgo_tpu_torch.utils.tensors import checked_device
 
 logger = logging.getLogger("vecgo_tpu_torch")
 
@@ -163,13 +168,14 @@ def _descend(cand, x16, rnorm2, rounds: int, kw: int, block: int, hop_a: int, ho
 
 
 def _prune_all(cand_table, vectors, rnorm2, x_occ, rn_occ, r_out: int, alpha: float,
-               block: int):
-    """RobustPrune every row of cand_table [N_pad, L], block by block.
+               block: int, row0: int = 0):
+    """RobustPrune every row of cand_table [N_pad, L], block by block; its
+    rows are the corpus rows from `row0` on (a slice of a sharded prune).
     Returns [N_pad, r_out] int64."""
     n_pad = cand_table.shape[0]
     out = torch.empty((n_pad, r_out), dtype=torch.int64, device=cand_table.device)
     for b0 in range(0, n_pad, block):
-        rows = torch.arange(b0, min(n_pad, b0 + block), device=cand_table.device)
+        rows = torch.arange(row0 + b0, row0 + min(n_pad, b0 + block), device=cand_table.device)
         out[b0 : b0 + block] = beam_ops.robust_prune(
             rows, vectors[rows.clamp_max(vectors.shape[0] - 1)], cand_table[b0 : b0 + block],
             vectors, rnorm2, r_out=r_out, alpha=alpha, vectors_occ=x_occ, rnorm2_occ=rn_occ,
@@ -278,18 +284,26 @@ def build_graph_clustered(
     restarts: int = 1,
     return_membership: bool = False,
     device=None,
+    mesh=None,
 ) -> Tuple:
     """Build a Vamana-style graph over x [N, d] without graph search.
 
     x is a tensor (its device builds; norms from its bf16 rounding, as the
-    JAX package's device-input path) or a numpy array (built on `device`,
-    "cpu" by default). Returns (graph [N, r] int32, medoid, entry_centroids
+    JAX package's device-input path) or a numpy array (built on `device`:
+    "cuda" by default, or the first device of `mesh`). mesh: a device grid
+    (`parallel.mesh.Mesh`) that the cluster-KNN stage and the prune split
+    over. Returns (graph [N, r] int32, medoid, entry_centroids
     [K, d] f32, entry_nodes [K] int32), plus the build's capacity-capped
     cluster membership [K, cluster_size] int32 (-1 padded, every row
     covered) with return_membership."""
     n, d = x.shape
     device_input = isinstance(x, torch.Tensor)
-    dev = x.device if device_input else torch.device(device or "cpu")
+    if device_input:
+        dev = x.device
+    elif device is None and mesh is not None:
+        dev = mesh.entries()[0]
+    else:
+        dev = checked_device(device or "cuda", "build_graph_clustered")
     rng = np.random.default_rng(seed)
     if n == 0:
         return (np.zeros((0, r), np.int32), 0, np.zeros((0, d), np.float32),
@@ -326,6 +340,11 @@ def build_graph_clustered(
         rn_host[:n] = np.einsum("nd,nd->n", x, x, dtype=np.float64).astype(np.float32)
         rnorm2 = torch.from_numpy(rn_host).to(dev)
         mean16 = torch.from_numpy(x.mean(0, dtype=np.float64)).to(dev).to(torch.bfloat16)
+    if mesh is not None:
+        from vecgo_tpu_torch.parallel import engine_shard as es
+        from vecgo_tpu_torch.parallel.mesh import replicate
+
+        x16_grid, rn_grid = replicate(x16, mesh), replicate(rnorm2, mesh)
     medoid_dev = torch.argmin(rnorm2 - 2.0 * _bf16_matmul(x16, mean16[:, None])[:, 0])
 
     # JL projections: [0] is also the occlusion space below 100k rows; each
@@ -392,7 +411,11 @@ def build_graph_clustered(
         if entry_nodes_dev is None:
             entry_nodes_dev = torch.where(enodes_t >= 0, enodes_t.long(), medoid_dev)
         knn_eff = min(knn, min(cmax, n) - 1)
-        cand_t = _cluster_knn(x16, rnorm2, members, mem_slot, knn_eff, ov_t, n_full, g_batch)
+        if mesh is not None:
+            cand_t = es.sharded_cluster_knn(x16_grid, rn_grid, members, mem_slot, knn_eff, ov_t,
+                                            n_full, g_batch, mesh)
+        else:
+            cand_t = _cluster_knn(x16, rnorm2, members, mem_slot, knn_eff, ov_t, n_full, g_batch)
         cand_parts.append(cand_t.reshape(n_full, ov_t * knn_eff))
     cand = torch.cat(cand_parts, 1) if len(cand_parts) > 1 else cand_parts[0]
 
@@ -406,7 +429,11 @@ def build_graph_clustered(
     if n_rand > 0:
         parts.append(_rand_cand(n_full, n, n_rand, seed, dev))
     parts.append(_reverse_dev(w_i[:, :r], rev_cap))
-    graph = _prune_all(torch.cat(parts, 1), x16, rnorm2, x_occ_p, rn_occ_p, r, alpha, block)
+    if mesh is not None:
+        graph = es.sharded_prune(torch.cat(parts, 1), x16_grid, rn_grid, x_occ_p, rn_occ_p, r,
+                                 alpha, block, rev_cap, mesh, one_pass=True)
+    else:
+        graph = _prune_all(torch.cat(parts, 1), x16, rnorm2, x_occ_p, rn_occ_p, r, alpha, block)
 
     medoid = int(medoid_dev)
     entry_nodes = entry_nodes_dev.cpu().numpy().astype(np.int32)

@@ -48,6 +48,7 @@ from vecgo_tpu_torch.ops import distance as D
 from vecgo_tpu_torch.ops import ivf as ivf_ops
 from vecgo_tpu_torch.ops import topk as T
 from vecgo_tpu_torch.storage import container
+from vecgo_tpu_torch.utils.tensors import checked_device
 
 SEGMENT_KIND = "vamana"
 
@@ -203,7 +204,8 @@ def _tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
 
 
 class VamanaWriter:
-    """Builds an immutable vamana segment on `device` (reference:
+    """Builds an immutable vamana segment on `device` ("cuda" by default,
+    as the engine; "cpu" for the plain PyTorch path) (reference:
     diskann.NewWriter:97)."""
 
     def __init__(
@@ -223,7 +225,7 @@ class VamanaWriter:
         ivf_capacity: int = 512,
         ivf_min_n: int = 4096,  # below this, a graph walk beats the table
         store_codes: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         """build_mode: "clustered" (cluster-local KNN + RobustPrune,
         index/build_fast.py) or "beam" (the search-based build,
@@ -257,7 +259,7 @@ class VamanaWriter:
         self.seed = seed
         self._rows = common.RowBuffer(dim)
         self._preset = None
-        self.device = torch.device(device)
+        self.device = checked_device(device, "VamanaWriter")
 
     def add(self, vector, id: int, metadata=None, payload: Optional[bytes] = None,
             lsn: int = 0):

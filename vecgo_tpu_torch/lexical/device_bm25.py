@@ -49,6 +49,7 @@ import torch
 from vecgo_tpu_torch.lexical.bm25 import BM25Index, tokenize
 from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops.scan_topk import scan_topk
+from vecgo_tpu_torch.utils.tensors import checked_device
 
 _TMAX = 16  # max hot terms per query on the device path
 _COL_ALIGN = 64  # the table's width is padded to a multiple of this
@@ -66,12 +67,7 @@ class DeviceBM25:
         pool_margin: int = 16,
         device="cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("DeviceBM25(device='cuda') needs a CUDA device; none is "
-                               "available (pass device='cpu' for the plain PyTorch path)")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = checked_device(device, "DeviceBM25")
         self.index = index
         self.pool_margin = pool_margin
         self.hot: Dict[str, int] = {}

@@ -22,3 +22,17 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(arr)
+
+
+def checked_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device raises where there is no
+    card, naming `who` (the plain PyTorch path runs with device="cpu")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}(device='cuda') needs a CUDA device; none is available "
+            "(pass device='cpu' to run the plain PyTorch path)"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
