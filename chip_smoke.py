@@ -10,10 +10,16 @@ once on one CUDA card.
    (one nvcc per source, all started together).
 2. Kernel phase: `scan_topk` against its plain PyTorch version on the card at
    the shapes the engine gives it (the segment scan at pools 18 and 82, f32
-   memtable chunks at pools 74 and 82, wide rows), plus k = 256; each case
-   prints its time beside its bound (the larger of operations over the
-   card's peak for their type and bytes over 3.35 TB/s), its share of that
-   bound, and the product alone through torch.mm (context only); then pools
+   memtable chunks at pools 74 and 82, wide rows), plus k = 256, the deep
+   bf16 shapes (262,144 x 3,072 at k 10; the dbpedia-openai-1M shape,
+   1M x 1,536 cos, at k 100) and the f32 scan over 1M x 128 that
+   ShardedFlat splits; each case prints the kernel product that ran (the
+   cases of the deep and f32 products check that theirs did), its time
+   beside its bound (the larger of operations over the card's peak for
+   their type and bytes over 3.35 TB/s), its share of that bound, the JAX
+   package's route in torch ops (a blockwise torch.mm with torch.topk and
+   a running merge: a yardstick the port never calls) and the product
+   alone through torch.mm (context only); then pools
    past 256 (the kernel's wide shape, lists in a global scratch): k = 1000
    over the 1M-row segment and over one 131,072-row block, k = 4096 over
    65,536 rows. Phase 5
@@ -132,9 +138,9 @@ once on one CUDA card.
    deletes and 1,000 inserts, after which the next batch rebuilds the
    snapshot by itself (timed), no deleted id is returned and a new doc is
    found by its term; then `scan_topk` at the sweep's shape (B 4096, N
-   1,048,576, H 4096 bf16, dot, the alive mask, k 36) against its plain
-   version, its time beside its dense bound and the bound of the data's
-   nonzeros.
+   1,048,576, H 4096 bf16, dot, the alive mask, k 36; the deep product)
+   against its plain version, its time beside its dense bound and the
+   bound of the data's nonzeros, and the route.
 
 9. The device grid (vecgo_tpu_torch.parallel), four shards laid over the
    cards present round-robin (cuda:0 four times on one card): ShardedFlat
@@ -245,6 +251,54 @@ def bound(flop: float, nbytes: float, bf16_tensor: bool):
     return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes")
 
 
+def route_ms(q, xs, xn, k, metric, mask) -> float:
+    """The JAX package's own route for the same function, in torch ops: per
+    131,072-row block one torch.mm (f32 sums: bf16 operands with an f32
+    output where torch.mm takes out_dtype, else a bf16 output; f32 tables
+    with TF32 off) and one torch.topk, merged into a running top-k by a
+    second topk (vecgo_tpu/lexical/device_bm25.py `_scan_topk`,
+    vecgo_tpu/ops/topk.py `blockwise_topk_scored`). A yardstick of two
+    library calls a block, timed here and never called by the port."""
+    from vecgo_tpu_torch.ops.scan_topk import metric_code
+
+    code = metric_code(metric)
+    qc = q.to(xs.dtype)
+    qn = (q * q).sum(1, keepdim=True)
+    n, block = xs.shape[0], 131072
+
+    def product(blk):
+        if xs.dtype == torch.bfloat16:
+            try:
+                return torch.mm(qc, blk.T, out_dtype=torch.float32)
+            except TypeError:
+                return torch.mm(qc, blk.T).float()
+        return torch.mm(qc, blk.T)
+
+    def run():
+        best_d = best_i = None
+        for s in range(0, n, block):
+            e = min(n, s + block)
+            prod = product(xs[s:e])
+            sc = (qn + xn[s:e][None] - 2.0 * prod if code == 0 else
+                  -prod if code == 1 else 1.0 - prod)
+            if mask is not None:
+                sc = torch.where(mask[s:e][None], sc, torch.inf)
+            d, i = torch.topk(sc, min(k, e - s), dim=1, largest=False)
+            i = i + s
+            if best_d is not None:
+                d, j = torch.topk(torch.cat([best_d, d], 1), k, dim=1, largest=False)
+                i = torch.gather(torch.cat([best_i, i], 1), 1, j)
+            best_d, best_i = d, i
+        return best_d, best_i
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(run, reps=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def mm_ms(q, xs) -> float:
     """The product alone through torch.mm on the same table in 64k-row
     blocks (context only: the port never calls it; no single PyTorch call
@@ -260,18 +314,22 @@ def mm_ms(q, xs) -> float:
     return cuda_ms(run, reps=3)
 
 
-def scan_case(name, q, xs, xn, k, metric, mask, card, note=""):
+def scan_case(name, q, xs, xn, k, metric, mask, card, note="", product=None):
     """`scan_topk` against its plain version on these tensors: the same +inf
     slots, distances within REL_TOL of |q|^2 + |x|^2, ids equal except where
     the kernel's row scores within twice that of the plain version's; then
-    the kernel's time beside its bound, the plain version's time and the
-    product alone. q [B, d] f32, xs [N, d] bf16 or f32, xn [N] f32 (l2)."""
+    the kernel's time beside its bound, the plain version's time, the JAX
+    route in torch ops (`route_ms`) and the product alone. q [B, d] f32, xs
+    [N, d] bf16 or f32, xn [N] f32 (l2). `product`, where given, is the
+    kernel product the plan must pick for this shape."""
     from vecgo_tpu_torch.ops.scan_topk import metric_code, scan_topk, scan_topk_reference
 
     code = metric_code(metric)
     (b, d), n = q.shape, xs.shape[0]
     args = (q, xs, xn, k, metric, mask)
     d_k, i_k = scan_topk(*args)
+    ran = scan_topk.last_product
+    check(product is None or ran == product, f"{name}: the {ran} product ran, not {product}")
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     qn = (q * q).sum(1)
@@ -296,26 +354,41 @@ def scan_case(name, q, xs, xn, k, metric, mask, card, note=""):
         check(bool(mask[i_k[fin].long()].all()), f"{name}: a masked row was returned")
     ms = cuda_ms(lambda: scan_topk(*args), reps=5)
     plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    route = route_ms(*args)
     mm = mm_ms(q, xs)
     nbytes = (b * d * 4 + n * d * xs.element_size() + n * 4 * (code == 0)
               + (n if mask is not None else 0) + b * k * 8)
     bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, xs.dtype == torch.bfloat16)
     print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(xs.dtype)[6:]} {('l2', 'dot', 'cos')[code]}"
-          f"{note}: kernel {ms:.3f} ms, "
+          f"{note}: {ran} product {ms:.3f} ms, "
           f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}, "
-          f"plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, route (torch.mm + torch.topk) {route:.3f} ms, "
+          f"torch.mm product alone {mm:.3f} ms, "
           f"max_abs_err {err:.3g} (tol {tol:.3g}), tie swaps {int(bad.sum())} [{card}]",
           flush=True)
-    return {"name": name, "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "mm_ms": mm}
+    return {"name": name, "product": ran, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
+            "route_ms": route, "mm_ms": mm}
 
 
-def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
-    """`scan_case` on clustered rows made here."""
+def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card, product=None,
+                on_device=False):
+    """`scan_case` on clustered rows made here: with numpy, or (on_device,
+    for the large deep-d tables) with a CUDA generator seeded from rng."""
     dev = torch.device("cuda")
-    centers = rng.standard_normal((N_CLUSTERS, d)).astype(np.float32)
-    x = torch.from_numpy(clustered(rng, n, centers)).to(dev)
-    q = torch.from_numpy(clustered(rng, b, centers)).to(dev)
+    if on_device:
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
+        centers = torch.randn((N_CLUSTERS, d), generator=g, device=dev)
+
+        def made(rows):
+            pick = torch.randint(0, N_CLUSTERS, (rows,), generator=g, device=dev)
+            return centers[pick] + 0.35 * torch.randn((rows, d), generator=g, device=dev)
+
+        x, q = made(n), made(b)
+    else:
+        centers = rng.standard_normal((N_CLUSTERS, d)).astype(np.float32)
+        x = torch.from_numpy(clustered(rng, n, centers)).to(dev)
+        q = torch.from_numpy(clustered(rng, b, centers)).to(dev)
     if metric == "cos":
         x = x / x.norm(dim=1, keepdim=True)
         q = q / q.norm(dim=1, keepdim=True)
@@ -326,7 +399,7 @@ def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card):
     if mask_frac:
         mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
     return scan_case(name, q, xs, xn, k, metric, mask, card,
-                     f" mask {mask_frac:.0%} out" if mask_frac else "")
+                     f" mask {mask_frac:.0%} out" if mask_frac else "", product)
 
 
 def path_block_case(name, quant, metric, q, blk, k, mask, card, note=""):
@@ -2140,7 +2213,8 @@ def hybrid_kernel_case(snap, texts, k, card):
     ties the plain version's exactly within that. Prints the time beside
     the dense bound (2 B N H operations at the bf16 peak) and beside the
     bound of the data's nonzeros (the table's bytes; the product of the
-    <= 16 columns each query holds), the plain version and torch.mm."""
+    <= 16 columns each query holds), the plain version, the JAX route in
+    torch ops (`route_ms`) and torch.mm. The deep product must run."""
     from vecgo_tpu_torch.model import Metric
     from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
 
@@ -2148,6 +2222,8 @@ def hybrid_kernel_case(snap, texts, k, card):
     c, q = snap.multi_hot(snap.encode_queries(texts)[0])
     args = (q, w, None, k, Metric.DOT, alive)
     d_k, i_k = scan_topk(*args)
+    ran = scan_topk.last_product
+    check(ran == "deep", f"bm25 sweep: the {ran} product ran, not deep")
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), "bm25 sweep: +inf slots differ")
@@ -2166,6 +2242,7 @@ def hybrid_kernel_case(snap, texts, k, card):
     check(bool(alive[i_k[fin].long()].all()), "bm25 sweep: a dead slot was returned")
     ms = cuda_ms(lambda: scan_topk(*args), reps=3)
     plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
+    route = route_ms(*args)
     mm = mm_ms(q, w)
     (b, h), n = q.shape, w.shape[0]
     nbytes = b * h * 4 + n * h * 2 + n + b * k * 8
@@ -2173,15 +2250,16 @@ def hybrid_kernel_case(snap, texts, k, card):
     nnz = int((c >= 0).sum())
     sparse_ms, sparse_by = bound(2.0 * nnz * n, nbytes, True)
     print(f"kernel hybrid-bm25: B={b} N={n} H={len(snap.hot)} (width {h}) k={k} bf16 dot mask "
-          f"{1 - float(alive.float().mean()):.3%} out: kernel {ms:.3f} ms, dense bound "
+          f"{1 - float(alive.float().mean()):.3%} out: {ran} product {ms:.3f} ms, dense bound "
           f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}; the data's nonzeros "
           f"({nnz} query columns) bound {sparse_ms:.3f} ms ({sparse_by}), share "
-          f"{sparse_ms / ms:.1%}; plain {plain_ms:.3f} ms, torch.mm product alone {mm:.3f} ms, "
+          f"{sparse_ms / ms:.1%}; plain {plain_ms:.3f} ms, route (torch.mm + torch.topk) "
+          f"{route:.3f} ms, torch.mm product alone {mm:.3f} ms, "
           f"max_abs_err {err:.3g}, max relative {rel:.3g} (tol {REL_TOL:g}), tie swaps "
           f"{int(bad.sum())} [{card}]", flush=True)
-    return {"name": "hybrid-bm25", "err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "mm_ms": mm,
-            "sparse_bound_ms": sparse_ms}
+    return {"name": "hybrid-bm25", "product": ran, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
+            "route_ms": route, "mm_ms": mm, "sparse_bound_ms": sparse_ms}
 
 
 def hybrid_phase(st, card):
@@ -2691,12 +2769,23 @@ def main() -> int:
     # at the churn margin's pool, the memtable's f32 chunks at its pools,
     # wide f32 rows, the widest k of the narrow shape, and the wide shape.
     cases = [
-        kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card),
-        kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card),
-        kernel_case("chunk-pool74", rng, BATCH, 8192, DIM, 74, torch.float32, "l2", 0.3, card),
-        kernel_case("chunk-pool82", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card),
-        kernel_case("wide-d768", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card),
+        kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card, "tile"),
+        kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card, "tile"),
+        kernel_case("chunk-pool74", rng, BATCH, 8192, DIM, 74, torch.float32, "l2", 0.3, card,
+                    "f32"),
+        kernel_case("chunk-pool82", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card,
+                    "f32"),
+        kernel_case("wide-d768", rng, BATCH, 65536, 768, 10, torch.float32, "cos", 0, card, "f32"),
         kernel_case("k256", rng, BATCH, 65536, DIM, 256, torch.bfloat16, "l2", 0.1, card),
+        # The deep bf16 product: 3,072-d rows (query tile never resident) and
+        # the dbpedia-openai-1M shape (1,536-d) at a pool of 100; the f32
+        # product over the 1M x 128 rows that ShardedFlat splits.
+        kernel_case("deep-d3072", rng, BATCH, 262144, 3072, 10, torch.bfloat16, "l2", 0, card,
+                    "deep", on_device=True),
+        kernel_case("deep-d1536-k100", rng, BATCH, 1_000_000, 1536, 100, torch.bfloat16, "cos", 0,
+                    card, "deep", on_device=True),
+        kernel_case("f32-1M", rng, BATCH, N, DIM, 10, torch.float32, "l2", 0, card, "f32",
+                    on_device=True),
         # The wide shape: a coarse quantizer's pool of 1,000 over the segment
         # and over one decoded block, and k = 4096.
         kernel_case("segment-k1000", rng, BATCH, N, DIM, 1000, torch.bfloat16, "l2", 0, card),
@@ -2755,8 +2844,9 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "share": main_case["bound_ms"] / main_case["ms"],
         "library_ms": None,
-        "cases": {c["name"]: {k: c[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
-                                                 "mm_ms", "sparse_bound_ms") if k in c}
+        "cases": {c["name"]: {k: c[k] for k in ("product", "ms", "bound_ms", "bound_by", "share",
+                                                 "plain_ms", "route_ms", "mm_ms",
+                                                 "sparse_bound_ms") if k in c}
                   for c in cases},
     }, {
         "name": "coded_group_scan",

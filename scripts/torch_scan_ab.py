@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""`scan_topk` (kernel A) of this tree against another tree's, on one CUDA
+card, at the shapes `chip_smoke.py` measures; and, with --sweep, where this
+tree's products change over.
+
+    python3 scripts/torch_scan_ab.py --other DIR [--seed 0] [--reps 3] [--sweep]
+
+DIR holds another checkout of the repo (for example the parent commit
+unpacked with `git archive`). Each tree runs in processes of its own (its
+package imported from its root, its kernels built there by its own
+`_build`), in the order other, this, this, other; every process makes the
+same inputs on the card from --seed and times every case with CUDA events
+over --reps launches after a warm-up. Cases: the segment's bf16 pool scan
+(4096 x 1M x 128, k 18 and 82), the memtable's f32 chunks (8,192 rows, k 74
+with 30% masked and k 82), f32 cos at d 768, the f32 scan over 1M x 128
+that ShardedFlat splits (k 10), the deep bf16 shapes (262,144 x 3,072 l2
+k 10; 1M x 1,536 cos k 100) and the BM25 sweep (4096 x 1,049,576 x 4096,
+sparse BM25-like rows of 12 weights, multi-hot queries of 3 columns, dot,
+0.1% of rows dead, k 36).
+
+--sweep also times, in this tree alone: the tile and the deep bf16 product
+on the same inputs at d 128-1,536 (the deep product driven past the plan's
+choice by handing the wrapper the plan of a d = 4096 table), and the f32
+chunk shape at each minimum of tiles a split. Prints one line per case with
+the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B = 4096
+# name: (n, d, k, table type, metric, masked share, kind of rows)
+CASES = {
+    "segment-k18": (1 << 20, 128, 18, "bf16", "l2", 0.0, "clustered"),
+    "segment-k82": (1 << 20, 128, 82, "bf16", "l2", 0.0, "clustered"),
+    "chunk-pool74": (8192, 128, 74, "f32", "l2", 0.3, "clustered"),
+    "chunk-pool82": (8192, 128, 82, "f32", "l2", 0.0, "clustered"),
+    "wide-d768": (65536, 768, 10, "f32", "cos", 0.0, "clustered"),
+    "f32-1M": (1 << 20, 128, 10, "f32", "l2", 0.0, "clustered"),
+    "deep-d3072": (262144, 3072, 10, "bf16", "l2", 0.0, "clustered"),
+    "deep-d1536-k100": (1_000_000, 1536, 100, "bf16", "cos", 0.0, "clustered"),
+    "bm25-sweep": (1_049_576, 4096, 36, "bf16", "dot", 0.001, "bm25"),
+}
+
+
+def make(torch, seed, n, d, dtype, metric, masked, kind):
+    """The case's inputs on the card: rows around 1,024 random centres
+    (sigma 0.35, chip_smoke.py's generator), or BM25-like sparse rows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "bm25":
+        x = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
+        cols = torch.randint(0, d, (n, 12), generator=g, device=dev)
+        vals = (torch.rand((n, 12), generator=g, device=dev) * 3).to(torch.bfloat16)
+        x.scatter_(1, cols, vals)
+        q = torch.zeros((B, d), device=dev)
+        q.scatter_(1, torch.randint(0, d, (B, 3), generator=g, device=dev), 1.0)
+        xn = None
+    else:
+        centres = torch.randn((1024, d), generator=g, device=dev)
+        x = centres[torch.randint(0, 1024, (n,), generator=g, device=dev)]
+        x += 0.35 * torch.randn((n, d), generator=g, device=dev)
+        q = centres[torch.randint(0, 1024, (B,), generator=g, device=dev)]
+        q += 0.35 * torch.randn((B, d), generator=g, device=dev)
+        if metric == "cos":
+            x /= x.norm(dim=1, keepdim=True)
+            q /= q.norm(dim=1, keepdim=True)
+        xn = (x * x).sum(1)
+        x = x.to(dtype)
+    mask = torch.rand(n, generator=g, device=dev) >= masked if masked else None
+    return q, x, xn, mask
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def worker(root, seed, reps, sweep):
+    """Time every case with the tree at `root`; print one JSON line."""
+    sys.path.insert(0, root)
+    import torch
+
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    out = {}
+    for i, (name, (n, d, k, tt, metric, masked, kind)) in enumerate(CASES.items()):
+        dtype = torch.bfloat16 if tt == "bf16" else torch.float32
+        q, x, xn, mask = make(torch, seed + i, n, d, dtype, metric, masked, kind)
+        ms = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, metric, mask), reps)
+        out[name] = {"ms": ms, "product": getattr(st.scan_topk, "last_product", None)}
+        del q, x, xn, mask
+        torch.cuda.empty_cache()
+    if sweep:
+        out["sweep"] = sweep_products(torch, st, seed, reps)
+    print(json.dumps(out), flush=True)
+
+
+def sweep_products(torch, st, seed, reps):
+    """Tile against deep bf16 products by d, and the f32 chunk by split
+    minimum (this tree's plan and split rule, driven past their choice)."""
+    from vecgo_tpu_torch.kernels import _build
+
+    lib, dev = _build.library(), torch.device("cuda")
+    plan_of = st._plan
+    rows = {}
+    for k in (18, 82):
+        deep = plan_of(lib, dev, 1, 4096, k, 1)
+        for d in (128, 160, 192, 256, 512, 768, 1024, 1536):
+            n = 1 << 20 if d <= 256 else 1 << 19 if d <= 1024 else 1 << 18
+            q, x, xn, _ = make(torch, seed + d, n, d, torch.bfloat16, "l2", 0.0, "clustered")
+            st._plan = lambda *a, **kw: plan_of(lib, dev, 1, d, k, 0)  # unaligned: the tile plan
+            tile = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+            st._plan = lambda *a, **kw: deep
+            deep_ms = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+            st._plan = plan_of
+            rows[f"bf16 d{d} N{n} k{k}"] = {"tile_ms": tile, "deep_ms": deep_ms}
+            del q, x, xn
+            torch.cuda.empty_cache()
+    chunk = {}
+    floor = st._MIN_TILES_F32
+    for k in (10, 82):
+        q, x, xn, _ = make(torch, seed + k, 8192, 128, torch.float32, "l2", 0.0, "clustered")
+        for tiles in (4, 8, 16, 32, 64):
+            st._MIN_TILES_F32 = tiles
+            chunk[f"f32 chunk k{k} min_tiles {tiles}"] = time_ms(
+                torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+        st._MIN_TILES_F32 = floor
+    return {"products": rows, "chunk_splits": chunk}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="root of the other checkout")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.seed, args.reps, args.sweep)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_scan_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.other:
+        ap.error("--other is required")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    runs = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        root = os.path.abspath(args.other) if who == "other" else HERE
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root, "--seed",
+               str(args.seed), "--reps", str(args.reps)]
+        if args.sweep and who == "this" and not runs["this"]:
+            cmd.append("--sweep")
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the {who} tree's worker failed ({proc.returncode})")
+        runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    result = {"card": card, "cases": {}}
+    for name, (n, d, k, tt, metric, masked, kind) in CASES.items():
+        ms = {who: [r[name]["ms"] for r in runs[who]] for who in runs}
+        mean = {who: sum(v) / len(v) for who, v in ms.items()}
+        product = runs["this"][0][name]["product"]
+        result["cases"][name] = {"other_ms": mean["other"], "this_ms": mean["this"],
+                                 "runs": ms, "product": product}
+        print(f"scan_topk {name}: B={B} N={n} d={d} k={k} {tt} {metric}"
+              f"{f' mask {masked:.1%} out' if masked else ''} ({kind} rows): other tree "
+              f"{mean['other']:.3f} ms {[round(v, 3) for v in ms['other']]}, this tree "
+              f"({product} product) {mean['this']:.3f} ms {[round(v, 3) for v in ms['this']]}, "
+              f"{mean['other'] / mean['this']:.2f}x [{card}]", flush=True)
+    if args.sweep:
+        sweep = runs["this"][0]["sweep"]
+        result["sweep"] = sweep
+        for key, v in sweep["products"].items():
+            print(f"sweep {key}: tile {v['tile_ms']:.3f} ms, deep {v['deep_ms']:.3f} ms [{card}]")
+        for key, v in sweep["chunk_splits"].items():
+            print(f"sweep {key}: {v:.3f} ms [{card}]")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -200,15 +200,140 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     x = torch.from_numpy(x).to(cuda)
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, 256, "l2", None)
-    tq, _, _, _, bps, sms, _ = st._plan(_build.library(), q.device,
-                                        int(dtype == torch.bfloat16), 128, 256)
-    splits, rows_per_split = st.split_plan(64, 40_000, 256, tq, bps * sms)
+    plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 256)
+    splits, rows_per_split = st.split_plan(64, 40_000, 256, plan.tq, plan.bps * plan.sms,
+                                           plan.tn, plan.min_tiles)
     assert splits > 1 and rows_per_split >= 300
     d_k, i_k = scan_topk(*args)
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     _check_against_plain(*args, d_k, i_k, d_r, i_r)
     assert bool((i_k < 300).all())
+    assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+# ---- kernel A's deep bf16 product (TMA + wgmma) and f32 product ----
+# The deep product takes every bf16 table past the tile product's depth
+# (TMA needs rows of a multiple of 8 bf16, 16-byte aligned; other tables take
+# the tile product's element loads); the f32 product every f32 table. dot
+# and cos run on unit rows, so both stay within REL of 1.
+
+
+def _unit_rows(r, n, d):
+    x = r.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,n,d,k,dtype,metric,mask_frac,product",
+    [(130, 5000, 1536, 36, torch.bfloat16, "l2", 0.0, "deep"),
+     (130, 5000, 2048, 36, torch.bfloat16, "dot", 0.3, "deep"),
+     (70, 3000, 4096, 100, torch.bfloat16, "cos", 0.0, "deep"),
+     (300, 3000, 4096, 256, torch.bfloat16, "l2", 0.1, "deep"),
+     (200, 20000, 1536, 1000, torch.bfloat16, "l2", 0.0, "deep"),
+     (33, 4000, 2048, 1, torch.bfloat16, "cos", 0.5, "deep"),
+     (257, 9000, 4096, 36, torch.bfloat16, "dot", 0.0, "deep"),
+     # N below one 256-row tile, B not a multiple of 128.
+     (129, 50, 1536, 10, torch.bfloat16, "dot", 0.0, "deep"),
+     (129, 200, 2048, 100, torch.bfloat16, "l2", 0.2, "deep"),
+     # d not a multiple of 8: the tile product's element loads.
+     (77, 3001, 4100, 18, torch.bfloat16, "l2", 0.1, "tile"),
+     (77, 3001, 4100, 36, torch.bfloat16, "cos", 0.0, "tile"),
+     # The f32 product: resident query tiles (d 32, 100, 128), streamed
+     # ones (d 768), narrow and wide k, ragged B, N below a tile.
+     (300, 8192, 32, 10, torch.float32, "l2", 0.0, "f32"),
+     (77, 3001, 100, 82, torch.float32, "dot", 0.2, "f32"),
+     (300, 8192, 128, 82, torch.float32, "l2", 0.3, "f32"),
+     (129, 90, 128, 10, torch.float32, "cos", 0.0, "f32"),
+     (200, 20000, 128, 1000, torch.float32, "l2", 0.1, "f32"),
+     (40, 4096, 768, 10, torch.float32, "cos", 0.0, "f32"),
+     (130, 5000, 768, 256, torch.float32, "l2", 0.0, "f32"),
+     (70, 3000, 100, 300, torch.float32, "cos", 0.0, "f32")],
+)
+def test_kernel_deep_and_f32_products_match_plain_version(cuda, b, n, d, k, dtype, metric,
+                                                          mask_frac, product):
+    r = np.random.default_rng(n + k + d)
+    unit = metric != "l2"
+    q = _unit_rows(r, b, d) if unit else r.standard_normal((b, d)).astype(np.float32)
+    x = _unit_rows(r, n, d) if unit else r.standard_normal((n, d)).astype(np.float32)
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    mask = torch.from_numpy(r.random(n) >= mask_frac).to(cuda) if mask_frac else None
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, metric, mask)
+    before = scan_topk.launches
+    d_k, i_k = scan_topk(*args)
+    assert scan_topk.last_product == product
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    assert scan_topk.launches == before + 1
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+def test_kernel_deep_product_takes_unaligned_rows_by_element_loads(cuda):
+    """A bf16 table whose rows are not 16-byte aligned cannot be read by TMA:
+    the plan gives it the tile product, which matches the plain version."""
+    r = np.random.default_rng(5)
+    n, d = 3000, 2048
+    flat = torch.empty(n * d + 1, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(n, d)
+    x.copy_(torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)))
+    q = torch.from_numpy(r.standard_normal((70, d)).astype(np.float32)).to(cuda)
+    xn = (x.float() ** 2).sum(1)
+    args = (q, x, xn, 20, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    assert scan_topk.last_product == "tile"
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048), (torch.float32, 128)])
+def test_kernel_new_products_break_exact_ties_across_splits(cuda, dtype, d):
+    """As the tie test above, at the deep and f32 products' tiles: 37
+    distinct rows repeated over 40,000 (several splits of 256- or 128-row
+    tiles); both sides keep the lowest row ids of every tie."""
+    r = np.random.default_rng(d)
+    base = torch.from_numpy(r.standard_normal((37, d)).astype(np.float32)).to(cuda)
+    x = base[torch.arange(40_000, device=cuda) % 37].contiguous()
+    q = torch.from_numpy(r.standard_normal((150, d)).astype(np.float32)).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, 74, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_r)
+    best = i_k[:, :1] % 37
+    assert torch.equal(i_k, best + 37 * torch.arange(74, device=cuda, dtype=i_k.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048), (torch.float32, 128)])
+@pytest.mark.parametrize("order,n,k", [("random", 512, 256), ("nearing", 2048, 200),
+                                       ("nearing", 3000, 1000)])
+def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d, order, n, k):
+    """No mask, so every tile of a filling list enters it whole: the deep
+    product's 256-row tiles fill a 128-entry buffer every two 64-row passes,
+    the f32 product's 128-row tiles a 256-entry buffer every two tiles. With
+    rows that come nearer the queries tile by tile ("nearing"), every
+    candidate ranks before every listed entry at every merge; k = 1000 takes
+    the lists in the global scratch."""
+    r = np.random.default_rng(n + k + d)
+    q = r.standard_normal((130, d)).astype(np.float32)
+    x = r.standard_normal((n, d)).astype(np.float32)
+    if order == "nearing":
+        q *= 0.01
+        x *= (np.linspace(40, 1, n) / np.linalg.norm(x, axis=1)).astype(np.float32)[:, None]
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, "l2", None)
+    d_k, i_k = scan_topk(*args)
+    assert scan_topk.last_product == ("deep" if dtype == torch.bfloat16 else "f32")
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
     assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
 
 
@@ -286,10 +411,10 @@ def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dty
     x = torch.from_numpy(x).to(cuda)
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, 1000, "l2", None)
-    tq, _, _, _, bps, sms, wide = st._plan(_build.library(), q.device,
-                                           int(dtype == torch.bfloat16), 128, 1000)
-    splits, rows_per_split = st.split_plan(64, 200_000, 1000, tq, bps * sms)
-    assert wide and splits > 1 and rows_per_split >= 1200
+    plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 1000)
+    splits, rows_per_split = st.split_plan(64, 200_000, 1000, plan.tq, plan.bps * plan.sms,
+                                           plan.tn, plan.min_tiles)
+    assert plan.wide and splits > 1 and rows_per_split >= 1200
     d_k, i_k = scan_topk(*args)
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()

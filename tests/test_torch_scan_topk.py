@@ -221,3 +221,92 @@ def test_split_plan_fills_the_card(n, k, slots):
     if n >= 1 << 20:  # the last wave at least _WAVE_FILL full
         waves = 64 * splits / slots
         assert waves / np.ceil(waves) >= st._WAVE_FILL
+
+
+def _jax_route(q, x16, xn, k, metric, alive, block_rows):
+    """The JAX package's route for a bf16 table: `blockwise_topk_scored` with
+    the device BM25 sweep's einsum score (bf16 operands, f32 sums; dead rows
+    +inf, as `vecgo_tpu/lexical/device_bm25._scan_topk`), or |q|^2 + |x|^2
+    minus twice it for l2."""
+    qn = (q.astype(np.float64) ** 2).sum(1).astype(np.float32)
+
+    def score_fn(qq, extra, blk):
+        s = jnp.einsum("bh,nh->bn", qq.astype(jnp.bfloat16), blk["w16"],
+                       preferred_element_type=jnp.float32)
+        if metric == "dot":
+            return jnp.where(blk["alive"][None, :], -s, jnp.inf)
+        return jnp.where(blk["alive"][None, :], extra[:, None] + blk["xn"][None, :] - 2.0 * s,
+                         jnp.inf)
+
+    enc = {"w16": jnp.asarray(x16), "alive": jnp.asarray(alive), "xn": jnp.asarray(xn)}
+    return JT.blockwise_topk_scored(jnp.asarray(q), enc, x16.shape[0], k, score_fn,
+                                    extra=jnp.asarray(qn), block_rows=block_rows)
+
+
+@pytest.mark.parametrize("d", [1536, 4096])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_reference_matches_jax_route_at_deep_d(d, metric):
+    """The deep bf16 regime (d past the resident query tile: the BM25 sweep,
+    3,072-d and 1,536-d embeddings) against the JAX package's route for it.
+    dot: BM25-like data, sparse non-negative bf16 weights, multi-hot queries
+    and an alive mask, as the sweep gets them; l2: Gaussian rows. Both sides
+    sum the same exact bf16 products in f32, in another order: scores agree
+    within rtol 1e-5 and an atol of d * 2^-24 * max|q| * max|x| (the f32
+    rounding of d terms); ids agree except between scores that tie within
+    it."""
+    r = np.random.default_rng(d + len(metric))
+    b, n, k = 9, 700, 12
+    if metric == "dot":
+        x = np.where(r.random((n, d)) < 0.01, r.random((n, d)) * 4, 0).astype(np.float32)
+        q = np.zeros((b, d), np.float32)
+        for i in range(b):
+            q[i, r.choice(d, 3, replace=False)] = 1.0
+        alive = r.random(n) >= 0.2
+    else:
+        x = r.standard_normal((n, d)).astype(np.float32)
+        q = r.standard_normal((b, d)).astype(np.float32)
+        alive = np.ones(n, bool)
+    x16 = torch.from_numpy(x).bfloat16()
+    xn = (x16.float() ** 2).sum(1)
+    d_j, i_j = _jax_route(q, x16.float().numpy().astype(jnp.bfloat16), xn.numpy(), k, metric,
+                          alive, block_rows=256)
+    d_t, i_t = scan_topk_reference(torch.from_numpy(q), x16, xn, k, metric,
+                                   None if metric == "l2" else torch.from_numpy(alive))
+    d_j, i_j, d_t, i_t = map(np.asarray, (d_j, i_j, d_t, i_t))
+    atol = d * 2.0 ** -24 * float(np.abs(q).max() * np.abs(x).max())
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-5, atol=atol)
+    np.testing.assert_array_equal(i_t < 0, i_j < 0)
+    diff = i_t != i_j
+    if diff.any():  # a swap only between scores that tie within the tolerance
+        np.testing.assert_allclose(d_t[diff], d_j[diff], rtol=1e-5, atol=atol)
+    assert alive[i_t[i_t >= 0]].all()
+
+
+@pytest.mark.parametrize("product,tq,tn,min_tiles,n,k", [
+    ("deep", 128, 256, 32, 1_049_576, 36),   # the BM25 sweep
+    ("deep", 128, 256, 32, 262_144, 10),     # 3,072-d rows
+    ("deep", 128, 256, 32, 1_000_000, 100),  # dbpedia-openai-1M at a pool of 100
+    ("f32", 128, 128, 16, 1 << 20, 10),      # the one-device scan ShardedFlat splits
+    ("f32", 128, 128, 16, 8192, 82),         # a memtable chunk
+])
+def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, n, k):
+    """The deep product's 128 x 256 tiles and the f32 product's 128 x 128
+    tiles (one block an SM): 4096 queries are 32 query tiles, so the rows are
+    split; each split keeps its minimum of tiles (the f32 product's lower
+    one, st._MIN_TILES_F32), the merge stays narrow, the splits cover the rows once, and at 1M
+    rows the last wave is at least _WAVE_FILL full."""
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    assert product in st.PRODUCTS
+    assert min_tiles == (st._MIN_TILES_F32 if product == "f32" else st._MIN_TILES_PER_SPLIT)
+    slots = 132
+    splits, rows = st.split_plan(4096, n, k, tq, slots, tn, min_tiles)
+    n_tiles = -(-n // tn)
+    assert rows % tn == 0
+    assert splits == 1 or rows >= min_tiles * tn
+    assert (splits - 1) * rows < n <= splits * rows
+    assert splits * k <= st._MAX_MERGE_WIDTH
+    assert 32 * splits >= min(slots, 32 * (n_tiles // min_tiles))
+    if n >= 1 << 20:
+        waves = 32 * splits / slots
+        assert waves / np.ceil(waves) >= st._WAVE_FILL

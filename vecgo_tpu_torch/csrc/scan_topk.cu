@@ -5,63 +5,97 @@
 // corpus tiles of one query tile in grid order and kept the running top-k in
 // VMEM scratch. Here blocks run in parallel and in no order, so the corpus is
 // split across blocks: block (query tile, split) scans its row range and keeps
-// a sorted top-k per query in shared memory; a second kernel merges the
-// [B, splits, k] partial lists into the final [B, k]. Query tiles run along
-// the grid's x dimension, so the blocks resident at one time share a split's
-// rows and read them from L2.
+// a sorted top-k per query; a second kernel merges the [B, splits, k] partial
+// lists into the final [B, k]. Query tiles run along the grid's x dimension,
+// so the blocks resident at one time share a split's rows and read them from
+// L2.
 //
-// What bounds it on the H100: at B=4096, N=1M, d=128 the scan is about
-// 1.1 TFLOP per batch while the table is 256 MB (bf16), so its bound is
-// arithmetic (1.11 ms on the tensor cores). Two products, one per table
-// type, over 64-query x 64-row tiles:
+// Three products, chosen by `vecgo_scan_topk_plan` from the table type, d, k
+// and the table's alignment (no option picks one):
 //
-// * bf16 tables: the product runs on the tensor cores with mma.sync
-//   m16n8k16 (bf16 x bf16 -> fp32; bf16 products are exact in fp32). A
-//   wgmma m64n32k16 product in this same tile loop measured slower: the
-//   loop is bound by latency, and wgmma pays only once a producer/consumer
-//   split overlaps selection with the product (PERF.md). The query tile is
-//   rounded to bf16 once and stays in shared memory for the whole scan when
-//   it fits (else its depth chunks ride beside the corpus). Corpus chunks of
-//   64 rows x 64 depth are double-buffered: the next chunk's 16-byte loads
-//   go to registers before a chunk's product and to shared memory after it.
-// * f32 tables: the port's precision contract is IEEE fp32 (no TF32), so the
-//   product stays on the FMA units: 4x4 register micro-tiles over k-chunks of
-//   32 staged in shared memory.
+// * The tile product (bf16 tables of d <= 128, and any bf16 table TMA cannot
+//   address: d not a multiple of 8, or a row pointer not 16-byte aligned).
+//   At B = 4096, N = 1M, d = 128 the scan is 1.1 TFLOP against a 256 MB
+//   table, so the tensor cores bound it (1.11 ms). 64 queries x 64 rows a
+//   tile, mma.sync m16n8k16 (bf16 x bf16 -> fp32; bf16 products are exact in
+//   fp32), the query tile rounded to bf16 once and resident while it fits
+//   (else its depth chunks ride beside the corpus), corpus chunks of 64 rows
+//   x 64 depth double-buffered through registers. With two depth chunks a
+//   tile, the tile's score pass and barriers cost more than its product, so
+//   the loop is bound by latency; the deep product measured slower at
+//   d = 128 and faster from d = 160 (PERF.md).
+// * The deep product (every other bf16 table: the device BM25 sweep at
+//   d = 4096, 3,072-d and 1,536-d embeddings). There a tile is 24-64 depth
+//   chunks and the product is the work: B 4096 x N 1M x d 4096 is 35 TFLOP,
+//   35.6 ms on the tensor cores, against 8.6 GB of table (2.6 ms). What
+//   bounds a block is feeding the tensor cores from L2: every query tile
+//   re-reads the whole table, so the tile is large (128 queries x 256 rows:
+//   87 flop per staged byte), and the operands come in by TMA. The queries
+//   are rounded to bf16 once per call into a scratch (a first pass, which
+//   also takes |q|^2), so the main loop never touches f32 queries. One
+//   producer thread streams 128 x 64 query and 256 x 64 corpus chunks
+//   (128-byte swizzled, the layout wgmma reads) through a ring of 3-4 stages
+//   onto mbarriers; two consumer warpgroups each run wgmma m64n256k16 for 64
+//   queries, with the 128 accumulators a thread holds in registers across
+//   all d / 16 steps, and release a stage as soon as its products retire.
+//   Selection runs once a tile on the accumulator fragments, in four passes
+//   of 64 rows so that a pass never overflows a 128-entry candidate buffer,
+//   and each warp merges the 16 queries whose rows it holds, so selection
+//   needs no block barrier. Measured, it runs near a third of the bound;
+//   sharing each corpus chunk between two blocks of a cluster (TMA
+//   multicast, half the bytes from L2) measured slower (PERF.md).
+// * The f32 product (every f32 table: the memtable chunks, ShardedFlat,
+//   streamed decodes). The port's precision contract is IEEE fp32 (no TF32),
+//   so the product runs on the FMA units: B 4096 x N 1M x d 128 is 1.1 TFLOP,
+//   16.4 ms at 67 TFLOP/s, against a 512 MB table. A naive loop is bound by
+//   shared-memory issue and query reloads, not by the FMA units. Here the
+//   128-query tile stays resident in shared memory for the whole scan where
+//   it fits (d up to ~170 at small k; past that its depth chunks ride the
+//   ring beside the corpus, each loaded once a tile), corpus chunks of 128
+//   rows x 32 depth stream through a three-stage cp.async ring (the next two
+//   chunks land during the current product), and each thread keeps an 8 x 8
+//   register micro-tile fed by 16-byte shared loads (16 loads per 256 FMAs,
+//   each a broadcast across the warp). That is one shared-memory wavefront
+//   per four FMAs, which on this card (128 fp32 lanes and 128 B/clk of
+//   shared memory an SM) holds the loop near half the FMA peak. Each warp
+//   holds all 128 rows of its 16 queries and selects in two passes of 64
+//   rows, so selection needs no block barrier either.
 //
-// Selection is the same for both, and no thread inserts serially. Scores are
-// formed in registers from the accumulators (a row term carries |x|^2, the
-// mask and the padding as +inf), each thread tests them against its query's
-// current k-th score (a threshold in shared memory, refreshed at every merge)
-// and survivors go to the query's candidate buffer through one shared atomic
-// per (thread, query). A buffer is merged only when the next tile could
-// overflow it (and at the end), so a merge takes many candidates at once:
-// one warp sorts them with a bitonic network in registers, then every
-// candidate and every list entry finds its new position by a binary search,
-// and all lanes write at once. While a list fills (threshold +inf) whole
-// tiles are candidates; merging them in bulk is what keeps that phase cheap.
-// The buffers (64 KB a block) live in a global scratch, so shared memory
-// holds only the lists and the tiles, and two blocks share an SM at the
-// engine's pools. Measured, the tile loop is bound by latency, not by the
-// tensor cores: each tile's score pass and barriers cost more than its
-// product (PERF.md).
+// Selection is the same for all three, and no thread inserts serially. Scores
+// are formed in registers from the accumulators (a row term carries |x|^2,
+// the mask and the padding as +inf), each thread tests them against its
+// query's current k-th score (a threshold in shared memory, refreshed at
+// every merge) and survivors go to the query's candidate buffer through one
+// shared atomic per (thread, query). A buffer is merged only when the next
+// tile (or pass) could overflow it (and at the end), so a merge takes many
+// candidates at once: one warp sorts them with a bitonic network in
+// registers (every stage straight-line, in the fewest registers that hold
+// them), then every candidate and every list entry finds its new position by
+// a binary search with unconditional loads, and all lanes write at once.
+// While a list fills (threshold +inf) whole tiles are candidates; merging
+// them in bulk is what keeps that phase cheap. The buffers live in a global
+// scratch, so shared memory holds only the lists and the tiles.
 //
-// Two shapes of the lists, chosen by k. Up to KS = 256 a block's 64 lists
-// (512 k bytes) stay in shared memory and a merge moves every list entry in
-// registers (the narrow shape above). Past it, for any k <= N (a pool of
-// 1,000 for a coarse quantizer, k = N for an exhaustive answer), the lists
+// Two shapes of the lists. Up to KS = 256, where they fit beside the tiles, a
+// block's lists (8 k bytes a query) stay in shared memory and a merge moves
+// every list entry in registers (the narrow shape above). Past it, for any
+// k <= N (a pool of 1,000 for a coarse quantizer, k = N for an exhaustive
+// answer), and wherever the narrow lists would crowd out the tiles, the lists
 // live in a global scratch of the block's own and shared memory holds only
 // the thresholds, the counts and the list lengths: the same tiles, product,
 // scores and candidate buffers, but a merge ranks each candidate by a binary
 // search of ceil(log2(k + 1)) steps and moves only the entries at or above
 // the first candidate's rank, from the top down, 128 at a time (each chunk is
 // read whole before it is written, and an entry only moves up, so no write
-// lands on an entry not yet read). The split merge searches the same way.
+// lands on an entry not yet read). The split merge searches the same way
+// past KS.
 
 // Scores are smaller-is-better: l2 = |q|^2 + |x|^2 - 2 q.x, dot = -q.x,
 // cos = 1 - q.x over normalized storage. Ties order by the lower row id, as
 // `lax.top_k` does. Masked, padded and non-finite rows never enter a list;
 // empty slots come back as (+inf, -1).
 
+#include <cuda.h>  // CUtensorMap; its encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,37 +103,65 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int TQ = 64;        // queries per block
-constexpr int TN = 64;        // corpus rows per tile
-constexpr int QPW = TQ / 8;   // queries each warp merges
-// bf16 product: two stages of TN rows x TD depth.
+constexpr int THREADS = 256;  // 8 warps (tile and f32 products)
+constexpr int TQ = 64;        // queries per block (tile product)
+constexpr int TN = 64;        // corpus rows per tile (tile product)
+// Tile product: two stages of TN rows x TD depth.
 constexpr int TD = 64;
 constexpr int LDT = TD + 8;  // padded chunk row (bf16): conflict-free ldmatrix
-// f32 product: k-chunks of FD, transposed with a padded row.
-constexpr int FD = 32;
-constexpr int FLD = TN + 1;
-constexpr int CAP = 128;  // candidates a buffer holds (a merge when > CAP - TN)
-constexpr int KS = 256;   // the widest k whose lists stay in shared memory
-constexpr int WU = 4;     // list entries a lane moves at once in a wide merge
+constexpr int CAP = 128;     // candidates a query's buffer holds
+constexpr int KS = 256;      // the widest k whose lists may stay in shared memory
+constexpr int WU = 4;        // list entries a lane moves at once in a wide merge
 constexpr unsigned FULL = 0xffffffffu;
 
+// Deep product: 128 queries (two consumer warpgroups of 64) x 256 rows a
+// tile, 64-deep stages.
+constexpr int DQ = 128;
+constexpr int DN = 256;
+constexpr int DK = 64;                     // 128 bytes of bf16: one swizzled row
+constexpr int DTHREADS = 288;              // two consumer warpgroups + a producer warp
+constexpr int DA_BYTES = DQ * DK * 2;      // 16 KB of queries a stage
+constexpr int DSTAGE = DA_BYTES + DN * DK * 2;  // + 32 KB of corpus
+constexpr int DPASS = 64;                  // tile rows one selection pass scores
+constexpr int DMAX_STAGES = 4;
+constexpr int DMIN_STAGES = 3;
+// bf16 tables up to this depth take the tile product (measured faster there;
+// the deep product from d = 160 up, PERF.md).
+constexpr int TILE_MAX_D = 128;
+
+// f32 product: 128 queries x 128 rows a tile, 32-deep stages.
+constexpr int FQ = 128;
+constexpr int FN = 128;
+constexpr int FK = 32;
+constexpr int FLD = FK + 4;  // padded stage row (floats): conflict-free 16-byte reads
+constexpr int FSTAGES = 3;
+
 enum Metric { kL2 = 0, kDot = 1, kCos = 2 };
+enum Product { kTile = 0, kDeep = 1, kF32 = 2 };
+// The plan's fields (vecgo_scan_topk_plan's out array).
+enum PlanField {
+  P_PRODUCT, P_TQ, P_TN, P_CAP, P_RESIDENT, P_STAGES, P_SMEM, P_BPS, P_WIDE, P_FIELDS
+};
+// A tensor map that could not be encoded (or no encoder to call).
+constexpr int kEncodeFailed = 10001;
 
 // (da, ia) ranks before (db, ib). An empty slot holds id -1, which as an
 // unsigned value is larger than any row id, so it ranks last among equals.
+// Bitwise, so a loop of them compiles to straight-line compares.
 __device__ __forceinline__ bool better(float da, int ia, float db, int ib) {
-  return da < db || (da == db && (unsigned)ia < (unsigned)ib);
+  return (da < db) | ((da == db) & ((unsigned)ia < (unsigned)ib));
 }
 
-// Entries of sorted (d, i)[0, n) that rank before (dv, iv), n <= 256: a
-// fixed nine-step binary search (it can return n itself), so independent
-// searches interleave.
+// Entries of sorted (d, i)[0, n) that rank before (dv, iv), 1 <= n <= 256: a
+// fixed nine-step binary search (it can return n itself) with unconditional
+// loads, so independent searches interleave.
 __device__ __forceinline__ int rank_in(const float* d, const int* i, int n, float dv, int iv) {
   int pos = 0;
 #pragma unroll
-  for (int s = 256; s > 0; s >>= 1)
-    if (pos + s <= n && better(d[pos + s - 1], i[pos + s - 1], dv, iv)) pos += s;
+  for (int s = 256; s > 0; s >>= 1) {
+    const int t = min(pos + s, n) - 1;
+    pos += (pos + s <= n) & better(d[t], i[t], dv, iv) ? s : 0;
+  }
   return pos;
 }
 
@@ -107,90 +169,96 @@ __device__ __forceinline__ int rank_in(const float* d, const int* i, int n, floa
 __device__ __forceinline__ int rank_in_any(const float* d, const int* i, int n, float dv,
                                            int iv) {
   int pos = 0;
-  for (int s = n > 0 ? 1 << (31 - __clz(n)) : 0; s > 0; s >>= 1)
-    if (pos + s <= n && better(d[pos + s - 1], i[pos + s - 1], dv, iv)) pos += s;
+  for (int s = n > 0 ? 1 << (31 - __clz(n)) : 0; s > 0; s >>= 1) {
+    const int t = min(pos + s, n) - 1;
+    pos += (pos + s <= n) & better(d[t], i[t], dv, iv) ? s : 0;
+  }
   return pos;
 }
 
-// Entries of non-decreasing r[0, n) that are <= v, n <= 128 (CAP): a fixed
-// eight-step binary search (it can return n itself).
+// Entries of non-decreasing r[0, n) that are <= v, 1 <= n <= CAP: a fixed
+// eight-step binary search with unconditional loads (it can return n).
 __device__ __forceinline__ int count_le(const int* r, int n, int v) {
   int pos = 0;
 #pragma unroll
-  for (int s = 128; s > 0; s >>= 1)
-    if (pos + s <= n && r[pos + s - 1] <= v) pos += s;
+  for (int s = CAP; s > 0; s >>= 1) {
+    const int t = min(pos + s, n) - 1;
+    pos += (pos + s <= n) & (r[t] <= v) ? s : 0;
+  }
   return pos;
 }
 
-// Compare-exchange of two elements one lane holds (registers a < b).
-__device__ __forceinline__ void cx_regs(float (&kd)[CAP / 32], int (&ki)[CAP / 32],
-                                        int a, int b, bool up) {
-  const bool swap = up ? better(kd[b], ki[b], kd[a], ki[a]) : better(kd[a], ki[a], kd[b], ki[b]);
-  if (swap) {
-    const float td = kd[a];
-    const int ti = ki[a];
-    kd[a] = kd[b]; ki[a] = ki[b];
-    kd[b] = td; ki[b] = ti;
-  }
+// Compare-exchange of registers a < b of one lane, by selects: after it, a
+// holds the better of the two when up, the worse otherwise.
+template <int NR>
+__device__ __forceinline__ void cx_regs(float (&kd)[NR], int (&ki)[NR], int a, int b, bool up) {
+  const bool swap = up == better(kd[b], ki[b], kd[a], ki[a]);
+  const float da = kd[a], db = kd[b];
+  const int ia = ki[a], ib = ki[b];
+  kd[a] = swap ? db : da;
+  ki[a] = swap ? ib : ia;
+  kd[b] = swap ? da : db;
+  ki[b] = swap ? ia : ib;
 }
 
-// Bitonic sort, ascending, of nr * 32 elements held as element r * 32 + lane
-// in register r of each lane (nr = 1, 2 or 4). Strides below 32 exchange with
-// a shuffle, the others inside a lane.
-__device__ __forceinline__ void warp_sort(float (&kd)[CAP / 32], int (&ki)[CAP / 32],
-                                          int nr, int lane) {
-  const int n = nr * 32;
-  for (int size = 2; size <= n; size <<= 1)
+// Bitonic sort, ascending, of NA * 32 elements held as element r * 32 + lane
+// in register r < NA of each lane. Strides below 32 exchange with a shuffle,
+// the others inside a lane. Every register of a stage is handled in one
+// straight-line block (no per-register branch), so a stage costs about one
+// shuffle's latency.
+template <int NA, int NR>
+__device__ __forceinline__ void warp_sort(float (&kd)[NR], int (&ki)[NR], int lane) {
+  for (int size = 2; size <= NA * 32; size <<= 1)
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= 32) {
+      if (stride == 32) {
         // e and e + stride share their direction bit (size > stride).
-        const bool up0 = ((0 * 32 + lane) & size) == 0, up1 = ((1 * 32 + lane) & size) == 0;
-        if (stride == 64) {
-          cx_regs(kd, ki, 0, 2, up0);
-          cx_regs(kd, ki, 1, 3, up1);
-        } else {
-          const bool up2 = ((2 * 32 + lane) & size) == 0;
-          cx_regs(kd, ki, 0, 1, up0);
-          if (nr > 2) cx_regs(kd, ki, 2, 3, up2);
-        }
+#pragma unroll
+        for (int r = 0; r + 1 < NA; r += 2)
+          cx_regs(kd, ki, r, (r + 1) % NR, ((r * 32 + lane) & size) == 0);
+      } else if (stride == 64) {
+#pragma unroll
+        for (int r = 0; r + 2 < NA; r += (r & 1) ? 3 : 1)
+          cx_regs(kd, ki, r, (r + 2) % NR, ((r * 32 + lane) & size) == 0);
       } else {
         const bool lower = (lane & stride) == 0;
 #pragma unroll
-        for (int r = 0; r < CAP / 32; ++r)
-          if (r < nr) {
-            const float od = __shfl_xor_sync(FULL, kd[r], stride);
-            const int oi = __shfl_xor_sync(FULL, ki[r], stride);
-            const bool up = ((r * 32 + lane) & size) == 0;
-            const bool take = lower == up ? better(od, oi, kd[r], ki[r])
-                                          : better(kd[r], ki[r], od, oi);
-            if (take) { kd[r] = od; ki[r] = oi; }
-          }
+        for (int r = 0; r < NA; ++r) {
+          const float od = __shfl_xor_sync(FULL, kd[r], stride);
+          const int oi = __shfl_xor_sync(FULL, ki[r], stride);
+          const bool up = ((r * 32 + lane) & size) == 0;
+          const bool take = lower == up ? better(od, oi, kd[r], ki[r])
+                                        : better(kd[r], ki[r], od, oi);
+          kd[r] = take ? od : kd[r];
+          ki[r] = take ? oi : ki[r];
+        }
       }
     }
 }
 
-// Per-query selection state: thresholds and counts in shared memory; the
-// lists there too (narrow) or in a global scratch of the block's own (WIDE);
-// the candidate buffers in a global scratch of the block's own (writes are
-// fire-and-forget, and a merge reads each candidate once).
-template <bool WIDE>
+// Per-query selection state of NQ queries with CAP-entry candidate buffers:
+// thresholds and counts in shared memory; the lists there too (narrow) or in
+// a global scratch of their own (WIDE); the candidate buffers in a global
+// scratch of their own (writes are fire-and-forget, and a merge reads each
+// candidate once).
+template <bool WIDE, int NQ>
 struct Lists {
-  float* thr;     // [TQ] current k-th score (+inf while the list fills)
-  int* cnt;       // [TQ] candidates buffered
-  float* lst_d;   // [TQ][k] sorted lists
+  static constexpr int NR = CAP / 32;  // registers a lane sorts with
+  float* thr;     // [NQ] current k-th score (+inf while the list fills)
+  int* cnt;       // [NQ] candidates buffered
+  float* lst_d;   // [NQ][k] sorted lists
   int* lst_i;
-  int* lrank;     // [8][CAP] per warp: each sorted candidate's rank in the list
-  int* nlist;     // [TQ] WIDE: entries listed (the rest of the list is empty)
-  float* cand_d;  // [TQ][CAP] candidate buffers (global)
+  int* nlist;     // [NQ] WIDE: entries listed (the rest of the list is empty)
+  int* lrank;     // [merging warps][CAP]: each sorted candidate's rank in the list
+  float* cand_d;  // [NQ][CAP] candidate buffers (global)
   int* cand_i;
   int k;
 
-  __device__ void init(int tid) {
-    for (int e = tid; e < TQ * k; e += THREADS) {
+  __device__ void init(int tid, int nthr) {
+    for (int e = tid; e < NQ * k; e += nthr) {
       lst_d[e] = INFINITY;
       lst_i[e] = -1;
     }
-    for (int m = tid; m < TQ; m += THREADS) {
+    for (int m = tid; m < NQ; m += nthr) {
       thr[m] = INFINITY;
       cnt[m] = 0;
       if (WIDE) nlist[m] = 0;
@@ -198,66 +266,67 @@ struct Lists {
   }
 
   // Buffer one (thread, query)'s scores whose bits are set; one shared
-  // atomic reserves the slots. Rows of a tile are all above the rows already
-  // listed, so a score equal to the threshold never ranks before it: the
-  // strict test is exact.
-  template <int NS>
+  // atomic reserves the slots. Rows of a tile (or pass) are all above the
+  // rows already listed, so a score equal to the threshold never ranks
+  // before it: the strict test is exact. row_of(j) is score j's row.
+  template <int NS, class RowOf>
   __device__ __forceinline__ void push(int m, unsigned bits, const float (&s)[NS],
-                                       const int (&row)[NS]) {
+                                       RowOf row_of) {
     if (!bits) return;
     int pos = atomicAdd(&cnt[m], __popc(bits));
 #pragma unroll
     for (int j = 0; j < NS; ++j)
       if (bits >> j & 1u) {
         cand_d[m * CAP + pos] = s[j];
-        cand_i[m * CAP + pos] = row[j];
+        cand_i[m * CAP + pos] = row_of(j);
         ++pos;
       }
   }
 
   // One warp merges query m's c buffered candidates into its sorted list: a
-  // register bitonic sort of the buffer (padded with empty slots), then
-  // every element's new position, its own index plus the entries of the
-  // other list before it (ids are distinct, so positions are too): a
-  // candidate's by a binary search of the list; a list entry j's is the
-  // number of candidates whose list rank is at most j, a binary search of
-  // those (non-decreasing) ranks. One write each.
-  __device__ void merge_one(int m, int warp, int lane) {
+  // register bitonic sort of the buffer (padded with empty slots, in the
+  // fewest registers that hold it), then every element's new position, its
+  // own index plus the entries of the other list before it (ids are
+  // distinct, so positions are too): a candidate's by a binary search of
+  // the list; a list entry j's is the number of candidates whose list rank
+  // is at most j, a binary search of those (non-decreasing) ranks. One write
+  // each. `slot` is the warp's row of lrank.
+  __device__ void merge_one(int m, int slot, int lane) {
     const int c = cnt[m];
+    const int listed = WIDE ? nlist[m] : k;
     float* ld = lst_d + (size_t)m * k;
     int* li = lst_i + (size_t)m * k;
     const float* cd = cand_d + m * CAP;
     const int* ci = cand_i + m * CAP;
-    int* lr = lrank + warp * CAP;
-    // Sort the fewest registers that hold c: 1, 2 or 4 per lane.
-    const int nr = c <= 32 ? 1 : c <= 64 ? 2 : 4;
-    float kd[CAP / 32];
-    int ki[CAP / 32];
+    int* lr = lrank + slot * CAP;
+    float kd[NR];
+    int ki[NR];
 #pragma unroll
-    for (int r = 0; r < CAP / 32; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const int e = r * 32 + lane;
-      kd[r] = INFINITY;
-      ki[r] = -1;
-      if (r < nr && e < c) { kd[r] = cd[e]; ki[r] = ci[e]; }
+      kd[r] = e < c ? cd[e] : INFINITY;
+      ki[r] = e < c ? ci[e] : -1;
     }
-    warp_sort(kd, ki, nr, lane);
-    int vp[CAP / 32];
+    if (c <= 32) warp_sort<1>(kd, ki, lane);
+    else if (c <= 64) warp_sort<2>(kd, ki, lane);
+    else warp_sort<NR>(kd, ki, lane);
+    int vp[NR];
 #pragma unroll
-    for (int r = 0; r < CAP / 32; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const int e = r * 32 + lane;
       vp[r] = k;
-      if (r < nr && e < c) {
-        const int rank = WIDE ? rank_in_any(ld, li, nlist[m], kd[r], ki[r])
+      if (r * 32 < c) {  // the same for the whole warp
+        const int rank = WIDE ? rank_in_any(ld, li, listed, kd[r], ki[r])
                               : rank_in(ld, li, k, kd[r], ki[r]);
-        lr[e] = rank;
-        vp[r] = e + rank;
+        if (e < c) lr[e] = rank;
+        vp[r] = e < c ? e + rank : k;
       }
     }
     __syncwarp();
     if (WIDE) {
       // Entries [lr[0], listed) move up; the chunk [top - 32 WU, top) is
       // read whole before any of it is written.
-      const int lo = lr[0], listed = nlist[m];
+      const int lo = lr[0];
       for (int top = listed; top > lo; top -= 32 * WU) {
         float v[WU];
         int vi[WU], p[WU];
@@ -300,7 +369,7 @@ struct Lists {
     // Every position below min(k, listed + c) is written exactly once;
     // positions past that were empty and stay so.
 #pragma unroll
-    for (int r = 0; r < CAP / 32; ++r)
+    for (int r = 0; r < NR; ++r)
       if (vp[r] < k) { ld[vp[r]] = kd[r]; li[vp[r]] = ki[r]; }
     __syncwarp();
     if (lane == 0) {
@@ -310,22 +379,27 @@ struct Lists {
     }
   }
 
-  // After a tile (all pushes done): warp w merges those of its queries whose
-  // buffer the next tile could overflow, or every non-empty one at the end.
-  __device__ void merge_tile(bool flush, int warp, int lane) {
-    const int m0 = warp * QPW;
-    const int limit = flush ? 0 : CAP - TN;
-    unsigned todo = __ballot_sync(FULL, lane < QPW && cnt[m0 + lane] > limit);
+  // One warp merges those of queries [m0, m0 + nq) (nq <= 32) whose buffer
+  // holds more than `limit` candidates.
+  __device__ void merge_range(int m0, int nq, int limit, int slot, int lane) {
+    unsigned todo = __ballot_sync(FULL, lane < nq && cnt[m0 + lane] > limit);
     while (todo) {
       const int j = __ffs(todo) - 1;
       todo &= todo - 1;
-      merge_one(m0 + j, warp, lane);
+      merge_one(m0 + j, slot, lane);
     }
   }
 
-  __device__ void write_out(int q0, int B, int split, int splits, int tid, float* part_d,
-                            int* part_i) {
-    for (int e = tid; e < TQ * k; e += THREADS) {
+  // After a tile of tn rows (all pushes done, a block barrier between): warp
+  // w of 8 merges those of its NQ / 8 queries whose buffer the next tile
+  // could overflow, or every non-empty one at the end.
+  __device__ void merge_tile(bool flush, int warp, int lane, int tn) {
+    merge_range(warp * (NQ / 8), NQ / 8, flush ? 0 : CAP - tn, warp, lane);
+  }
+
+  __device__ void write_out(int q0, int B, int split, int splits, int tid, int nthr,
+                            float* part_d, int* part_i) {
+    for (int e = tid; e < NQ * k; e += nthr) {
       const int m = e / k, j = e % k, qi = q0 + m;
       if (qi < B) {
         const size_t o = ((size_t)qi * splits + split) * k + j;
@@ -336,37 +410,40 @@ struct Lists {
   }
 };
 
-// Shared memory of a block's selection state: the lists themselves only up
-// to KS.
-__host__ __device__ constexpr size_t lists_bytes(int k) {
-  return (k > KS ? (size_t)TQ * 4 : (size_t)TQ * k * 8) + (size_t)TQ * 8 +
-         (size_t)8 * CAP * 4;
+// Shared memory of nq queries' selection state with nw merging warps: the
+// lists themselves only when narrow.
+__host__ __device__ constexpr size_t lists_bytes(int nq, int nw, int k, bool wide) {
+  return (wide ? 0 : (size_t)nq * k * 8) + (size_t)nq * 12 + (size_t)nw * CAP * 4;
 }
 
-// The block's state: thresholds, counts and per-warp ranks in shared memory
-// at p (the lists there too, or at the block's slice of the global list
-// scratch when WIDE); its candidate buffers at its slice of that scratch.
-template <bool WIDE>
-__device__ __forceinline__ Lists<WIDE> carve_lists(char* p, int k, float* cand_d, int* cand_i,
-                                                   float* glist_d, int* glist_i) {
-  Lists<WIDE> L;
+// The selection state at p: lists (narrow), thresholds, counts, list
+// lengths and NW merging warps' ranks in shared memory; the candidate
+// buffers (and WIDE lists) at `slot`'s part of the global scratch.
+template <bool WIDE, int NQ>
+__device__ __forceinline__ Lists<WIDE, NQ> carve_lists(char* p, int k, size_t slot,
+                                                       float* cand_d, int* cand_i,
+                                                       float* glist_d, int* glist_i) {
+  Lists<WIDE, NQ> L;
   L.k = k;
-  const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   if (WIDE) {
-    L.lst_d = glist_d + block * TQ * k;
-    L.lst_i = glist_i + block * TQ * k;
+    L.lst_d = glist_d + slot * NQ * k;
+    L.lst_i = glist_i + slot * NQ * k;
     L.thr = reinterpret_cast<float*>(p);
   } else {
     L.lst_d = reinterpret_cast<float*>(p);
-    L.lst_i = reinterpret_cast<int*>(L.lst_d + TQ * k);
-    L.thr = reinterpret_cast<float*>(L.lst_i + TQ * k);
+    L.lst_i = reinterpret_cast<int*>(L.lst_d + NQ * k);
+    L.thr = reinterpret_cast<float*>(L.lst_i + NQ * k);
   }
-  L.cnt = reinterpret_cast<int*>(L.thr + TQ);
-  L.lrank = L.cnt + TQ;
-  L.nlist = L.lrank + 8 * CAP;
-  L.cand_d = cand_d + block * TQ * CAP;
-  L.cand_i = cand_i + block * TQ * CAP;
+  L.cnt = reinterpret_cast<int*>(L.thr + NQ);
+  L.nlist = L.cnt + NQ;
+  L.lrank = L.nlist + NQ;
+  L.cand_d = cand_d + slot * NQ * CAP;
+  L.cand_i = cand_i + slot * NQ * CAP;
   return L;
+}
+
+__device__ __forceinline__ size_t block_slot() {
+  return (size_t)blockIdx.y * gridDim.x + blockIdx.x;
 }
 
 // The additive term of each of a thread's NS tile rows: |x|^2 for l2, 1 for
@@ -413,7 +490,7 @@ __device__ __forceinline__ void score_and_push(L_t& L, int m, bool live, float q
     if (isfinite(s[j]) && s[j] < th) bits |= 1u << j;
   }
   if (!live) bits = 0;
-  L.push(m, bits, s, row);
+  L.push(m, bits, s, [&](int j) { return row[j]; });
 }
 
 __device__ __forceinline__ float query_norm(const float* __restrict__ q, int qi, int B, int d) {
@@ -426,11 +503,101 @@ __device__ __forceinline__ float query_norm(const float* __restrict__ q, int qi,
   return s;
 }
 
-// ---------------------------------------------------------------- bf16
+// |q|^2 of every query (f32, from the f32 rows) and, when qb is set, the
+// rows rounded to bf16 once, zero-padded to dp columns: one warp a query.
+__global__ void prep_queries_kernel(const float* __restrict__ q, int B, int d, int dp,
+                                    __nv_bfloat16* __restrict__ qb, float* __restrict__ qn) {
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (w >= B) return;
+  const float* row = q + (size_t)w * d;
+  float s = 0.f;
+  for (int c = lane; c < dp; c += 32) {
+    const float v = c < d ? row[c] : 0.f;
+    s = fmaf(v, v, s);
+    if (qb != nullptr) qb[(size_t)w * dp + c] = __float2bfloat16(v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if (lane == 0) qn[w] = s;
+}
+
+// ---------------------------------------------------------------- async copies
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase with this parity has completed. A wait past
+// 2^34 cycles (seconds: no copy takes that long) traps, so a broken ring
+// fails the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One TMA tile copy global -> shared of the box at (column c0, row c1),
+// completing on the barrier; out-of-range elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Copy 4 floats src[0, n) to 16-byte aligned shared dst, zeros past n: one
+// cp.async (vec: src 16-byte aligned, n 0 or 4) or element loads.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int n, bool vec) {
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n * 4) : "memory");
+  } else {
+    float4 v;
+    v.x = n > 0 ? src[0] : 0.f;
+    v.y = n > 1 ? src[1] : 0.f;
+    v.z = n > 2 ? src[2] : 0.f;
+    v.w = n > 3 ? src[3] : 0.f;
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- tile product (bf16)
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
                                             uint32_t& r3, uint32_t addr) {
@@ -455,17 +622,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
 
 __host__ __device__ constexpr int pad_depth(int d) { return (d + 15) & ~15; }
 
-__host__ __device__ constexpr size_t bf16_smem(int resident, int d, int k) {
+__host__ __device__ constexpr size_t tile_smem(int resident, int d, int k) {
   return (size_t)2 * (TN + (resident ? 0 : TQ)) * LDT * 2 +
          (resident ? (size_t)TQ * (pad_depth(d) + 8) * 2 : 0) + (size_t)(TQ + 2 * TN) * 4 +
-         lists_bytes(k);
+         lists_bytes(TQ, 8, k, k > KS);
 }
 
 // Warps: 4 along the queries (16 each) x 2 along the rows (32 each, four
 // n8-tiles), so each thread holds 2 queries x 8 rows of every tile.
 template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ x,
+scan_tile_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ x,
                  const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask,
                  int B, int N, int d, int k, int metric, int rows_per_split, int resident,
                  float* cand_d, int* cand_i, float* glist_d, int* glist_i,
@@ -478,8 +645,8 @@ scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
   __nv_bfloat16* qs = ring + (size_t)2 * stage_rows * LDT;  // resident query
   float* qn = reinterpret_cast<float*>(qs + (resident ? (size_t)TQ * QS : 0));
   float* terms = qn + TQ;  // [2][TN] row terms of the current and next tile
-  auto L = carve_lists<WIDE>(reinterpret_cast<char*>(terms + 2 * TN), k, cand_d, cand_i,
-                            glist_d, glist_i);
+  auto L = carve_lists<WIDE, TQ>(reinterpret_cast<char*>(terms + 2 * TN), k,
+                                         block_slot(), cand_d, cand_i, glist_d, glist_i);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = warp % WQ, wn = warp / WQ;
@@ -492,7 +659,7 @@ scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
   const int units = (r_end - r_begin + TN - 1) / TN * n_chunks;
   const bool vec_ok = (d % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
 
-  L.init(tid);
+  L.init(tid, THREADS);
   if (tid < TQ) qn[tid] = query_norm(q, q0 + tid, B, d);
   if (resident)
     for (int e = tid; e < TQ * DP; e += THREADS) {
@@ -625,104 +792,432 @@ scan_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
       score_and_push(L, m, q0 + m < B, qn[m], metric, p, xa, row);
     }
     __syncthreads();
-    L.merge_tile(false, warp, lane);
+    L.merge_tile(false, warp, lane, TN);
     // The next unit's __syncthreads orders these merges before the next
     // tile's threshold reads and buffer writes.
   }
   __syncthreads();
-  L.merge_tile(true, warp, lane);
+  L.merge_tile(true, warp, lane, TN);
   __syncthreads();
-  L.write_out(q0, B, split, gridDim.y, tid, part_d, part_i);
+  L.write_out(q0, B, split, gridDim.y, tid, THREADS, part_d, part_i);
 }
 
-// ---------------------------------------------------------------- f32
+// ---------------------------------------------------------------- deep product (bf16)
 
-__host__ __device__ constexpr size_t f32_smem(int k) {
-  return (size_t)(2 * FD * FLD + TQ) * 4 + lists_bytes(k);
+// A wgmma operand of rows x 64 bf16 in shared memory as TMA's 128-byte
+// swizzle lays it (1024-byte aligned groups of 8 rows): K-major, the
+// leading offset unused, 1024 bytes between 8-row groups, swizzle 128B.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
-// 16 x 16 threads, each a 4 x 4 micro-tile: queries ty + 16 i, rows tx + 16 j.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d[64 x 256] (+)= A[64 x 16] . B[256 x 16]^T, both K-major bf16 in shared
+// memory; scale_d 0 overwrites d. Thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1):
+// d[4 j + 2 h + e] is (row + 8 h, column 8 j + 2 (t % 4) + e).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// Shared memory of the deep product: the ring, its barriers, the row terms
+// and two warpgroups' selection state, plus 1 KB to align the ring to the
+// swizzle's 1024 bytes.
+__host__ __device__ constexpr size_t deep_smem(int stages, int k, bool wide) {
+  return 1024 + (size_t)stages * DSTAGE + (size_t)stages * 16 + (size_t)2 * 2 * DN * 4 +
+         2 * lists_bytes(64, 4, k, wide);
+}
+
+// Warp 8 produces: its lane 0 issues every unit's two TMA copies (the
+// 128 x 64 query chunk and the 256 x 64 corpus chunk of unit u = tile *
+// n_chunks + chunk) into stage u % stages once both consumers released it.
+// Warpgroups 0 and 1 consume: each multiplies its 64 queries by the 256
+// rows, chunk by chunk, then scores the tile. Threads of a consumer hold
+// queries 16 w + g and 16 w + g + 8 (warp w of 4, g = lane / 4), so warp w
+// holds every row of its 16 queries: it pushes and merges them alone.
 template <bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask,
-                int B, int N, int d, int k, int metric, int rows_per_split,
-                float* cand_d, int* cand_i, float* glist_d, int* glist_i,
-                float* __restrict__ part_d, int* __restrict__ part_i) {
-  extern __shared__ __align__(16) char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [FD][FLD] query chunk, transposed
-  float* xs = qs + FD * FLD;                   // [FD][FLD] corpus chunk, transposed
-  float* qn = xs + FD * FLD;                   // [TQ] |q|^2
-  auto L = carve_lists<WIDE>(reinterpret_cast<char*>(qn + TQ), k, cand_d, cand_i, glist_d,
-                            glist_i);
+__global__ void __launch_bounds__(DTHREADS, 1)
+scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap xmap, const float* __restrict__ qn_g,
+                 const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask, int B,
+                 int N, int d, int k, int metric, int rows_per_split, int stages,
+                 float* cand_d, int* cand_i, float* glist_d, int* glist_i,
+                 float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * DSTAGE);
+  uint64_t* empty = full + stages;
+  float* terms = reinterpret_cast<float*>(empty + stages);  // [2 consumers][2][DN]
+  char* lists_p = reinterpret_cast<char*>(terms + 4 * DN);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * TQ;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int q0 = blockIdx.x * DQ;
   const int split = blockIdx.y;
   const int r_begin = split * rows_per_split;
   const int r_end = min(N, r_begin + rows_per_split);
+  const int n_chunks = (d + DK - 1) / DK;
+  const int n_tiles = (r_end - r_begin + DN - 1) / DN;
+  const int units = n_tiles * n_chunks;
 
-  L.init(tid);
-  if (tid < TQ) qn[tid] = query_norm(q, q0 + tid, B, d);
-  __syncthreads();
-
-#pragma unroll 1
-  for (int n0 = r_begin; n0 < r_end; n0 += TN) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    // The tile's row terms, loaded before the product so they land during it.
-    int row[4];
-    float xa[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) row[j] = n0 + tx + 16 * j;
-    row_terms(row, r_end, N, metric, xnorm2, mask, xa);
-
-    for (int d0 = 0; d0 < d; d0 += FD) {
-      for (int e = tid; e < TQ * FD; e += THREADS) {
-        const int r = e / FD, c = e % FD;
-        const int qi = q0 + r, dc = d0 + c;
-        qs[c * FLD + r] = (qi < B && dc < d) ? q[(size_t)qi * d + dc] : 0.f;
-      }
-      for (int e = tid; e < TN * FD; e += THREADS) {
-        const int r = e / FD, c = e % FD;
-        const int rr = n0 + r, dc = d0 + c;
-        xs[c * FLD + r] = (rr < r_end && dc < d) ? x[(size_t)rr * d + dc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < FD; ++c) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[c * FLD + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = xs[c * FLD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 2);
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      score_and_push(L, m, q0 + m < B, qn[m], metric, acc[i], xa, row);
-    }
-    __syncthreads();
-    L.merge_tile(false, warp, lane);
-    // The next tile's first __syncthreads orders these merges before its
-    // threshold reads and buffer writes.
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  L.merge_tile(true, warp, lane);
-  __syncthreads();
-  L.write_out(q0, B, split, gridDim.y, tid, part_d, part_i);
+
+  if (wg == 2) {
+    if (tid == 256) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int u = 0; u < units; ++u) {
+        mbar_wait(smem_u32(empty + s), ph ^ 1);
+        const uint32_t bar = smem_u32(full + s);
+        mbar_expect_tx(bar, DSTAGE);
+        const uint32_t st = smem_u32(smem + (size_t)s * DSTAGE);
+        const int c0 = (u % n_chunks) * DK, row0 = r_begin + (u / n_chunks) * DN;
+        tma_load_2d(st, &qmap, c0, q0, bar);
+        tma_load_2d(st + DA_BYTES, &xmap, c0, row0, bar);
+        if (++s == stages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int cw = wg, ctid = tid - 128 * wg, warp = ctid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  auto L = carve_lists<WIDE, 64>(lists_p + cw * lists_bytes(64, 4, k, WIDE), k,
+                                         block_slot() * 2 + cw, cand_d, cand_i, glist_d,
+                                         glist_i);
+  L.init(ctid, 128);
+  float* tt = terms + cw * 2 * DN;
+  const int qw0 = q0 + 64 * cw;
+  float qa[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qw0 + 16 * warp + g + 8 * h;
+    live[h] = qi < B;
+    qa[h] = metric == kL2 && live[h] ? qn_g[qi] : 0.f;
+  }
+  const float pm = metric == kL2 ? 2.f : 1.f;
+  const float base_term = metric == kCos ? 1.f : 0.f;
+
+  // Row terms: thread ctid loads rows ctid and ctid + 128 of a tile a tile
+  // ahead (the loads fly during the product) and stores them after the
+  // tile's barrier, into the buffer the barrier freed.
+  float xv[2];
+  int kv[2];
+  auto load_terms = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = min(r_begin + t * DN + ctid + 128 * i, N - 1);
+      xv[i] = metric == kL2 ? __ldg(xnorm2 + row) : base_term;
+      kv[i] = mask == nullptr ? 1 : __ldg(mask + row);
+    }
+  };
+  auto store_terms = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = ctid + 128 * i;
+      tt[(t & 1) * DN + r] = r_begin + t * DN + r < r_end && kv[i] ? xv[i] : INFINITY;
+    }
+  };
+  load_terms(0);
+  store_terms(0);
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int s = 0, prev_s = 0;
+  uint32_t ph = 0;
+  const uint32_t a_off = cw * 64 * 128;  // this warpgroup's 64 query rows of a stage
+
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_terms(t + 1);
+#pragma unroll 1
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(smem_u32(full + s), ph);
+      const uint32_t st = smem_u32(smem + (size_t)s * DSTAGE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_m64n256k16(acc, sw128_desc(st + a_off + kk * 32),
+                         sw128_desc(st + DA_BYTES + kk * 32), c > 0 || kk > 0);
+      wgmma_commit();
+      if (c > 0) {  // the previous chunk's products have retired: free its stage
+        wgmma_wait<1>();
+        if (ctid == 0) mbar_arrive(smem_u32(empty + prev_s));
+      }
+      prev_s = s;
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    if (ctid == 0) mbar_arrive(smem_u32(empty + prev_s));
+
+    wg_barrier(1 + cw);  // tile t's terms are stored; tile t - 1's are read
+    if (t + 1 < n_tiles) store_terms(t + 1);
+    const float* tc = tt + (t & 1) * DN;
+    const int row0 = r_begin + t * DN;
+    // Pass p scores tile rows [64 p, 64 p + 64): the thread's n8 blocks
+    // j = 8 p + jj, columns 8 j + 2 tg + e. A pass adds at most 64
+    // candidates a query, so a buffer over CAP - 64 is merged after it.
+#pragma unroll
+    for (int p = 0; p < DN / DPASS; ++p) {
+      float xa[16];
+#pragma unroll
+      for (int v = 0; v < 16; ++v) xa[v] = tc[64 * p + 8 * (v >> 1) + 2 * tg + (v & 1)];
+      const int rbase = row0 + 64 * p + 2 * tg;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * warp + g + 8 * h;
+        const float th = L.thr[m];
+        float sc[16];
+        unsigned bits = 0;
+#pragma unroll
+        for (int v = 0; v < 16; ++v) {
+          const int j = 8 * p + (v >> 1);
+          sc[v] = qa[h] + xa[v] - pm * acc[4 * j + 2 * h + (v & 1)];
+          if (isfinite(sc[v]) && sc[v] < th) bits |= 1u << v;
+        }
+        if (!live[h]) bits = 0;
+        L.push(m, bits, sc, [&](int v) { return rbase + 8 * (v >> 1) + (v & 1); });
+      }
+      __syncwarp();
+      L.merge_range(16 * warp, 16, CAP - DPASS, warp, lane);
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  L.merge_range(16 * warp, 16, 0, warp, lane);
+  wg_barrier(1 + cw);
+  L.write_out(qw0, B, split, gridDim.y, ctid, 128, part_d, part_i);
 }
+
+// ---------------------------------------------------------------- f32 product
+
+// A resident query row (floats): d rounded up to the 32-deep stage, plus 4,
+// so 8 consecutive rows fall on distinct banks.
+__host__ __device__ constexpr int f32_qld(int d) { return ((d + FK - 1) / FK) * FK + 4; }
+
+__host__ __device__ constexpr size_t f32_smem(int resident, int d, int k, bool wide) {
+  return (resident ? (size_t)FQ * f32_qld(d) * 4 : 0) +
+         (size_t)FSTAGES * (FN + (resident ? 0 : FQ)) * FLD * 4 + (size_t)FQ * 4 +
+         lists_bytes(FQ, 8, k, wide);
+}
+
+// Warp w holds queries 16 w .. 16 w + 15 against all FN rows of a tile, so
+// it pushes and merges them alone. Lane (qg, rg) = (lane / 16, lane % 16)
+// holds queries 16 w + qg + 2 i and rows rg + 16 j, i, j < 8: 64
+// accumulators. At each depth step the 8 lanes of a quarter-warp read 8
+// consecutive stage rows (one conflict-free 128-byte wavefront) and one
+// query row (a broadcast). Selection runs in two passes of 64 rows (j < 4,
+// then j >= 4), so a pass adds at most 64 candidates a query to its
+// 128-entry buffer.
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                const float* __restrict__ qn_g, const float* __restrict__ xnorm2,
+                const uint8_t* __restrict__ mask, int B, int N, int d, int k, int metric,
+                int rows_per_split, int resident, int vec,
+                float* cand_d, int* cand_i, float* glist_d, int* glist_i,
+                float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ __align__(16) char smem[];
+  const int QLD = f32_qld(d);
+  const int stage_rows = FN + (resident ? 0 : FQ);
+  float* qs = reinterpret_cast<float*>(smem);                     // [FQ][QLD] (resident)
+  float* ring = qs + (resident ? (size_t)FQ * QLD : 0);           // [FSTAGES][stage_rows][FLD]
+  float* qn = ring + (size_t)FSTAGES * stage_rows * FLD;          // [FQ]
+  auto L = carve_lists<WIDE, FQ>(reinterpret_cast<char*>(qn + FQ), k, block_slot(),
+                                      cand_d, cand_i, glist_d, glist_i);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qg = lane >> 4, rg = lane & 15;
+  const int q0 = blockIdx.x * FQ;
+  const int split = blockIdx.y;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(N, r_begin + rows_per_split);
+  const int n_chunks = (d + FK - 1) / FK;
+  const int units = (r_end - r_begin + FN - 1) / FN * n_chunks;
+
+  L.init(tid, THREADS);
+  if (tid < FQ) qn[tid] = q0 + tid < B ? qn_g[q0 + tid] : 0.f;
+  if (resident) {  // zero past d (to the stage's depth) and past B
+    const int c4n = (QLD - 4) / 4;
+    for (int e = tid; e < FQ * c4n; e += THREADS) {
+      const int r = e / c4n, c = (e % c4n) * 4, qi = q0 + r;
+      const int nv = qi < B ? max(0, min(4, d - c)) : 0;
+      copy4(qs + r * QLD + c, nv ? q + (size_t)qi * d + c : q, nv, vec);
+    }
+    cp_async_commit();
+  }
+  // Stage u % FSTAGES holds depth chunk (u % n_chunks) of tile (u / n_chunks):
+  // FN corpus rows, then (streaming) the FQ query rows, FLD floats each.
+  auto load_unit = [&](int u) {
+    float* st = ring + (size_t)(u % FSTAGES) * stage_rows * FLD;
+    const int row0 = r_begin + (u / n_chunks) * FN, d0 = (u % n_chunks) * FK;
+#pragma unroll
+    for (int i = 0; i < FN * FK / 4 / THREADS; ++i) {
+      const int e = tid + i * THREADS, r = e >> 3, c = d0 + (e & 7) * 4, row = row0 + r;
+      const int nv = row < r_end ? max(0, min(4, d - c)) : 0;
+      copy4(st + r * FLD + (e & 7) * 4, nv ? x + (size_t)row * d + c : x, nv, vec);
+    }
+    if (!resident) {
+      float* sq = st + FN * FLD;
+#pragma unroll
+      for (int i = 0; i < FQ * FK / 4 / THREADS; ++i) {
+        const int e = tid + i * THREADS, r = e >> 3, c = d0 + (e & 7) * 4, qi = q0 + r;
+        const int nv = qi < B ? max(0, min(4, d - c)) : 0;
+        copy4(sq + r * FLD + (e & 7) * 4, nv ? q + (size_t)qi * d + c : q, nv, vec);
+      }
+    }
+  };
+#pragma unroll 1
+  for (int u = 0; u < FSTAGES - 1; ++u) {
+    if (u < units) load_unit(u);
+    cp_async_commit();
+  }
+
+  const float pm = metric == kL2 ? 2.f : 1.f;
+  float acc[8][8];
+  int row[8];
+  float xa[8];
+#pragma unroll 1
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait<FSTAGES - 2>();
+    __syncthreads();  // unit u landed for every thread; unit u - 1's stage is free
+    if (u + FSTAGES - 1 < units) load_unit(u + FSTAGES - 1);
+    cp_async_commit();
+    const int ch = u % n_chunks;
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      // The tile's row terms, loaded before the product so they land during it.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) row[j] = r_begin + (u / n_chunks) * FN + rg + 16 * j;
+      row_terms(row, r_end, N, metric, xnorm2, mask, xa);
+    }
+    const float* st = ring + (size_t)(u % FSTAGES) * stage_rows * FLD;
+    const float* xs = st + rg * FLD;
+    const int ld = resident ? QLD : FLD;
+    const float* qsrc = (resident ? qs + ch * FK : st + FN * FLD) + (16 * warp + qg) * ld;
+#pragma unroll
+    for (int c = 0; c < FK; c += 4) {
+      float4 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(xs + 16 * j * FLD + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(qsrc + 2 * i * ld + c);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+    if (ch != n_chunks - 1) continue;
+
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = 16 * warp + qg + 2 * i;
+        const float th = L.thr[m];
+        const float qa = metric == kL2 ? qn[m] : 0.f;
+        float sc[4];
+        unsigned bits = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[j] = qa + xa[4 * p + j] - pm * acc[i][4 * p + j];
+          if (isfinite(sc[j]) && sc[j] < th) bits |= 1u << j;
+        }
+        if (q0 + m >= B) bits = 0;
+        L.push(m, bits, sc, [&](int j) { return row[4 * p + j]; });
+      }
+      __syncwarp();
+      L.merge_range(16 * warp, 16, CAP - 64, warp, lane);
+      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+  L.merge_range(16 * warp, 16, 0, warp, lane);
+  __syncthreads();
+  L.write_out(q0, B, split, gridDim.y, tid, THREADS, part_d, part_i);
+}
+
+// ---------------------------------------------------------------- split merge
 
 // One block per query: each valid candidate's final rank is its position in
 // its own sorted list plus, for every other list, the number of entries that
@@ -761,87 +1256,189 @@ __global__ void merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-const void* kernel_of(int x_bf16, bool wide) {
-  auto bf = wide ? scan_bf16_kernel<true> : scan_bf16_kernel<false>;
-  auto f32 = wide ? scan_f32_kernel<true> : scan_f32_kernel<false>;
-  return x_bf16 ? reinterpret_cast<const void*>(bf) : reinterpret_cast<const void*>(f32);
+const void* kernel_of(int product, bool wide) {
+  if (product == kDeep)
+    return wide ? reinterpret_cast<const void*>(scan_deep_kernel<true>)
+                : reinterpret_cast<const void*>(scan_deep_kernel<false>);
+  if (product == kF32)
+    return wide ? reinterpret_cast<const void*>(scan_f32_kernel<true>)
+                : reinterpret_cast<const void*>(scan_f32_kernel<false>);
+  return wide ? reinterpret_cast<const void*>(scan_tile_kernel<true>)
+              : reinterpret_cast<const void*>(scan_tile_kernel<false>);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's entry
+// point query (so the library links no libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [rows, cols] bf16 row-major tensor (cols * 2 a multiple of 16 bytes) read
+// in boxes of box_rows x 64 columns, 128-byte swizzled; zeros outside.
+int encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                   uint32_t box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeFailed;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {DK, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch configuration of a (table type, d, k) on the current device:
-// queries per block, candidates buffered per query, whether a bf16 query
-// tile stays resident in shared memory (it does when it fits), the block's
-// dynamic shared memory, how many blocks fit on one SM, and whether the
-// lists live in a global scratch (k > KS; the caller allocates TQ * k
-// entries a block). It also lets the kernel use that much shared memory on
-// this device, so the caller asks once per (device, shape) and passes
-// resident and smem to every launch. Returns a CUDA error code.
-int vecgo_scan_topk_plan(int x_bf16, int d, int k, int* tq, int* cap, int* resident,
-                         int* smem, int* blocks_per_sm, int* wide) {
+// The launch plan of a (table type, d, k) on the current device, for a bf16
+// table whose rows are 16-byte aligned (aligned = 1) or not: out[P_FIELDS]
+// gets the product (0 tile, 1 deep, 2 f32), queries and corpus rows a tile,
+// candidates a buffer, whether the query tile stays resident in shared
+// memory, ring stages (deep), the block's dynamic shared memory, how many
+// blocks fit on one SM, and whether the lists live in a global scratch (the
+// caller allocates tq * k entries a block; always past KS). It also lets the
+// kernel use that much shared memory on this device, so the caller asks once
+// per (device, shape) and passes the plan to every launch. Returns a CUDA
+// error code.
+int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const void* fn = kernel_of(x_bf16, k > KS);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return (int)e;
-  *tq = TQ;
-  *cap = CAP;
-  *wide = k > KS;
-  *resident = x_bf16 && bf16_smem(1, d, k) <= (size_t)optin;
-  *smem = (int)(x_bf16 ? bf16_smem(*resident, d, k) : f32_smem(k));
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, *smem);
+  const size_t cap = (size_t)optin;
+  int product, tq, tn, c, resident = 0, stages = 0, threads;
+  bool wide = k > KS;
+  size_t smem;
+  if (!x_bf16) {
+    product = kF32, tq = FQ, tn = FN, c = CAP, threads = THREADS;
+    // Resident queries and narrow lists first; then streamed queries; then
+    // lists in the global scratch.
+    bool found = false;
+    for (int w = wide ? 1 : 0; w < 2 && !found; ++w)
+      for (int r = 1; r >= 0 && !found; --r)
+        if (f32_smem(r, d, k, w) <= cap) found = true, resident = r, wide = w;
+    smem = f32_smem(resident, d, k, wide);
+  } else if ((d <= TILE_MAX_D && tile_smem(1, d, k) <= cap) || d % 8 != 0 || !aligned) {
+    product = kTile, tq = TQ, tn = TN, c = CAP, threads = THREADS;
+    resident = tile_smem(1, d, k) <= cap;
+    smem = tile_smem(resident, d, k);
+  } else {
+    product = kDeep, tq = DQ, tn = DN, c = CAP, threads = DTHREADS;
+    if (!wide && deep_smem(DMIN_STAGES, k, false) > cap) wide = true;
+    stages = DMAX_STAGES;
+    while (stages > DMIN_STAGES && deep_smem(stages, k, wide) > cap) --stages;
+    smem = deep_smem(stages, k, wide);
+  }
+  const void* fn = kernel_of(product, wide);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e != cudaSuccess) return (int)e;
+  out[P_PRODUCT] = product;
+  out[P_TQ] = tq;
+  out[P_TN] = tn;
+  out[P_CAP] = c;
+  out[P_RESIDENT] = resident;
+  out[P_STAGES] = stages;
+  out[P_SMEM] = (int)smem;
+  out[P_WIDE] = wide;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + P_BPS, fn, threads,
+                                                            (int)smem);
 }
 
-// q [B,d] f32; x [N,d] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); xnorm2 [N] f32
-// (read for l2 only); mask [N] bytes or NULL. resident and smem come from
-// vecgo_scan_topk_plan for this (x_bf16, d, k) on this device. cand_d/cand_i
-// are the candidate buffers, [blocks, TQ, CAP] f32 / int32 scratch with
-// blocks = ceil(B / TQ) * splits; list_d/list_i the lists, [blocks, TQ, k]
-// scratch when k > KS, else NULL. With splits > 1, part_d/part_i are
-// [B, splits, k] scratch and the merge writes out_d/out_i [B, k]; with
-// splits == 1 the scan writes out_d/out_i directly. Returns the CUDA error
-// code of the launches (0 on success).
-int vecgo_scan_topk(const void* q, const void* x, int x_bf16,
-                    const void* xnorm2, const void* mask, int B, int N, int d,
-                    int k, int metric, int rows_per_split, int splits, int resident,
-                    int smem, void* cand_d, void* cand_i, void* list_d, void* list_i,
-                    void* part_d, void* part_i, void* out_d, void* out_i, void* stream) {
+// q [B,d] f32; x [N,d] f32 or bf16, as the plan's product takes it; xnorm2
+// [N] f32 (read for l2 only); mask [N] bytes or NULL. plan is the host array
+// vecgo_scan_topk_plan filled for this (table type, d, k, alignment) on this
+// device. qb is a [B, pad16(d)] bf16 scratch (deep product, else NULL) and qn
+// a [B] f32 scratch (deep and f32 products). cand_d/cand_i are the candidate
+// buffers, [blocks, tq, cap] f32 / int32 scratch with blocks = ceil(B / tq) *
+// splits; list_d/list_i the lists, [blocks, tq, k] scratch when the plan's
+// lists are global, else NULL. With splits > 1, part_d/part_i are [B, splits,
+// k] scratch and the merge writes out_d/out_i [B, k]; with splits == 1 the
+// scan writes out_d/out_i directly. Returns the CUDA error code of the
+// launches (0 on success).
+int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void* mask, int B,
+                    int N, int d, int k, int metric, int rows_per_split, int splits,
+                    const int* plan, void* qb, void* qn, void* cand_d, void* cand_i,
+                    void* list_d, void* list_i, void* part_d, void* part_i, void* out_d,
+                    void* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool direct = splits == 1, wide = k > KS;
+  const bool direct = splits == 1, wide = plan[P_WIDE] != 0;
+  const int product = plan[P_PRODUCT], smem = plan[P_SMEM];
   float* pd = static_cast<float*>(direct ? out_d : part_d);
   int* pi = static_cast<int*>(direct ? out_i : part_i);
   const float* qf = static_cast<const float*>(q);
   const float* xn = static_cast<const float*>(xnorm2);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  float* qnf = static_cast<float*>(qn);
   float* cdd = static_cast<float*>(cand_d);
   int* cii = static_cast<int*>(cand_i);
   float* gld = static_cast<float*>(list_d);
   int* gli = static_cast<int*>(list_i);
-  const dim3 grid((B + TQ - 1) / TQ, splits);
-  if (x_bf16) {
-    auto kern = wide ? scan_bf16_kernel<true> : scan_bf16_kernel<false>;
-    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const __nv_bfloat16*>(x), xn, mk, B, N, d,
-                                      k, metric, rows_per_split, resident, cdd, cii, gld, gli,
-                                      pd, pi);
-  } else {
+  const dim3 grid((B + plan[P_TQ] - 1) / plan[P_TQ], splits);
+  if (product == kDeep) {
+    const int dp = pad_depth(d);
+    __nv_bfloat16* qbb = static_cast<__nv_bfloat16*>(qb);
+    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, dp, qbb, qnf);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    CUtensorMap qmap, xmap;
+    int r = encode_bf16_2d(&qmap, qbb, B, dp, DQ);
+    if (r == 0) r = encode_bf16_2d(&xmap, x, N, d, DN);
+    if (r != 0) return r;
+    auto kern = wide ? scan_deep_kernel<true> : scan_deep_kernel<false>;
+    kern<<<grid, DTHREADS, smem, st>>>(qmap, xmap, qnf, xn, mk, B, N, d, k, metric,
+                                       rows_per_split, plan[P_STAGES], cdd, cii, gld, gli, pd,
+                                       pi);
+  } else if (product == kF32) {
+    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, d, nullptr, qnf);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     auto kern = wide ? scan_f32_kernel<true> : scan_f32_kernel<false>;
-    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), xn, mk, B, N, d, k,
-                                      metric, rows_per_split, cdd, cii, gld, gli, pd, pi);
+    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), qnf, xn, mk, B, N, d, k,
+                                      metric, rows_per_split, plan[P_RESIDENT], vec, cdd, cii,
+                                      gld, gli, pd, pi);
+  } else {
+    auto kern = wide ? scan_tile_kernel<true> : scan_tile_kernel<false>;
+    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const __nv_bfloat16*>(x), xn, mk, B, N, d,
+                                      k, metric, rows_per_split, plan[P_RESIDENT], cdd, cii, gld,
+                                      gli, pd, pi);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || direct) return (int)e;
-  auto merge = wide ? merge_kernel<true> : merge_kernel<false>;
+  auto merge = k > KS ? merge_kernel<true> : merge_kernel<false>;
   merge<<<B, 128, 0, st>>>(pd, pi, splits, k, static_cast<float*>(out_d),
                            static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 
 const char* vecgo_cuda_error_string(int code) {
+  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled failed or is not available";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -48,10 +48,10 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vecgo_scan_topk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, i, i,
-                                    p, p, p, p, p, p, p, p, p]
+    lib.vecgo_scan_topk.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                    p, p, p, p, p, p, p, p, p, p, p, p]
     lib.vecgo_scan_topk.restype = i
-    lib.vecgo_scan_topk_plan.argtypes = [i, i, i, p, p, p, p, p, p]
+    lib.vecgo_scan_topk_plan.argtypes = [i, i, i, i, p]
     lib.vecgo_scan_topk_plan.restype = i
     lib.vecgo_coded_group_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.vecgo_coded_group_scan.restype = i

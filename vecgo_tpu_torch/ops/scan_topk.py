@@ -1,17 +1,22 @@
 """Fused distance scan + top-k: the port of `pallas_l2_topk`.
 
 `scan_topk` is the one kernel of the flat path. It carries the flat-segment
-pool scan, the compact-gather scan, the memtable chunks and every quantized
-or streamed block scan, at any k (a pool wider than 256 takes the kernel's
-wide shape, whose lists live in a global scratch). On a CUDA tensor it
-launches `csrc/scan_topk.cu` (or raises); on a CPU tensor it runs
-`scan_topk_reference`, the plain PyTorch version it is tested against.
+pool scan, the compact-gather scan, the memtable chunks, the device BM25
+sweep and every quantized or streamed block scan, at any k (a pool wider
+than 256 takes the kernel's wide shape, whose lists live in a global
+scratch). On a CUDA tensor it launches `csrc/scan_topk.cu` (or raises); on a
+CPU tensor it runs `scan_topk_reference`, the plain PyTorch version it is
+tested against. The library's plan picks one of three products by the
+table's type, depth, k and alignment (`PRODUCTS`): the bf16 tile product
+(d up to ~1,500), the deep bf16 product (TMA-fed `wgmma`) and the f32
+product (FMA units); `scan_topk.last_product` names the last launch's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,18 +25,47 @@ from vecgo_tpu_torch.model import Metric
 _METRIC_CODES = {Metric.L2: 0, Metric.DOT: 1, Metric.COSINE: 2}
 # Reference blocks hold at most this many scores ([B, block] f32, 256 MB).
 _REF_BLOCK_ELEMS = 1 << 26
-# Corpus rows per tile (must match TN in csrc/scan_topk.cu).
+# Corpus rows per tile of the bf16 tile product (TN in csrc/scan_topk.cu).
 _TN = 64
 # Merge cost grows with splits * k candidates per query; keep it bounded.
 _MAX_MERGE_WIDTH = 8192
 # A split scans at least this many tiles, so the bulk merges that fill its
 # lists stay a small part of its work.
 _MIN_TILES_PER_SPLIT = 32
+# The f32 product's tiles (128 x 128) are 4x the tile product's work, and the
+# memtable's 8,192-row chunks are only 64 of them: 16 tiles a split (four
+# splits, one wave of 128 blocks, measured fastest there; PERF.md).
+_MIN_TILES_F32 = 16
 # The grid's last wave should be at least this full.
 _WAVE_FILL = 0.9
-# (device, bf16, d, k) -> (query tile, candidates, resident, smem bytes, blocks per SM, SMs,
-# lists in a global scratch)
+# The plan's product codes (csrc/scan_topk.cu `Product`).
+PRODUCTS = ("tile", "deep", "f32")
+# (device, bf16, d, k, rows 16-byte aligned) -> Plan
 _plans: dict = {}
+
+
+class Plan(NamedTuple):
+    """The library's launch plan for one (device, table type, d, k,
+    alignment): product, queries and rows a tile, candidates a buffer,
+    whether the query tile stays resident in shared memory, ring stages,
+    dynamic shared memory, blocks an SM holds, the SM count, whether the
+    lists live in a global scratch, and the int array the launch takes."""
+
+    product: str
+    tq: int
+    tn: int
+    cap: int
+    resident: int
+    stages: int
+    smem: int
+    bps: int
+    sms: int
+    wide: bool
+    raw: object
+
+    @property
+    def min_tiles(self) -> int:
+        return _MIN_TILES_F32 if self.product == "f32" else _MIN_TILES_PER_SPLIT
 
 
 def metric_code(metric) -> int:
@@ -72,9 +106,11 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
 
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
     otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
-    card each call also allocates the kernel's candidate buffers, 64 KB per
-    (64-query tile, row split), and for k > 256 its lists, 512 k bytes per
-    (tile, split).
+    card each call also allocates the kernel's candidate buffers (1 KB a
+    query per row split), its lists where they live in a global scratch
+    (8 k bytes a query per split: past k = 256, and where shared memory
+    holds the tiles instead), and for the deep and f32 products |q|^2 and
+    (deep) the queries rounded to bf16.
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -96,75 +132,80 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     if n == 0:
         return out_d.fill_(math.inf), out_i.fill_(-1)
     bf16 = int(x.dtype == torch.bfloat16)
-    tq, cap, resident, smem, bps, sms, wide = _plan(lib, q.device, bf16, d, k)
-    splits, rows_per_split = split_plan(b, n, k, tq, bps * sms)
+    plan = _plan(lib, q.device, bf16, d, k, int(x.data_ptr() % 16 == 0))
+    tq, cap = plan.tq, plan.cap
+    splits, rows_per_split = split_plan(b, n, k, tq, plan.bps * plan.sms, plan.tn,
+                                        plan.min_tiles)
     blocks = -(-b // tq) * splits
-    cand_d = torch.empty(blocks * tq * cap, dtype=torch.float32, device=q.device)
-    cand_i = torch.empty(blocks * tq * cap, dtype=torch.int32, device=q.device)
-    list_d = list_i = part_d = part_i = None
-    if wide:
-        list_d = torch.empty(blocks * tq * k, dtype=torch.float32, device=q.device)
-        list_i = torch.empty(blocks * tq * k, dtype=torch.int32, device=q.device)
+
+    def scratch(count, dtype=torch.float32):
+        return torch.empty(count, dtype=dtype, device=q.device)
+
+    cand_d, cand_i = scratch(blocks * tq * cap), scratch(blocks * tq * cap, torch.int32)
+    list_d = list_i = part_d = part_i = qb = qn = None
+    if plan.wide:
+        list_d, list_i = scratch(blocks * tq * k), scratch(blocks * tq * k, torch.int32)
     if splits > 1:
-        part_d = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+        part_d, part_i = scratch(b * splits * k), scratch(b * splits * k, torch.int32)
+    if plan.product != "tile":
+        qn = scratch(b)
+    if plan.product == "deep":
+        qb = scratch(b * (-(-d // 16) * 16), torch.bfloat16)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     with torch.cuda.device(q.device):  # the C launch uses the current device
         rc = lib.vecgo_scan_topk(
-            q.data_ptr(), x.data_ptr(), bf16,
-            xnorm2.data_ptr() if code == 0 else None,
-            mask.data_ptr() if mask is not None else None,
-            b, n, d, k, code, rows_per_split, splits, resident, smem,
-            cand_d.data_ptr(), cand_i.data_ptr(),
-            list_d.data_ptr() if wide else None, list_i.data_ptr() if wide else None,
-            part_d.data_ptr() if part_d is not None else None,
-            part_i.data_ptr() if part_i is not None else None,
+            q.data_ptr(), x.data_ptr(), ptr(xnorm2) if code == 0 else None, ptr(mask),
+            b, n, d, k, code, rows_per_split, splits, ctypes.addressof(plan.raw), ptr(qb),
+            ptr(qn), ptr(cand_d), ptr(cand_i), ptr(list_d), ptr(list_i), ptr(part_d), ptr(part_i),
             out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(rc, "scan_topk launch")
     scan_topk.launches += 1
+    scan_topk.last_product = plan.product
     return out_d, out_i
 
 
 scan_topk.launches = 0
+scan_topk.last_product = None
 
 
-def _plan(lib, device, bf16: int, d: int, k: int):
-    """The kernel's launch configuration for this table, asked of the
-    library once per (device, shape): query tile, candidates per query,
-    whether the bf16 query tile stays resident, dynamic shared memory, how
-    many blocks one SM holds, the SM count, and whether the lists live in a
-    global scratch (the wide shape, k > 256)."""
-    key = (device.index, bf16, d, k)
+def _plan(lib, device, bf16: int, d: int, k: int, aligned: int = 1) -> Plan:
+    """The kernel's launch plan for this table, asked of the library once
+    per (device, table type, d, k, whether the rows are 16-byte aligned)."""
+    key = (device.index, bf16, d, k, aligned)
     if key not in _plans:
         from vecgo_tpu_torch.kernels import _build
 
-        tq, cap, resident, smem, bps, wide = (ctypes.c_int() for _ in range(6))
+        raw = (ctypes.c_int * 9)()
         with torch.cuda.device(device):
-            rc = lib.vecgo_scan_topk_plan(bf16, d, k, ctypes.byref(tq), ctypes.byref(cap),
-                                          ctypes.byref(resident), ctypes.byref(smem),
-                                          ctypes.byref(bps), ctypes.byref(wide))
+            rc = lib.vecgo_scan_topk_plan(bf16, d, k, aligned, ctypes.addressof(raw))
         _build.check(rc, "scan_topk plan")
-        if bps.value < 1:
+        product, tq, tn, cap, resident, stages, smem, bps, wide = raw
+        if bps < 1:
             raise RuntimeError(f"scan_topk: no block fits one SM (bf16={bf16}, d={d}, k={k})")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _plans[key] = (tq.value, cap.value, resident.value, smem.value, bps.value, sms,
-                       bool(wide.value))
+        _plans[key] = Plan(PRODUCTS[product], tq, tn, cap, resident, stages, smem, bps, sms,
+                           bool(wide), raw)
     return _plans[key]
 
 
-def split_plan(b: int, n: int, k: int, tq: int, slots: int):
-    """(splits, rows_per_split) for B queries in tiles of `tq` over N rows,
-    with `slots` blocks resident on the card at once.
+def split_plan(b: int, n: int, k: int, tq: int, slots: int, tn: int = _TN,
+               min_tiles: int = _MIN_TILES_PER_SPLIT):
+    """(splits, rows_per_split) for B queries in tiles of `tq` over N rows in
+    tiles of `tn`, with `slots` blocks resident on the card at once.
 
     Query tiles alone rarely fill the card (4096 queries are 64 tiles of
     64), so the rows are split too: the fewest splits whose grid fills its
     last wave to `_WAVE_FILL`, between one full wave and the most splits
-    that keep `_MIN_TILES_PER_SPLIT` tiles each and the merge narrow.
+    that keep `min_tiles` tiles each and the merge narrow.
     """
     q_tiles = -(-b // tq)
-    n_tiles = -(-n // _TN)
-    s_max = max(1, min(n_tiles // _MIN_TILES_PER_SPLIT, _MAX_MERGE_WIDTH // k))
+    n_tiles = -(-n // tn)
+    s_max = max(1, min(n_tiles // min_tiles, _MAX_MERGE_WIDTH // k))
     s_min = min(s_max, -(-slots // q_tiles))
     best, best_fill = s_min, 0.0
     for s in range(s_min, min(s_max, 8 * s_min) + 1):
@@ -174,7 +215,7 @@ def split_plan(b: int, n: int, k: int, tq: int, slots: int):
             best, best_fill = s, fill
         if fill >= _WAVE_FILL:
             break
-    rows_per_split = -(-n_tiles // best) * _TN
+    rows_per_split = -(-n_tiles // best) * tn
     return -(-n // rows_per_split), rows_per_split
 
 
