@@ -20,9 +20,11 @@ once on one CUDA card.
    package's route in torch ops (a blockwise torch.mm with torch.topk and
    a running merge: a yardstick the port never calls) and the product
    alone through torch.mm (context only); then pools
-   past 256 (the kernel's wide shape, lists in a global scratch): k = 1000
-   over the 1M-row segment and over one 131,072-row block, k = 4096 over
-   65,536 rows. Phase 5
+   past 256: k = 1000 over the 1M-row segment and over one 131,072-row
+   block, k = 4096 over 65,536 rows, and a memtable chunk (f32, 8,192 rows)
+   at the pool of a k = 300 query (k 308). Every case runs the kernel's
+   selection (unsorted candidate pools in a global scratch, compacted by
+   radix selection, and a finishing kernel). Phase 5
    adds the same comparison on what its paths hand the kernel: a 131,072-row
    block of each quantizer's and each stream transport's codes, decoded to
    bf16, at that path's k (100, 20, 128) and mask, and one probed
@@ -34,7 +36,8 @@ once on one CUDA card.
    plus one search_arrays_stream pass; recall@10 against the exact
    plain-PyTorch answer over the visible rows, deleted ids absent, every live
    id readable by get, and the kernel's launch count; then k = 300 (a pool
-   of 308 plus the churn margin), recall@300 against the exact answer.
+   of 308 plus the churn margin): QPS beside recall@300 against the exact
+   answer, and the wide-shape launches a batch.
 4. Graph engine phase, on the same database: commit the memtable, compact
    every segment into one Vamana segment (~1.1M live rows), delete 1,000
    more ids and insert 10k more rows, then search_arrays at the serving
@@ -47,7 +50,8 @@ once on one CUDA card.
    Kernel B (`coded_group_scan`) is then held against its plain version on the
    segment's own table with the probe inversion of a real batch, at the
    serving profile (4 probes, kk 16), at 4 probes and kk 64 (two list entries
-   a lane) and at the segment's default knobs (20 probes, kk 8, qcap 96) with
+   a lane), at 4 probes and kk 96 and 256 (past the lists: pooled survivors)
+   and at the segment's default knobs (20 probes, kk 8, qcap 96) with
    80% of the slots kept; each case prints its
    bound (probed clusters' bytes, bf16 peak) beside the all-clusters count
    (every cluster's bytes, fp32 peak: the count the first port used) and the
@@ -66,7 +70,9 @@ once on one CUDA card.
       the unprobed answer; deleted ids absent, live ids readable; the
       device state holds the codes only (allocated bytes against
       device_bytes()); the whole routed scan, full and probed, agrees rank
-      by rank with the plain score-matrix route.
+      by rank with the plain score-matrix route. Then the same rows in an
+      engine with quantizer="pq" (m 16) at refine_factor=100: a pool of
+      1,000 through the kernel, QPS and recall@10 (floor 0.99).
    b. INT4, PQ (m 16), OPQ (m 16, 3 iterations), BQ and RaBitQ at the segment
       level (FlatWriter -> FlatSegment.open -> search with a pool of 100 ->
       rerank): reranked recall@10 floors, train, encode and scan times, code
@@ -551,16 +557,20 @@ def engine_phase(args, card):
             profile_batch(db, queries[0], kw, "flat unfiltered", card)
 
     # A pool past 256: k = 300 on the segment (pool 308 plus the churn
-    # margin) and the memtable, through the kernel's wide shape.
+    # margin) and the memtable, through the kernel.
     _, gt_rows = scan_topk_reference(q0, x_all, xn_all, WIDE_K, "l2", torch.from_numpy(live).to(dev))
     gt = all_ids[gt_rows.cpu().numpy()]
+    launches_before = scan_topk.launches
     got, dist = db.search_arrays(queries[0], k=WIDE_K)
+    k300_launches = scan_topk.launches - launches_before
+    check(k300_launches > 0, "k300: the batch went through the kernel")
     check(got.shape == (BATCH, WIDE_K) and np.isfinite(dist).all(), "k300: result shape/finite")
     check(not np.isin(got, deleted).any(), "k300: a deleted id was returned")
     recall = np.mean([len(set(g) & set(t)) / WIDE_K for g, t in zip(got, gt)])
     qps, lo, hi = median_qps(db, queries[0], {}, k=WIDE_K)
     print(f"engine search_arrays k={WIDE_K}: {qps:.0f} QPS (B={BATCH}; median of {TIER_WINDOWS} "
-          f"windows, range {lo:.0f}-{hi:.0f}), recall@{WIDE_K} {recall:.5f} [{card}]", flush=True)
+          f"windows, range {lo:.0f}-{hi:.0f}), recall@{WIDE_K} {recall:.5f}, "
+          f"scan_topk launches a batch {k300_launches} [{card}]", flush=True)
     check(recall >= RECALL_FLOOR, f"k300: recall {recall} < {RECALL_FLOOR}")
     del gt_rows, gt
 
@@ -739,9 +749,12 @@ def graph_phase(st, card):
 
 
 # Kernel B's cases: (name, probes, kk, share of slots kept): the serving
-# profile, the same at kk 64 (two list entries a lane), and the segment's
-# default knobs (ef 80 -> 20 probes, kk 8) under an 80% filter.
-CODED_CASES = (("serving", 4, 16, 1.0), ("serving-kk64", 4, 64, 1.0), ("probes20", 20, 8, 0.8))
+# profile, the same at kk 64 (two list entries a lane) and at kk 96 and 256
+# (past the lists: pooled survivors), and the segment's default knobs (ef 80
+# -> 20 probes, kk 8) under an 80% filter.
+CODED_CASES = (("serving", 4, 16, 1.0), ("serving-kk64", 4, 64, 1.0),
+               ("serving-kk96", 4, 96, 1.0), ("serving-kk256", 4, 256, 1.0),
+               ("probes20", 20, 8, 0.8))
 
 
 def coded_inputs(t, q, rng, n_probe, kk, keep):
@@ -951,7 +964,7 @@ SEGMENT_FLOORS = {"int4": 0.90, "pq": 0.90, "opq": 0.90, "bq": 0.75, "rabitq": 0
 # quality targets.
 SEGMENT_FLOORS_1M = {"int4": 0.95, "pq": 0.25, "opq": 0.25, "bq": 0.35, "rabitq": 0.33}
 # What the low floors above rest on: a pool of WIDE_POOL rows by the same
-# codes (the scan_topk route, its wide shape; the plain score matrix for
+# codes (the scan_topk route; the plain score matrix for
 # RaBitQ) recovers the true top 10, over the first WIDE_QUERIES queries.
 WIDE_POOL, WIDE_QUERIES = 1000, 512
 WIDE_POOL_FLOOR = 0.95
@@ -1141,6 +1154,42 @@ def quantized_engine_case(st, card):
     db.close()
     seg.release_device()
     return launches, x_dev, kernel_cases
+
+
+PQ_POOL_RECALL_FLOOR = 0.99  # a pool of 1,000 by PQ codes (R3 read >= 0.998, PERF.md)
+
+
+def pq_engine_case(st, x_dev, card):
+    """5a, last: the flat phase's rows in an engine with quantizer="pq" (m 16),
+    searched at refine_factor=100: each block's pool of 1,000 goes through
+    scan_topk, then the exact host rerank. QPS and recall@10
+    (floor PQ_POOL_RECALL_FLOOR). Returns scan_topk's launches of one batch."""
+    import vecgo_tpu_torch as vg
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk
+
+    dev = torch.device("cuda")
+    q_np = st["queries"][0]
+    db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62, quantizer="pq",
+                                        qparams={"m": 16}), device="cuda")
+    t0 = time.perf_counter()
+    ids = np.asarray(db.insert_batch(st["x1"], st["metas1"]), np.int64)
+    db.commit()
+    build_s = time.perf_counter() - t0
+    kw = dict(refine_factor=100)
+    scan_topk.launches = 0
+    got, dist = db.search_arrays(q_np, k=K, **kw)
+    launches = scan_topk.launches
+    check(got.shape == (BATCH, K) and np.isfinite(dist).all(), "pq engine: shape/finite")
+    check(launches > 0, "pq engine: the pool of 1,000 went through the kernel")
+    recall = recall_vs_exact(got, torch.from_numpy(q_np).to(dev), x_dev, np.ones(N, bool), ids)
+    qps, lo, hi = median_qps(db, q_np, kw)
+    print(f"quantized search_arrays pq engine (m 16, refine_factor 100: pool {100 * K}, host "
+          f"rerank): {qps:.0f} QPS (B={BATCH}; median of {TIER_WINDOWS} windows, range "
+          f"{lo:.0f}-{hi:.0f}), recall@10 {recall:.5f} (floor {PQ_POOL_RECALL_FLOOR}); ingest "
+          f"and commit {build_s:.3f} s; scan_topk launches a batch {launches} [{card}]", flush=True)
+    check(recall >= PQ_POOL_RECALL_FLOOR, f"pq engine: recall {recall} < {PQ_POOL_RECALL_FLOOR}")
+    db.close()
+    return launches
 
 
 def quantizer_floors_case(card):
@@ -1494,6 +1543,7 @@ def tiers_phase(st, card):
     beyond-device streaming tier. Returns scan_topk's launches by sub-path
     and the kernel's cases at these paths' shapes."""
     quantized, x_dev, cases = quantized_engine_case(st, card)
+    quantized["pq_engine"] = pq_engine_case(st, x_dev, card)
     quantizer_floors_case(card)
     segments, segment_cases = segment_quantizers_case(st, x_dev, card)
     streamed, stream_cases = streamed_case(st, x_dev, card)
@@ -2767,7 +2817,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     # The engine's shapes: the segment's bf16 pool scan at k + 8 (clean) and
     # at the churn margin's pool, the memtable's f32 chunks at its pools,
-    # wide f32 rows, the widest k of the narrow shape, and the wide shape.
+    # wide f32 rows, k 256, and pools past 256.
     cases = [
         kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card, "tile"),
         kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card, "tile"),
@@ -2786,12 +2836,15 @@ def main() -> int:
                     card, "deep", on_device=True),
         kernel_case("f32-1M", rng, BATCH, N, DIM, 10, torch.float32, "l2", 0, card, "f32",
                     on_device=True),
-        # The wide shape: a coarse quantizer's pool of 1,000 over the segment
+        # Pools past 256: a coarse quantizer's pool of 1,000 over the segment
         # and over one decoded block, and k = 4096.
         kernel_case("segment-k1000", rng, BATCH, N, DIM, 1000, torch.bfloat16, "l2", 0, card),
         kernel_case("block-k1000", rng, BATCH, BLOCK_ROWS, DIM, 1000, torch.bfloat16, "l2", 0,
                     card),
         kernel_case("k4096", rng, BATCH, 65536, DIM, 4096, torch.bfloat16, "l2", 0.1, card),
+        # The f32 product past 256: a memtable chunk at a k = 300 query's pool.
+        kernel_case("chunk-k308", rng, BATCH, 8192, DIM, 308, torch.float32, "l2", 0, card,
+                    "f32"),
     ]
     main_case = cases[0]
     torch.cuda.empty_cache()

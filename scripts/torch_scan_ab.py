@@ -16,11 +16,14 @@ with 30% masked and k 82), f32 cos at d 768, the f32 scan over 1M x 128
 that ShardedFlat splits (k 10), the deep bf16 shapes (262,144 x 3,072 l2
 k 10; 1M x 1,536 cos k 100) and the BM25 sweep (4096 x 1,049,576 x 4096,
 sparse BM25-like rows of 12 weights, multi-hot queries of 3 columns, dot,
-0.1% of rows dead, k 36).
+0.1% of rows dead, k 36); then pools past 256: k 1000
+over the segment and over one 131,072-row block, k 4096 over 65,536 rows
+(10% masked) and a memtable chunk at the pool of a k = 300 query (f32,
+8,192 rows, k 308).
 
 --sweep also times, in this tree alone: the tile and the deep bf16 product
 on the same inputs at d 128-1,536 (the deep product driven past the plan's
-choice by handing the wrapper the plan of a d = 4096 table), and the f32
+choice by handing the wrapper the plan of a d = 4096 table) and the f32
 chunk shape at each minimum of tiles a split. Prints one line per case with
 the card's name and power limit, then one JSON line.
 """
@@ -46,6 +49,10 @@ CASES = {
     "deep-d3072": (262144, 3072, 10, "bf16", "l2", 0.0, "clustered"),
     "deep-d1536-k100": (1_000_000, 1536, 100, "bf16", "cos", 0.0, "clustered"),
     "bm25-sweep": (1_049_576, 4096, 36, "bf16", "dot", 0.001, "bm25"),
+    "segment-k1000": (1 << 20, 128, 1000, "bf16", "l2", 0.0, "clustered"),
+    "block-k1000": (131072, 128, 1000, "bf16", "l2", 0.0, "clustered"),
+    "k4096": (65536, 128, 4096, "bf16", "l2", 0.1, "clustered"),
+    "chunk-k308": (8192, 128, 308, "f32", "l2", 0.0, "clustered"),
 }
 
 

@@ -80,7 +80,9 @@ def assert_same_lists(d_a, i_a, d_b, i_b, tol):
 
 
 @pytest.mark.parametrize("kk,qcap,masked", [(8, 24, False), (8, 24, True), (1, 3, False),
-                                            (48, 24, False), (64, 24, True)])
+                                            (48, 24, False), (64, 24, True),
+                                            # past the kernel's 64-entry lists
+                                            (96, 24, False), (96, 24, True)])
 def test_reference_matches_pallas_interpret(coded, kk, qcap, masked):
     x, jt, tt, q, probes = coded
     k_pad, s = jt.bnorm2.shape
@@ -132,17 +134,44 @@ def test_ivf_scan_matches_xla_scan(coded, qcap, masked, n_probe):
     tm = None if mask is None else tivf.slot_mask_from_rows(tt, torch.from_numpy(mask))
     d_t, r_t = tivf.ivf_scan(torch.from_numpy(q), tt, n_probe=n_probe, kk=8, qcap=qcap,
                              mask_flat=tm)
+    assert_same_candidates(d_j, r_j, d_t, r_t)
+    if masked:
+        assert (np.asarray(r_t)[np.asarray(r_t) >= 0] % 2 == 0).all()
+
+
+def assert_same_candidates(d_j, r_j, d_t, r_t):
+    """Per query, the same (row, distance) pairs; distances within 1e-4 (f32
+    sums of the same products in another order; rows held twice by overlap
+    memberships come once per cluster)."""
     d_j, r_j, d_t, r_t = map(np.asarray, (d_j, r_j, d_t, r_t))
-    for b in range(len(q)):
-        # The same (row, distance) pairs; distances within 1e-4 (f32 sums of
-        # the same products in another order; rows held twice by overlap
-        # memberships come once per cluster).
+    for b in range(len(r_j)):
         want = sorted((int(r), float(d)) for r, d in zip(r_j[b], d_j[b]) if r >= 0)
         got = sorted((int(r), float(d)) for r, d in zip(r_t[b], d_t[b]) if r >= 0)
         assert [r for r, _ in want] == [r for r, _ in got], (b, want, got)
         assert max((abs(a - c) for (_, a), (_, c) in zip(want, got)), default=0.0) <= 1e-4
+
+
+@pytest.mark.parametrize("kk,masked", [(96, False), (96, True), ("S", False), ("S", True)])
+def test_ivf_scan_matches_xla_scan_past_kk64(coded, kk, masked):
+    """Past the kernel's 64-entry lists, up to kk = S: the port's ivf_scan
+    returns the JAX package's XLA candidate sets at kk 96 and kk = S (every
+    slot of a probed cluster), with and without a mask, under
+    test_ivf_scan_matches_xla_scan's criteria."""
+    x, jt, tt, q, _ = coded
+    kk = tt.codes.shape[1] if kk == "S" else kk
+    mask = None
     if masked:
-        assert (r_t[r_t >= 0] % 2 == 0).all()
+        mask = np.random.default_rng(kk).random(len(x)) < 0.6
+    jm = None if mask is None else jivf.slot_mask_from_rows(jt, jnp.asarray(mask))
+    d_j, r_j = jivf.ivf_scan(jnp.asarray(q), jt, n_probe=4, kk=kk, qcap=24, group=4,
+                             mask_flat=jm)
+    tm = None if mask is None else tivf.slot_mask_from_rows(tt, torch.from_numpy(mask))
+    d_t, r_t = tivf.ivf_scan(torch.from_numpy(q), tt, n_probe=4, kk=kk, qcap=24, mask_flat=tm)
+    assert tuple(d_t.shape) == tuple(np.asarray(d_j).shape) == (len(q), 4 * kk)
+    assert_same_candidates(d_j, r_j, d_t, r_t)
+    if masked:
+        got = np.asarray(r_t)
+        assert mask[got[got >= 0]].all()
 
 
 def test_wrapper_checks_and_cpu_route(coded):
@@ -155,7 +184,13 @@ def test_wrapper_checks_and_cpu_route(coded):
     d_r, i_r = coded_group_scan_reference(*args, 8)
     assert torch.equal(d, d_r) and torch.equal(i, i_r)
     assert coded_group_scan.launches == before  # a CPU tensor never launches
-    for kk in (0, 65, tt.codes.shape[1] + 1):
+    # Any 1 <= kk <= S takes the plain version on the CPU, past 64 too.
+    for kk in (65, tt.codes.shape[1]):
+        d, i = coded_group_scan(*args, kk)
+        d_r, i_r = coded_group_scan_reference(*args, kk)
+        assert torch.equal(d, d_r) and torch.equal(i, i_r) and d.shape[-1] == kk
+    assert coded_group_scan.launches == before
+    for kk in (0, tt.codes.shape[1] + 1):
         with pytest.raises(ValueError):
             coded_group_scan(*args, kk)
     with pytest.raises(ValueError):

@@ -161,12 +161,11 @@ def test_kernel_skips_non_finite_and_masked_rows(cuda, dtype):
 @pytest.mark.parametrize("order,n,k", [("random", 256, 256), ("nearing", 1024, 200),
                                        ("nearing", 1024, 256)])
 def test_kernel_merges_full_candidate_buffers_while_lists_fill(cuda, dtype, order, n, k):
-    """No mask, so every tile of a filling list enters it whole and a merge
-    takes a full buffer of 128 candidates. With N = k, one list entry in
-    three queries ranks after all 128 and every row is in the answer. With
-    rows that come nearer the queries tile by tile ("nearing": radius 40
-    down to 1 about the origin, queries within 0.01 of it), every candidate
-    ranks before every listed entry, at every merge."""
+    """No mask, so every tile enters a filling pool whole (its threshold is
+    +inf until the first compaction). With N = k every row is in the
+    answer. With rows that come nearer the queries tile by tile ("nearing":
+    radius 40 down to 1 about the origin, queries within 0.01 of it), every
+    candidate ranks before every pooled entry, at every compaction."""
     r = np.random.default_rng(n + k)
     q = r.standard_normal((64, 128)).astype(np.float32)
     x = r.standard_normal((n, 128)).astype(np.float32)
@@ -201,7 +200,7 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, 256, "l2", None)
     plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 256)
-    splits, rows_per_split = st.split_plan(64, 40_000, 256, plan.tq, plan.bps * plan.sms,
+    splits, rows_per_split = st.split_plan(64, 40_000, plan.tq, plan.bps * plan.sms, plan.pool,
                                            plan.tn, plan.min_tiles)
     assert splits > 1 and rows_per_split >= 300
     d_k, i_k = scan_topk(*args)
@@ -319,7 +318,7 @@ def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d,
     the f32 product's 128-row tiles a 256-entry buffer every two tiles. With
     rows that come nearer the queries tile by tile ("nearing"), every
     candidate ranks before every listed entry at every merge; k = 1000 takes
-    the lists in the global scratch."""
+    the pools in the global scratch."""
     r = np.random.default_rng(n + k + d)
     q = r.standard_normal((130, d)).astype(np.float32)
     x = r.standard_normal((n, d)).astype(np.float32)
@@ -337,7 +336,7 @@ def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d,
     assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
 
 
-# ---- kernel A's wide shape (k > 256: lists in a global scratch) ----
+# ---- kernel A past k = 256 (pools wider than 512 entries) ----
 
 
 @pytest.mark.cuda
@@ -376,10 +375,10 @@ def test_kernel_wide_pool_matches_plain_version(cuda, k, dtype, metric, mask_fra
 @pytest.mark.parametrize("order,n,k", [("random", 700, 600), ("nearing", 3000, 600),
                                        ("nearing", 5000, 4096)])
 def test_kernel_wide_merges_while_lists_fill(cuda, dtype, order, n, k):
-    """The wide merge's top-down moves: with rows that come nearer the
-    queries tile by tile, every candidate ranks before every listed entry,
-    so every merge moves the whole list; with random rows and k near N,
-    lists fill over many merges."""
+    """As the test above past k = 256: with rows that come nearer the
+    queries tile by tile, every candidate ranks before every pooled entry,
+    so every compaction keeps the newest rows; with random rows and k near
+    N, pools fill over many compactions."""
     r = np.random.default_rng(n + k)
     q = r.standard_normal((70, 128)).astype(np.float32)
     x = r.standard_normal((n, 128)).astype(np.float32)
@@ -399,8 +398,8 @@ def test_kernel_wide_merges_while_lists_fill(cuda, dtype, order, n, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
-    """As the narrow test of the same name, at k = 1000 over 200,000 rows:
-    the split merge's searches at the wide shape's step count."""
+    """As the test of the same name at k = 256, at k = 1000 over 200,000
+    rows: one split's pool holds every row of the answer."""
     from vecgo_tpu_torch.kernels import _build
     from vecgo_tpu_torch.ops import scan_topk as st
 
@@ -412,15 +411,82 @@ def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dty
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, 1000, "l2", None)
     plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 1000)
-    splits, rows_per_split = st.split_plan(64, 200_000, 1000, plan.tq, plan.bps * plan.sms,
+    splits, rows_per_split = st.split_plan(64, 200_000, plan.tq, plan.bps * plan.sms, plan.pool,
                                            plan.tn, plan.min_tiles)
-    assert plan.wide and splits > 1 and rows_per_split >= 1200
+    assert splits > 1 and rows_per_split >= 1200
     d_k, i_k = scan_topk(*args)
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     _check_against_plain(*args, d_k, i_k, d_r, i_r)
     assert bool((i_k < 1200).all())
     assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+
+
+# The selection (pools, at every k) in each product: (product, B, N, d, k,
+# table type, metric, share of rows kept, rows).
+# "dup": 37 distinct rows repeated, so exact ties straddle every threshold;
+# "nonfinite": NaN and inf rows, never listed. N below one split's minimum
+# runs one split; k = N and k > N end in (+inf, -1) past the eligible rows.
+WIDE_CASES = [
+    ("tile", 130, 20_000, 64, 257, torch.bfloat16, "l2", 0.1, "random"),
+    ("tile", 70, 3000, 128, 1000, torch.bfloat16, "l2", 0.9, "dup"),
+    ("tile", 70, 9000, 128, 4096, torch.bfloat16, "dot", 1.0, "nonfinite"),
+    ("tile", 40, 3000, 64, 3000, torch.bfloat16, "l2", 1.0, "random"),
+    ("tile", 40, 2000, 64, 2500, torch.bfloat16, "cos", 0.9, "random"),
+    ("tile", 100, 50_000, 128, 1000, torch.bfloat16, "l2", 1.0, "random"),
+    ("deep", 130, 20_000, 1536, 73, torch.bfloat16, "l2", 1.0, "random"),
+    ("deep", 130, 40_000, 1536, 100, torch.bfloat16, "cos", 0.9, "dup"),
+    ("deep", 64, 6000, 1536, 1000, torch.bfloat16, "l2", 0.1, "nonfinite"),
+    ("f32", 200, 8192, 128, 300, torch.float32, "l2", 1.0, "random"),
+    ("f32", 100, 20_000, 768, 300, torch.float32, "cos", 0.9, "dup"),
+    ("f32", 60, 1500, 128, 300, torch.float32, "dot", 0.1, "nonfinite"),
+    # Small k, whose pools hold k + 128 entries (the pools' least room).
+    ("tile", 130, 20_000, 128, 18, torch.bfloat16, "l2", 0.9, "random"),
+    ("tile", 70, 40_000, 128, 256, torch.bfloat16, "dot", 1.0, "dup"),
+    ("deep", 130, 20_000, 1536, 36, torch.bfloat16, "cos", 1.0, "random"),
+    ("f32", 300, 8192, 128, 74, torch.float32, "l2", 0.7, "dup"),
+    ("f32", 60, 1500, 128, 10, torch.float32, "dot", 0.1, "nonfinite"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product,b,n,d,k,dtype,metric,keep,rows", WIDE_CASES)
+def test_kernel_wide_shape_in_each_product(cuda, product, b, n, d, k, dtype, metric, keep,
+                                           rows):
+    """The selection (pools, radix compaction, the finishing kernel) against
+    the plain version in the tile, deep and f32 products: masks keeping
+    10% and 90% of rows, exact ties, non-finite rows, one split and several,
+    k = N and k > N."""
+    from vecgo_tpu_torch.kernels import _build
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    r = np.random.default_rng(n + k + d)
+    base = r.standard_normal((37 if rows == "dup" else n, d)).astype(np.float32)
+    x = base[np.arange(n) % len(base)]
+    q = r.standard_normal((b, d)).astype(np.float32)
+    if metric == "cos":
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    if rows == "nonfinite":
+        x[::97] = np.nan
+        x[5::101] = np.inf
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    mask = torch.from_numpy(r.random(n) < keep).to(cuda) if keep < 1 else None
+    xn = (x * x).sum(1)
+    args = (q, x.to(dtype), xn, k, metric, mask)
+    before = st.scan_topk.launches
+    d_k, i_k = st.scan_topk(*args)
+    assert st.scan_topk.last_product == product
+    assert st.scan_topk.launches == before + 1
+    d_r, i_r = scan_topk_reference(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(*args, d_k, i_k, d_r, i_r)
+    if rows == "nonfinite":
+        assert not bool(((i_k % 97 == 0) | (i_k % 101 == 5)).any())
+    if rows == "dup" or k >= n:
+        assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
+    plan = st._plan(_build.library(), cuda, int(dtype == torch.bfloat16), d, k)
+    assert plan.pool >= k + 64
 
 
 @pytest.mark.cuda
@@ -552,7 +618,12 @@ def _check_coded(args, d_k, i_k, d_r, i_r):
      (300, 40, 100, 16, 37, 33, 3, False),
      (64, 40, 200, 32, 8, 64, 2, False),  # at most 8 queries a block
      (200, 24, 256, 768, 45, 48, 4, True),
-     (4096, 256, 1024, 128, 96, 64, 16, True)],
+     (4096, 256, 1024, 128, 96, 64, 16, True),
+     # Past kk 64: pooled survivors, at the serving shapes and kk = S.
+     (4096, 3008, 1024, 128, 32, 96, 4, False),
+     (4096, 256, 1024, 128, 96, 256, 16, True),
+     (300, 40, 100, 16, 37, 65, 3, True),
+     (300, 40, 100, 16, 37, 100, 3, False)],
 )
 def test_coded_kernel_matches_plain_version(cuda, b, k, s, d, qcap, kk, n_probe, masked):
     from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan, coded_group_scan_reference
@@ -571,9 +642,11 @@ def test_coded_kernel_matches_plain_version(cuda, b, k, s, d, qcap, kk, n_probe,
 
 def _coded_case(cuda, case):
     """Inputs for the redesign's edge cases: (args, kk, expected live pairs
-    of cluster 0 or None)."""
+    of cluster 0 or None). "CASE@KK" is the same case at kk KK ("S": kk =
+    S), past the 64-entry lists where KK > 64."""
     from vecgo_tpu_torch.ops import ivf as ivf_ops
 
+    case, _, kk_at = case.partition("@")
     if case.startswith("skew"):
         # Cluster 0 probed by n queries: past the old 8-slot tiles, the m16
         # query tiles, and (n >= 64) the 64-slot query groups; 180 > qcap.
@@ -590,8 +663,9 @@ def _coded_case(cuda, case):
     elif case.startswith("d"):
         d = int(case[1:])
         n, qcap, b, k, s, kk = 20, 64, 150, 8, 200, 8
-    elif case in ("s37", "unaligned"):  # off the bulk-copy path: S % 4, misaligned tensors
-        n, qcap, b, k, s, d, kk = 20, 32, 100, 6, 37 if case == "s37" else 200, 32, 16
+    elif case in ("s37", "s101", "unaligned"):  # off the bulk-copy path: S % 4, misaligned
+        n, qcap, b, k, d, kk = 20, 32, 100, 6, 32, 16
+        s = {"s37": 37, "s101": 101}.get(case, 200)
     else:  # 20 probes, qcap 96, 80% of the slots kept
         n, qcap, b, k, s, d, kk = 0, 96, 1024, 256, 512, 128, 8
     r = np.random.default_rng(sum(map(ord, case)))
@@ -618,6 +692,8 @@ def _coded_case(cuda, case):
         bn = bbuf[1:].view(k, s)
         assert codes.data_ptr() % 16 and bn.data_ptr() % 16
     qtab, _ = ivf_ops._invert_probes(torch.from_numpy(probes).to(cuda), k, qcap)
+    if kk_at:
+        kk = s if kk_at == "S" else int(kk_at)
     return (q, qtab, codes, bn, scale, cent), kk, min(n, qcap) if n else None
 
 
@@ -645,6 +721,37 @@ def test_coded_kernel_redesign_edges(cuda, case):
         live = args[1][0] < args[0].shape[0]
         cols = i_k[0][live]
         assert bool((((cols >= 192) & (cols < 320)) | (cols >= 768)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skew9@65", "skew64@96", "skew150@128", "skew180@S",
+                                  "masked_stages@96", "masked_stages@S", "d100@96",
+                                  "d2048@128", "probes20@96", "s101@S", "s101@65",
+                                  "unaligned@128"])
+def test_coded_kernel_pooled_shape_edges(cuda, case):
+    """Kernel B past kk 64 (the pooled shape: each (cluster, query slot)'s
+    survivors in a global pool, compacted by radix selection, then a
+    finishing kernel) on the redesign's edge cases: skewed clusters, kk = S,
+    whole masked units, d 100 and 2048, 20 probes at qcap 96 under a filter,
+    and the element-load path (S 101, not a multiple of 4; misaligned
+    tensors)."""
+    from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan, coded_group_scan_reference
+
+    args, kk, hot = _coded_case(cuda, case)
+    assert 64 < kk <= args[2].shape[1]
+    before = coded_group_scan.launches
+    d_k, i_k = coded_group_scan(*args, kk)
+    d_r, i_r = coded_group_scan_reference(*args, kk)
+    torch.cuda.synchronize()
+    assert coded_group_scan.launches == before + 1
+    _check_coded(args, d_k, i_k, d_r, i_r)
+    if hot is not None:
+        assert bool(torch.isfinite(d_k[0, :hot, 0]).all())
+    if kk == args[2].shape[1]:  # every valid slot of a probed cluster, in order
+        live = (args[1] < args[0].shape[0])[:, :, None]
+        valid = torch.isfinite(args[3])[:, None, :].expand_as(d_k)
+        assert torch.equal(torch.isfinite(d_k).sum(-1)[live[..., 0]],
+                           valid.sum(-1)[live[..., 0]])
 
 
 @pytest.mark.cuda

@@ -401,6 +401,38 @@ def test_sharded_ivf_covers_the_one_device_scan():
     assert (np.diff(d.numpy()[:, :10], axis=1) >= -1e-3).all()
 
 
+def test_sharded_ivf_past_kk64_holds_the_one_device_scan():
+    """kk 96 (past kernel B's 64-entry lists) on a two-entry CPU grid (shard
+    2): each shard probes as many of its clusters as the one-device scan
+    probes of all, so its pool (2 x 4 x 96 candidates, deduplicated) holds
+    every row of the one-device ivf_scan's, each at a distance within 1e-4
+    of its one-device distance or nearer (a row held by two clusters keeps
+    its nearest)."""
+    x, _ = tu.clustered_vectors(5000, 16, n_clusters=16, seed=3)
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy((x[rng.choice(len(x), 24, replace=False)]
+                          + 0.02 * rng.standard_normal((24, 16))).astype(np.float32))
+    members = bf.build_graph_clustered(x, r=16, cluster_size=256, return_membership=True,
+                                       device="cpu")[4]
+    table = ivf_ops.device_table_coded(members, torch.from_numpy(x))
+    assert table.codes.shape[1] >= 96
+    from vecgo_tpu_torch.ops.beam import _dedup_topk
+
+    sd, sr = ivf_ops.ivf_scan(q, table, n_probe=4, kk=96, qcap=len(q))
+    one_d, one_r = (a.numpy() for a in _dedup_topk(sd, sr, 4 * 96))
+    mesh = pm.make_mesh(shard=2, dp=1, devices=["cpu"] * 2)
+    d, rows = pm.ShardedIVF(table, mesh).search(q, n_probe_local=4, kk=96)
+    d, rows = d.numpy(), rows.numpy()
+    assert rows.shape == (len(q), 2 * 4 * 96)
+    tol = 1e-4 * float(one_d[np.isfinite(one_d)].max())
+    for b in range(len(q)):
+        got = dict(zip(rows[b][rows[b] >= 0].tolist(), d[b][rows[b] >= 0].tolist()))
+        for r, dist in zip(one_r[b].tolist(), one_d[b].tolist()):
+            if r >= 0:
+                assert r in got and got[r] <= dist + tol, (b, r)
+    assert (np.diff(np.minimum(d, 1e30), axis=1) >= -1e-3).all()  # sorted; empty slots last
+
+
 def test_sharded_cluster_knn_equals_one_device(mesh8):
     """test_sharded_cluster_knn_matches_local's fixture: equal tables."""
     n, d = 512, 16

@@ -205,19 +205,27 @@ def test_small_width_selections_match_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _pool_cap(k):
+    """The pool entries a (query, split) gets for a list of k, as the
+    library's plan returns them (csrc/select_wide.cuh `pool_cap`)."""
+    return -(-(k + max(k, 128)) // 32) * 32
+
+
 @pytest.mark.parametrize("n,k,slots", [(1 << 20, 18, 264), (1 << 20, 82, 264), (8192, 74, 396),
                                        (8192, 82, 396), (65536, 256, 132)])
 def test_split_plan_fills_the_card(n, k, slots):
     """4096 queries are 64 query tiles: the rows are split so that every one
     of the card's 132 SMs gets a block, each split keeps its minimum of tiles,
-    the merge stays narrow, and the splits cover the rows exactly once."""
+    the finishing kernel's reads stay bounded, and the splits cover the rows
+    exactly once."""
     from vecgo_tpu_torch.ops import scan_topk as st
 
-    splits, rows = st.split_plan(4096, n, k, 64, slots)
+    pool = _pool_cap(k)
+    splits, rows = st.split_plan(4096, n, 64, slots, pool)
     assert 64 * splits >= 132
     assert rows % st._TN == 0 and rows >= st._MIN_TILES_PER_SPLIT * st._TN
     assert (splits - 1) * rows < n <= splits * rows
-    assert splits * k <= st._MAX_MERGE_WIDTH
+    assert splits * pool <= st._MAX_POOL_WIDTH
     if n >= 1 << 20:  # the last wave at least _WAVE_FILL full
         waves = 64 * splits / slots
         assert waves / np.ceil(waves) >= st._WAVE_FILL
@@ -293,19 +301,20 @@ def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, 
     """The deep product's 128 x 256 tiles and the f32 product's 128 x 128
     tiles (one block an SM): 4096 queries are 32 query tiles, so the rows are
     split; each split keeps its minimum of tiles (the f32 product's lower
-    one, st._MIN_TILES_F32), the merge stays narrow, the splits cover the rows once, and at 1M
+    one, st._MIN_TILES_F32), the finishing kernel's reads stay bounded, the splits cover the rows once, and at 1M
     rows the last wave is at least _WAVE_FILL full."""
     from vecgo_tpu_torch.ops import scan_topk as st
 
     assert product in st.PRODUCTS
     assert min_tiles == (st._MIN_TILES_F32 if product == "f32" else st._MIN_TILES_PER_SPLIT)
     slots = 132
-    splits, rows = st.split_plan(4096, n, k, tq, slots, tn, min_tiles)
+    pool = _pool_cap(k)
+    splits, rows = st.split_plan(4096, n, tq, slots, pool, tn, min_tiles)
     n_tiles = -(-n // tn)
     assert rows % tn == 0
     assert splits == 1 or rows >= min_tiles * tn
     assert (splits - 1) * rows < n <= splits * rows
-    assert splits * k <= st._MAX_MERGE_WIDTH
+    assert splits * pool <= st._MAX_POOL_WIDTH
     assert 32 * splits >= min(slots, 32 * (n_tiles // min_tiles))
     if n >= 1 << 20:
         waves = 32 * splits / slots

@@ -67,7 +67,12 @@
 //   survivors inserts them one at a time (ballot + shuffle), a half with
 //   many (the list's fill) is bitonic-sorted in registers and merged in one
 //   bitonic step (at W = 2, one compare between a lane's two registers
-//   first).
+//   first). Past kk = 64 (any kk <= S), each (cluster, query slot) keeps an
+//   unsorted pool of keys in a global scratch instead (select_wide.cuh,
+//   shared with scan_topk's selection): the same epilogue and bar, one warp
+//   per query appends its survivors and shrinks the pool by a radix select
+//   when the next unit could overflow it, and a second kernel selects and
+//   sorts each pair's exact kk. No engine default reaches that shape.
 // * One launch. Blocks run in cluster order, so a heavy cluster that starts
 //   late can leave the card idle behind it (PERF.md); ordering the clusters
 //   heaviest first would take more launches on a host-bound batch.
@@ -76,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "select_wide.cuh"
 
 namespace {
 
@@ -90,6 +97,7 @@ constexpr int BARS = (STAGES * 8 + 15) / 16 * 16;  // mbarrier bytes, 16-byte al
 constexpr int SORT_MIN = 8;     // survivors in a half above which it is sorted
 constexpr float BIG = 3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_LIST_KK = 64;  // list entries of two a lane; wider kk pools its survivors
 
 // The launch layout of a (d, qcap, kk): depth padded to 64, the bf16 query
 // row (padded by 8 so ldmatrix rows hit distinct banks), query slots per
@@ -101,6 +109,7 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout layout(int d, int qcap, int kk) {
+  const bool pooled = kk > MAX_LIST_KK;
   Layout L;
   L.dp = (d + 63) / 64 * 64;
   L.qs = L.dp + 8;
@@ -113,7 +122,8 @@ __host__ __device__ inline Layout layout(int d, int qcap, int kk) {
            + BARS                              // ring: one mbarrier a stage
            + (size_t)qg * L.qs * 2             // bf16 query residuals
            + (size_t)qg * RT * 4               // survivor scores
-           + (size_t)qg * kk * 8               // lists (d, i)
+           + (pooled ? (size_t)NWARPS * wsel::BINS * 4 + (size_t)qg * 4  // radix counters, pool counts
+                     : (size_t)qg * kk * 8)    // lists (d, i)
            + (size_t)qg * 8                    // survivor masks
            + (size_t)qg * 4 * 4                // |qr|^2, bar, slot, query
            + 8;                                // live-slot masks
@@ -304,6 +314,8 @@ struct Smem {
   float* sc;            // [QG][RT] survivor scores of the current unit
   float* ls_d;          // [QG][kk] lists (when a warp serves several queries)
   int* ls_i;
+  unsigned* hist;       // kk > 64: [NWARPS][256] radix counters
+  int* pcnt;            // kk > 64: [QG] keys in each query's pool
   uint8_t* sbits;       // [QG][8] survivor masks: bit r = unit row r
   float* qn;            // [QG] |q - c|^2
   float* thr;           // [QG] the list's kk-th score (the epilogue's bar)
@@ -551,6 +563,116 @@ __device__ __forceinline__ void scan_units(const Smem& sm, Ring& ring, float scl
   }
 }
 
+// The unit loop of kk > 64 for MT query tiles of 16: the same copies,
+// product and epilogue as scan_units, then warp w appends the survivors of
+// queries w, w + 8, ... to their pools (pool row c * qcap + slot, keys of
+// score and column) and shrinks a pool that the next unit could overflow
+// (more than cap - 64 keys) to at most (kk + cap) / 2, its bound the
+// query's new bar. cap >= kk + 128, or cap = S, which holds every slot.
+template <int MT>
+__device__ __forceinline__ void scan_units_pooled(const Smem& sm, Ring& ring, float scl, int S,
+                                                  int DP, int QS, int nq, int kk,
+                                                  unsigned long long* pools, int cap) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int nch = ring.nch, units = ring.units;
+  const int b_off = (warp * 8 + g) * TD + 16 * tg;
+  const uint32_t a_base = smem_u32(sm.qs + (lane & 15) * QS + ((lane >> 4) << 3));
+  const int limit = (kk + cap) / 2;
+  float acc[MT][4];
+  int ch = 0, r0 = 0;
+
+#pragma unroll 1
+  for (int u = 0; u < units; ++u) {
+    ring.wait(u);
+    __syncthreads();  // the stage read two units ago is free; pools and bars are current
+    ring.copy_next();
+    const int stage = u % STAGES, d0 = ch * TD;
+    if (ch == 0) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[t][j] = 0.f;
+    }
+    const unsigned char* st = sm.ring + stage * RT * TD + b_off;
+    const int nb = min(TD, DP - d0) / 64;
+#pragma unroll
+    for (int b = 0; b < TD / 64; ++b) {
+      if (b < nb) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(st + 64 * b);
+        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          uint32_t b0, b1;
+          codes_bf16(words[s], b0, b1);
+          const uint32_t a_addr = a_base + (uint32_t)(d0 + 64 * b + 16 * s) * 2;
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            uint32_t a0, a1, a2, a3;
+            ldmatrix_x4(a0, a1, a2, a3, a_addr + (uint32_t)(t * 16 * QS) * 2);
+            mma_bf16(acc[t], a0, a1, a2, a3, b0, b1);
+          }
+        }
+      }
+    }
+    if (++ch < nch) continue;
+    ch = 0;
+
+    float bnr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = warp * 8 + 2 * tg + j;
+      bnr[j] = r0 + r < S ? sm.bn_s[stage * RT + r] : INFINITY;
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * t + g + 8 * h;
+        const bool live = m < nq;
+        const float th = live ? sm.thr[m] : 0.f, qnm = live ? sm.qn[m] : 0.f;
+        unsigned bits = 0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float s = qnm + bnr[j] - 2.f * (scl * acc[t][2 * h + j]);
+          if (live && s < th && s < BIG && s > -INFINITY) {
+            sm.sc[m * RT + warp * 8 + 2 * tg + j] = s;
+            bits |= 1u << (2 * tg + j);
+          }
+        }
+        bits |= __shfl_xor_sync(FULL, bits, 1);
+        bits |= __shfl_xor_sync(FULL, bits, 2);
+        if (tg == 0) sm.sbits[m * 8 + warp] = (uint8_t)bits;
+      }
+    __syncthreads();
+
+    for (int m = warp; m < nq; m += NWARPS) {
+      const unsigned long long mask =
+          *reinterpret_cast<const unsigned long long*>(sm.sbits + m * 8);
+      if (!mask) continue;
+      unsigned long long* p = pools + (size_t)sm.slot_of[m] * cap;
+      int n = sm.pcnt[m];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const unsigned hm = (unsigned)(mask >> (32 * half));
+        if ((hm >> lane) & 1u)
+          p[n + __popc(hm & ((1u << lane) - 1))] =
+              wsel::ckey(sm.sc[m * RT + 32 * half + lane], r0 + 32 * half + lane);
+        n += __popc(hm);
+      }
+      __syncwarp();
+      if (n > cap - RT && n > limit) {
+        float t;
+        n = wsel::warp_compact_pool(p, n, kk, cap, sm.hist + warp * wsel::BINS, lane, t);
+        if (lane == 0) sm.thr[m] = t;
+      }
+      if (lane == 0) sm.pcnt[m] = n;
+      __syncwarp();
+    }
+    r0 += RT;
+  }
+}
+
 // The unit loop at the block's query-tile count, then the register lists
 // (one query a warp) to shared memory.
 template <int W>
@@ -592,12 +714,16 @@ __device__ __forceinline__ void scan_block(const Smem& sm, Ring& ring, float scl
 // may use: 4 where shared memory lets 4 blocks share an SM, else 3 (more
 // registers, fewer spills). W: list entries a lane (kk <= 32 W); each W is
 // its own build, so the two-entry lists cost the one-entry path nothing.
+// W = 0 is kk > 64: the block writes each live slot's pool (pool rows
+// c * qcap + slot of pool_cap keys) and its count in pool_n (0 for the
+// group's empty slots), and wsel::finish_rows writes out_d / out_i.
 template <int MINB, int W>
 __global__ void __launch_bounds__(THREADS, MINB)
 coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
                   const int8_t* __restrict__ codes, const float* __restrict__ bn,
                   const float* __restrict__ scale, const float* __restrict__ cent,
                   int ngroups, int B, int qcap, int S, int d, int kk, Layout lay,
+                  unsigned long long* __restrict__ pool, int* __restrict__ pool_n, int pool_cap,
                   float* __restrict__ out_d, int* __restrict__ out_i) {
   const int DP = lay.dp, QS = lay.qs, QG = lay.qg;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -607,9 +733,15 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
   sm.bars = reinterpret_cast<uint64_t*>(sm.bn_s + STAGES * RT);
   sm.qs = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(sm.bars) + BARS);
   sm.sc = reinterpret_cast<float*>(sm.qs + (size_t)QG * QS);
-  sm.ls_d = sm.sc + QG * RT;
-  sm.ls_i = reinterpret_cast<int*>(sm.ls_d + QG * kk);
-  sm.sbits = reinterpret_cast<uint8_t*>(sm.ls_i + QG * kk);
+  if constexpr (W == 0) {
+    sm.hist = reinterpret_cast<unsigned*>(sm.sc + QG * RT);
+    sm.pcnt = reinterpret_cast<int*>(sm.hist + NWARPS * wsel::BINS);
+    sm.sbits = reinterpret_cast<uint8_t*>(sm.pcnt + QG);
+  } else {
+    sm.ls_d = sm.sc + QG * RT;
+    sm.ls_i = reinterpret_cast<int*>(sm.ls_d + QG * kk);
+    sm.sbits = reinterpret_cast<uint8_t*>(sm.ls_i + QG * kk);
+  }
   sm.qn = reinterpret_cast<float*>(sm.sbits + QG * 8);
   sm.thr = sm.qn + QG;
   sm.slot_of = reinterpret_cast<int*>(sm.thr + QG);
@@ -641,6 +773,13 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
   const int nq = __popc(sm.live_mask[0]) + __popc(sm.live_mask[1]);
   // Empty slots of the group come back as (+inf, -1).
   auto write_empty = [&]() {
+    if constexpr (W == 0) {
+      for (int j = tid; j < QG; j += THREADS) {
+        const bool live = (sm.live_mask[j >> 5] >> (j & 31)) & 1u;
+        if (slot0 + j < qcap && !live) pool_n[(size_t)c * qcap + slot0 + j] = 0;
+      }
+      return;
+    }
     for (int e = tid; e < QG * kk; e += THREADS) {
       const int j = e / kk, slot = slot0 + j;
       const bool live = (sm.live_mask[j >> 5] >> (j & 31)) & 1u;
@@ -691,9 +830,13 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
     if (live) {
-      for (int e = lane; e < kk; e += 32) {
-        sm.ls_d[m * kk + e] = INFINITY;
-        sm.ls_i[m * kk + e] = -1;
+      if constexpr (W == 0) {
+        if (lane == 0) sm.pcnt[m] = 0;
+      } else {
+        for (int e = lane; e < kk; e += 32) {
+          sm.ls_d[m * kk + e] = INFINITY;
+          sm.ls_i[m * kk + e] = -1;
+        }
       }
       if (lane == 0) {
         sm.qn[m] = s;
@@ -702,7 +845,24 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
     }
   }
 
-  scan_block<W>(sm, ring, scale[c], S, DP, QS, nq, kk);
+  if constexpr (W == 0) {
+    unsigned long long* pools = pool + (size_t)c * qcap * pool_cap;
+    const float scl = scale[c];
+    if (mt == 1)
+      scan_units_pooled<1>(sm, ring, scl, S, DP, QS, nq, kk, pools, pool_cap);
+    else if (mt == 2)
+      scan_units_pooled<2>(sm, ring, scl, S, DP, QS, nq, kk, pools, pool_cap);
+    else if (mt == 3)
+      scan_units_pooled<3>(sm, ring, scl, S, DP, QS, nq, kk, pools, pool_cap);
+    else
+      scan_units_pooled<4>(sm, ring, scl, S, DP, QS, nq, kk, pools, pool_cap);
+    __syncthreads();
+    for (int m = tid; m < nq; m += THREADS)
+      pool_n[(size_t)c * qcap + sm.slot_of[m]] = sm.pcnt[m];
+    return;
+  } else {
+    scan_block<W>(sm, ring, scale[c], S, DP, QS, nq, kk);
+  }
   __syncthreads();
 
   for (int e = tid; e < nq * kk; e += THREADS) {
@@ -716,18 +876,27 @@ coded_scan_kernel(const float* __restrict__ q, const int* __restrict__ qtab,
 
 }  // namespace
 
+// The pool entries of a (cluster, query slot) at kk > 64: wsel's pool for a
+// list of kk, or S, which holds every slot (then no pool is ever compacted).
+__host__ __device__ inline int pooled_cap(int S, int kk) {
+  return S < wsel::pool_cap(kk) ? S : wsel::pool_cap(kk);
+}
+
 extern "C" {
 
-// The launch layout of a (d, qcap, kk): query slots per block and dynamic
-// shared memory in bytes. Host arithmetic only.
-int vecgo_coded_group_scan_layout(int d, int qcap, int kk, int* qg, int* smem) {
+// The launch layout of a (d, qcap, kk) over clusters of S slots: query
+// slots per block, dynamic shared memory in bytes, and the pool entries of
+// each (cluster, query slot) past kk = 64 (0 up to it). Host arithmetic only.
+int vecgo_coded_group_scan_layout(int d, int qcap, int kk, int S, int* qg, int* smem,
+                                  int* pool) {
   const Layout L = layout(d, qcap, kk);
   *qg = L.qg;
   *smem = (int)L.smem;
+  *pool = kk > MAX_LIST_KK ? pooled_cap(S, kk) : 0;
   return 0;
 }
 
-// Lets the kernel use the current device's whole opt-in shared memory; the
+// Lets the kernels use the current device's whole opt-in shared memory; the
 // caller asks once per device. Returns a CUDA error code.
 int vecgo_coded_group_scan_prepare(void) {
   int dev = 0, optin = 0;
@@ -738,7 +907,10 @@ int vecgo_coded_group_scan_prepare(void) {
       reinterpret_cast<const void*>(coded_scan_kernel<4, 1>),
       reinterpret_cast<const void*>(coded_scan_kernel<3, 1>),
       reinterpret_cast<const void*>(coded_scan_kernel<4, 2>),
-      reinterpret_cast<const void*>(coded_scan_kernel<3, 2>)};
+      reinterpret_cast<const void*>(coded_scan_kernel<3, 2>),
+      reinterpret_cast<const void*>(coded_scan_kernel<4, 0>),
+      reinterpret_cast<const void*>(coded_scan_kernel<3, 0>),
+      reinterpret_cast<const void*>(wsel::finish_rows)};
   for (const void* fn : builds)
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
@@ -766,7 +938,35 @@ int vecgo_coded_group_scan(const void* q, const void* qtab, const void* codes,
       static_cast<const float*>(q), static_cast<const int*>(qtab),
       static_cast<const int8_t*>(codes), static_cast<const float*>(bn),
       static_cast<const float*>(scale), static_cast<const float*>(cent), ngroups, B, qcap, S,
-      d, kk, L, static_cast<float*>(out_d), static_cast<int*>(out_i));
+      d, kk, L, nullptr, nullptr, 0, static_cast<float*>(out_d), static_cast<int*>(out_i));
+  return (int)cudaGetLastError();
+}
+
+// The same at 64 < kk <= S, with pool [K, qcap, pool entries] 64-bit and
+// pool_n [K, qcap] int32 scratch (pool entries from the layout): the scan,
+// then one finishing block per (cluster, query slot). Returns the CUDA
+// error code of the launches (0 on success).
+int vecgo_coded_group_scan_pooled(const void* q, const void* qtab, const void* codes,
+                                  const void* bn, const void* scale, const void* cent,
+                                  int B, int K, int qcap, int S, int d, int kk, void* pool,
+                                  void* pool_n, void* out_d, void* out_i, void* stream) {
+  const Layout L = layout(d, qcap, kk);
+  const int ngroups = (qcap + L.qg - 1) / L.qg;
+  const int cap = pooled_cap(S, kk);
+  const bool four = 4 * (L.smem + 1024) <= 228 * 1024;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* pl = static_cast<unsigned long long*>(pool);
+  int* pn = static_cast<int*>(pool_n);
+  auto kernel = four ? coded_scan_kernel<4, 0> : coded_scan_kernel<3, 0>;
+  kernel<<<(unsigned)K * ngroups, THREADS, L.smem, st>>>(
+      static_cast<const float*>(q), static_cast<const int*>(qtab),
+      static_cast<const int8_t*>(codes), static_cast<const float*>(bn),
+      static_cast<const float*>(scale), static_cast<const float*>(cent), ngroups, B, qcap, S,
+      d, kk, L, pl, pn, cap, nullptr, nullptr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wsel::finish_rows<<<(unsigned)K * qcap, wsel::FIN_THREADS, wsel::fin_smem(kk), st>>>(
+      pl, pn, K * qcap, 1, cap, kk, static_cast<float*>(out_d), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 

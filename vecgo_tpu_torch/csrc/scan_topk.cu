@@ -5,8 +5,8 @@
 // corpus tiles of one query tile in grid order and kept the running top-k in
 // VMEM scratch. Here blocks run in parallel and in no order, so the corpus is
 // split across blocks: block (query tile, split) scans its row range and keeps
-// a sorted top-k per query; a second kernel merges the [B, splits, k] partial
-// lists into the final [B, k]. Query tiles run along the grid's x dimension,
+// a pool of candidates per query; a second kernel selects and sorts each
+// query's k from its splits' pools. Query tiles run along the grid's x dimension,
 // so the blocks resident at one time share a split's rows and read them from
 // L2.
 //
@@ -34,14 +34,14 @@
 //   are rounded to bf16 once per call into a scratch (a first pass, which
 //   also takes |q|^2), so the main loop never touches f32 queries. One
 //   producer thread streams 128 x 64 query and 256 x 64 corpus chunks
-//   (128-byte swizzled, the layout wgmma reads) through a ring of 3-4 stages
+//   (128-byte swizzled, the layout wgmma reads) through a ring of three stages
 //   onto mbarriers; two consumer warpgroups each run wgmma m64n256k16 for 64
 //   queries, with the 128 accumulators a thread holds in registers across
 //   all d / 16 steps, and release a stage as soon as its products retire.
 //   Selection runs once a tile on the accumulator fragments, in four passes
-//   of 64 rows so that a pass never overflows a 128-entry candidate buffer,
-//   and each warp merges the 16 queries whose rows it holds, so selection
-//   needs no block barrier. Measured, it runs near a third of the bound;
+//   of 64 rows so that a pass adds at most 64 candidates a query, and each
+//   warp compacts the pools of the 16 queries whose rows it holds, so selection needs no
+//   block barrier. Measured, it runs near a third of the bound;
 //   sharing each corpus chunk between two blocks of a cluster (TMA
 //   multicast, half the bytes from L2) measured slower (PERF.md).
 // * The f32 product (every f32 table: the memtable chunks, ShardedFlat,
@@ -64,31 +64,20 @@
 // Selection is the same for all three, and no thread inserts serially. Scores
 // are formed in registers from the accumulators (a row term carries |x|^2,
 // the mask and the padding as +inf), each thread tests them against its
-// query's current k-th score (a threshold in shared memory, refreshed at
-// every merge) and survivors go to the query's candidate buffer through one
-// shared atomic per (thread, query). A buffer is merged only when the next
-// tile (or pass) could overflow it (and at the end), so a merge takes many
-// candidates at once: one warp sorts them with a bitonic network in
-// registers (every stage straight-line, in the fewest registers that hold
-// them), then every candidate and every list entry finds its new position by
-// a binary search with unconditional loads, and all lanes write at once.
-// While a list fills (threshold +inf) whole tiles are candidates; merging
-// them in bulk is what keeps that phase cheap. The buffers live in a global
-// scratch, so shared memory holds only the lists and the tiles.
-//
-// Two shapes of the lists. Up to KS = 256, where they fit beside the tiles, a
-// block's lists (8 k bytes a query) stay in shared memory and a merge moves
-// every list entry in registers (the narrow shape above). Past it, for any
-// k <= N (a pool of 1,000 for a coarse quantizer, k = N for an exhaustive
-// answer), and wherever the narrow lists would crowd out the tiles, the lists
-// live in a global scratch of the block's own and shared memory holds only
-// the thresholds, the counts and the list lengths: the same tiles, product,
-// scores and candidate buffers, but a merge ranks each candidate by a binary
-// search of ceil(log2(k + 1)) steps and moves only the entries at or above
-// the first candidate's rank, from the top down, 128 at a time (each chunk is
-// read whole before it is written, and an entry only moves up, so no write
-// lands on an entry not yet read). The split merge searches the same way
-// past KS.
+// query's threshold (in shared memory) and survivors go to the query's pool
+// in a global scratch through one shared atomic per (thread, query)
+// (select_wide.cuh; any k <= N). Each (query, split) keeps an unsorted pool
+// of about 2k candidates, one 64-bit key each (score key above row id). When
+// the next tile (or pass) could overflow a pool, its query's warp shrinks it
+// in place to between k and 1.5k entries by a radix select (a bound guessed
+// from 256 samples and counted, for pools of 4,096 and more) and the
+// greatest kept score becomes the threshold. The scan writes only the pools'
+// counts; one block per query then keeps the best of all its splits' pools,
+// sorts them in shared memory and writes the first k (`finish_rows`), so
+// there is no split merge of its own. Thresholds tighten as the scan goes, so
+// it costs O(candidates) pool traffic. It measured faster at every k in
+// every product than sorted lists (in shared memory up to k = 256, in global
+// memory past it; PERF.md).
 
 // Scores are smaller-is-better: l2 = |q|^2 + |x|^2 - 2 q.x, dot = -q.x,
 // cos = 1 - q.x over normalized storage. Ties order by the lower row id, as
@@ -101,6 +90,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "select_wide.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps (tile and f32 products)
@@ -109,9 +100,6 @@ constexpr int TN = 64;        // corpus rows per tile (tile product)
 // Tile product: two stages of TN rows x TD depth.
 constexpr int TD = 64;
 constexpr int LDT = TD + 8;  // padded chunk row (bf16): conflict-free ldmatrix
-constexpr int CAP = 128;     // candidates a query's buffer holds
-constexpr int KS = 256;      // the widest k whose lists may stay in shared memory
-constexpr int WU = 4;        // list entries a lane moves at once in a wide merge
 constexpr unsigned FULL = 0xffffffffu;
 
 // Deep product: 128 queries (two consumer warpgroups of 64) x 256 rows a
@@ -123,8 +111,9 @@ constexpr int DTHREADS = 288;              // two consumer warpgroups + a produc
 constexpr int DA_BYTES = DQ * DK * 2;      // 16 KB of queries a stage
 constexpr int DSTAGE = DA_BYTES + DN * DK * 2;  // + 32 KB of corpus
 constexpr int DPASS = 64;                  // tile rows one selection pass scores
-constexpr int DMAX_STAGES = 4;
-constexpr int DMIN_STAGES = 3;
+// The ring: three stages measured faster than four (BM25 rows at d = 4096
+// by a third, dense rows the same within the spread, PERF.md).
+constexpr int DSTAGES = 3;
 // bf16 tables up to this depth take the tile product (measured faster there;
 // the deep product from d = 160 up, PERF.md).
 constexpr int TILE_MAX_D = 128;
@@ -139,306 +128,95 @@ constexpr int FSTAGES = 3;
 enum Metric { kL2 = 0, kDot = 1, kCos = 2 };
 enum Product { kTile = 0, kDeep = 1, kF32 = 2 };
 // The plan's fields (vecgo_scan_topk_plan's out array).
-enum PlanField {
-  P_PRODUCT, P_TQ, P_TN, P_CAP, P_RESIDENT, P_STAGES, P_SMEM, P_BPS, P_WIDE, P_FIELDS
-};
+enum PlanField { P_PRODUCT, P_TQ, P_TN, P_RESIDENT, P_SMEM, P_BPS, P_POOL, P_FIELDS };
 // A tensor map that could not be encoded (or no encoder to call).
 constexpr int kEncodeFailed = 10001;
 
-// (da, ia) ranks before (db, ib). An empty slot holds id -1, which as an
-// unsigned value is larger than any row id, so it ranks last among equals.
-// Bitwise, so a loop of them compiles to straight-line compares.
-__device__ __forceinline__ bool better(float da, int ia, float db, int ib) {
-  return (da < db) | ((da == db) & ((unsigned)ia < (unsigned)ib));
-}
-
-// Entries of sorted (d, i)[0, n) that rank before (dv, iv), 1 <= n <= 256: a
-// fixed nine-step binary search (it can return n itself) with unconditional
-// loads, so independent searches interleave.
-__device__ __forceinline__ int rank_in(const float* d, const int* i, int n, float dv, int iv) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 256; s > 0; s >>= 1) {
-    const int t = min(pos + s, n) - 1;
-    pos += (pos + s <= n) & better(d[t], i[t], dv, iv) ? s : 0;
-  }
-  return pos;
-}
-
-// The same for any n >= 0: floor(log2 n) + 1 = ceil(log2(n + 1)) steps.
-__device__ __forceinline__ int rank_in_any(const float* d, const int* i, int n, float dv,
-                                           int iv) {
-  int pos = 0;
-  for (int s = n > 0 ? 1 << (31 - __clz(n)) : 0; s > 0; s >>= 1) {
-    const int t = min(pos + s, n) - 1;
-    pos += (pos + s <= n) & better(d[t], i[t], dv, iv) ? s : 0;
-  }
-  return pos;
-}
-
-// Entries of non-decreasing r[0, n) that are <= v, 1 <= n <= CAP: a fixed
-// eight-step binary search with unconditional loads (it can return n).
-__device__ __forceinline__ int count_le(const int* r, int n, int v) {
-  int pos = 0;
-#pragma unroll
-  for (int s = CAP; s > 0; s >>= 1) {
-    const int t = min(pos + s, n) - 1;
-    pos += (pos + s <= n) & (r[t] <= v) ? s : 0;
-  }
-  return pos;
-}
-
-// Compare-exchange of registers a < b of one lane, by selects: after it, a
-// holds the better of the two when up, the worse otherwise.
-template <int NR>
-__device__ __forceinline__ void cx_regs(float (&kd)[NR], int (&ki)[NR], int a, int b, bool up) {
-  const bool swap = up == better(kd[b], ki[b], kd[a], ki[a]);
-  const float da = kd[a], db = kd[b];
-  const int ia = ki[a], ib = ki[b];
-  kd[a] = swap ? db : da;
-  ki[a] = swap ? ib : ia;
-  kd[b] = swap ? da : db;
-  ki[b] = swap ? ia : ib;
-}
-
-// Bitonic sort, ascending, of NA * 32 elements held as element r * 32 + lane
-// in register r < NA of each lane. Strides below 32 exchange with a shuffle,
-// the others inside a lane. Every register of a stage is handled in one
-// straight-line block (no per-register branch), so a stage costs about one
-// shuffle's latency.
-template <int NA, int NR>
-__device__ __forceinline__ void warp_sort(float (&kd)[NR], int (&ki)[NR], int lane) {
-  for (int size = 2; size <= NA * 32; size <<= 1)
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride == 32) {
-        // e and e + stride share their direction bit (size > stride).
-#pragma unroll
-        for (int r = 0; r + 1 < NA; r += 2)
-          cx_regs(kd, ki, r, (r + 1) % NR, ((r * 32 + lane) & size) == 0);
-      } else if (stride == 64) {
-#pragma unroll
-        for (int r = 0; r + 2 < NA; r += (r & 1) ? 3 : 1)
-          cx_regs(kd, ki, r, (r + 2) % NR, ((r * 32 + lane) & size) == 0);
-      } else {
-        const bool lower = (lane & stride) == 0;
-#pragma unroll
-        for (int r = 0; r < NA; ++r) {
-          const float od = __shfl_xor_sync(FULL, kd[r], stride);
-          const int oi = __shfl_xor_sync(FULL, ki[r], stride);
-          const bool up = ((r * 32 + lane) & size) == 0;
-          const bool take = lower == up ? better(od, oi, kd[r], ki[r])
-                                        : better(kd[r], ki[r], od, oi);
-          kd[r] = take ? od : kd[r];
-          ki[r] = take ? oi : ki[r];
-        }
-      }
-    }
-}
-
-// Per-query selection state of NQ queries with CAP-entry candidate buffers:
-// thresholds and counts in shared memory; the lists there too (narrow) or in
-// a global scratch of their own (WIDE); the candidate buffers in a global
-// scratch of their own (writes are fire-and-forget, and a merge reads each
-// candidate once).
-template <bool WIDE, int NQ>
-struct Lists {
-  static constexpr int NR = CAP / 32;  // registers a lane sorts with
-  float* thr;     // [NQ] current k-th score (+inf while the list fills)
-  int* cnt;       // [NQ] candidates buffered
-  float* lst_d;   // [NQ][k] sorted lists
-  int* lst_i;
-  int* nlist;     // [NQ] WIDE: entries listed (the rest of the list is empty)
-  int* lrank;     // [merging warps][CAP]: each sorted candidate's rank in the list
-  float* cand_d;  // [NQ][CAP] candidate buffers (global)
-  int* cand_i;
-  int k;
+// Selection state of NQ queries (select_wide.cuh): thresholds, pool counts
+// and each merging warp's 256 radix counters in shared memory; the unsorted
+// pools of `cap` keys per query in a global scratch of their own.
+template <int NQ>
+struct Pools {
+  float* thr;                // [NQ] score a candidate must beat (+inf until the first compaction)
+  int* cnt;                  // [NQ] pooled candidates
+  unsigned* hist;            // [merging warps][wsel::BINS]
+  unsigned long long* pool;  // [NQ][cap] (global)
+  int* pool_n;               // [NQ] counts for the finishing kernel (global)
+  int k, cap;
 
   __device__ void init(int tid, int nthr) {
-    for (int e = tid; e < NQ * k; e += nthr) {
-      lst_d[e] = INFINITY;
-      lst_i[e] = -1;
-    }
     for (int m = tid; m < NQ; m += nthr) {
       thr[m] = INFINITY;
       cnt[m] = 0;
-      if (WIDE) nlist[m] = 0;
     }
   }
 
-  // Buffer one (thread, query)'s scores whose bits are set; one shared
-  // atomic reserves the slots. Rows of a tile (or pass) are all above the
-  // rows already listed, so a score equal to the threshold never ranks
-  // before it: the strict test is exact. row_of(j) is score j's row.
+  // Append one (thread, query)'s scores whose bits are set to the query's
+  // pool; one shared atomic reserves the slots. row_of(j) is score j's row.
   template <int NS, class RowOf>
   __device__ __forceinline__ void push(int m, unsigned bits, const float (&s)[NS],
                                        RowOf row_of) {
     if (!bits) return;
     int pos = atomicAdd(&cnt[m], __popc(bits));
+    unsigned long long* p = pool + (size_t)m * cap;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
-      if (bits >> j & 1u) {
-        cand_d[m * CAP + pos] = s[j];
-        cand_i[m * CAP + pos] = row_of(j);
-        ++pos;
-      }
+      if (bits >> j & 1u) p[pos++] = wsel::ckey(s[j], row_of(j));
   }
 
-  // One warp merges query m's c buffered candidates into its sorted list: a
-  // register bitonic sort of the buffer (padded with empty slots, in the
-  // fewest registers that hold it), then every element's new position, its
-  // own index plus the entries of the other list before it (ids are
-  // distinct, so positions are too): a candidate's by a binary search of
-  // the list; a list entry j's is the number of candidates whose list rank
-  // is at most j, a binary search of those (non-decreasing) ranks. One write
-  // each. `slot` is the warp's row of lrank.
-  __device__ void merge_one(int m, int slot, int lane) {
-    const int c = cnt[m];
-    const int listed = WIDE ? nlist[m] : k;
-    float* ld = lst_d + (size_t)m * k;
-    int* li = lst_i + (size_t)m * k;
-    const float* cd = cand_d + m * CAP;
-    const int* ci = cand_i + m * CAP;
-    int* lr = lrank + slot * CAP;
-    float kd[NR];
-    int ki[NR];
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const int e = r * 32 + lane;
-      kd[r] = e < c ? cd[e] : INFINITY;
-      ki[r] = e < c ? ci[e] : -1;
-    }
-    if (c <= 32) warp_sort<1>(kd, ki, lane);
-    else if (c <= 64) warp_sort<2>(kd, ki, lane);
-    else warp_sort<NR>(kd, ki, lane);
-    int vp[NR];
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const int e = r * 32 + lane;
-      vp[r] = k;
-      if (r * 32 < c) {  // the same for the whole warp
-        const int rank = WIDE ? rank_in_any(ld, li, listed, kd[r], ki[r])
-                              : rank_in(ld, li, k, kd[r], ki[r]);
-        if (e < c) lr[e] = rank;
-        vp[r] = e < c ? e + rank : k;
-      }
-    }
-    __syncwarp();
-    if (WIDE) {
-      // Entries [lr[0], listed) move up; the chunk [top - 32 WU, top) is
-      // read whole before any of it is written.
-      const int lo = lr[0];
-      for (int top = listed; top > lo; top -= 32 * WU) {
-        float v[WU];
-        int vi[WU], p[WU];
-#pragma unroll
-        for (int u = 0; u < WU; ++u) {
-          const int j = top - 32 * WU + 32 * u + lane;
-          p[u] = k;
-          if (j >= lo) {
-            v[u] = ld[j];
-            vi[u] = li[j];
-            p[u] = j + count_le(lr, c, j);
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int u = 0; u < WU; ++u)
-          if (p[u] < k) { ld[p[u]] = v[u]; li[p[u]] = vi[u]; }
-        __syncwarp();
-      }
-    } else {
-      const int kt = (k + 31) >> 5;  // list entries per lane (k <= KS)
-      int lp[8];
-      float ldv[8];
-      int liv[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int j = lane + 32 * t;
-        lp[t] = k;
-        if (t < kt && j < k) {
-          ldv[t] = ld[j];
-          liv[t] = li[j];
-          if (liv[t] >= 0) lp[t] = j + count_le(lr, c, j);
-        }
+  // One warp shrinks the pools of queries [m0, m0 + nq) that have no room
+  // for `room` more candidates (cap >= k + 2 room, so each holds more than
+  // the (k + cap) / 2 a compaction may keep).
+  __device__ void merge_range(int m0, int nq, int room, int slot, int lane) {
+    unsigned todo = __ballot_sync(FULL, lane < nq && cnt[m0 + lane] > cap - room);
+    while (todo) {
+      const int m = m0 + __ffs(todo) - 1;
+      todo &= todo - 1;
+      float t;
+      const int n = wsel::warp_compact_pool(pool + (size_t)m * cap, cnt[m], k, cap,
+                                            hist + slot * wsel::BINS, lane, t);
+      __syncwarp();
+      if (lane == 0) {
+        thr[m] = t;
+        cnt[m] = n;
       }
       __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        if (lp[t] < k) { ld[lp[t]] = ldv[t]; li[lp[t]] = liv[t]; }
-    }
-    // Every position below min(k, listed + c) is written exactly once;
-    // positions past that were empty and stay so.
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-      if (vp[r] < k) { ld[vp[r]] = kd[r]; li[vp[r]] = ki[r]; }
-    __syncwarp();
-    if (lane == 0) {
-      thr[m] = ld[k - 1];
-      cnt[m] = 0;
-      if (WIDE) nlist[m] = min(k, nlist[m] + c);
-    }
-  }
-
-  // One warp merges those of queries [m0, m0 + nq) (nq <= 32) whose buffer
-  // holds more than `limit` candidates.
-  __device__ void merge_range(int m0, int nq, int limit, int slot, int lane) {
-    unsigned todo = __ballot_sync(FULL, lane < nq && cnt[m0 + lane] > limit);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      merge_one(m0 + j, slot, lane);
     }
   }
 
   // After a tile of tn rows (all pushes done, a block barrier between): warp
-  // w of 8 merges those of its NQ / 8 queries whose buffer the next tile
-  // could overflow, or every non-empty one at the end.
-  __device__ void merge_tile(bool flush, int warp, int lane, int tn) {
-    merge_range(warp * (NQ / 8), NQ / 8, flush ? 0 : CAP - tn, warp, lane);
+  // w of 8 shrinks those of its NQ / 8 queries' pools that the next tile
+  // could overflow.
+  __device__ void merge_tile(int warp, int lane, int tn) {
+    merge_range(warp * (NQ / 8), NQ / 8, tn, warp, lane);
   }
 
-  __device__ void write_out(int q0, int B, int split, int splits, int tid, int nthr,
-                            float* part_d, int* part_i) {
-    for (int e = tid; e < NQ * k; e += nthr) {
-      const int m = e / k, j = e % k, qi = q0 + m;
-      if (qi < B) {
-        const size_t o = ((size_t)qi * splits + split) * k + j;
-        part_d[o] = lst_d[e];
-        part_i[o] = lst_i[e];
-      }
-    }
+  // The pools' counts, for the finishing kernel, which selects from the
+  // pools as they are.
+  __device__ void write_out(int tid, int nthr) {
+    for (int m = tid; m < NQ; m += nthr) pool_n[m] = cnt[m];
   }
 };
 
-// Shared memory of nq queries' selection state with nw merging warps: the
-// lists themselves only when narrow.
-__host__ __device__ constexpr size_t lists_bytes(int nq, int nw, int k, bool wide) {
-  return (wide ? 0 : (size_t)nq * k * 8) + (size_t)nq * 12 + (size_t)nw * CAP * 4;
+// Shared memory of nq queries' selection state with nw merging warps.
+__host__ __device__ constexpr size_t pools_bytes(int nq, int nw) {
+  return (size_t)nq * 8 + (size_t)nw * wsel::BINS * 4;
 }
 
-// The selection state at p: lists (narrow), thresholds, counts, list
-// lengths and NW merging warps' ranks in shared memory; the candidate
-// buffers (and WIDE lists) at `slot`'s part of the global scratch.
-template <bool WIDE, int NQ>
-__device__ __forceinline__ Lists<WIDE, NQ> carve_lists(char* p, int k, size_t slot,
-                                                       float* cand_d, int* cand_i,
-                                                       float* glist_d, int* glist_i) {
-  Lists<WIDE, NQ> L;
+// The selection state at p in shared memory, and `slot`'s pools (pool_cap
+// entries each) and their counts in the global scratch.
+template <int NQ>
+__device__ __forceinline__ Pools<NQ> carve_pools(char* p, int k, size_t slot,
+                                                 unsigned long long* pool, int* pool_n,
+                                                 int pool_cap) {
+  Pools<NQ> L;
   L.k = k;
-  if (WIDE) {
-    L.lst_d = glist_d + slot * NQ * k;
-    L.lst_i = glist_i + slot * NQ * k;
-    L.thr = reinterpret_cast<float*>(p);
-  } else {
-    L.lst_d = reinterpret_cast<float*>(p);
-    L.lst_i = reinterpret_cast<int*>(L.lst_d + NQ * k);
-    L.thr = reinterpret_cast<float*>(L.lst_i + NQ * k);
-  }
+  L.cap = pool_cap;
+  L.thr = reinterpret_cast<float*>(p);
   L.cnt = reinterpret_cast<int*>(L.thr + NQ);
-  L.nlist = L.cnt + NQ;
-  L.lrank = L.nlist + NQ;
-  L.cand_d = cand_d + slot * NQ * CAP;
-  L.cand_i = cand_i + slot * NQ * CAP;
+  L.hist = reinterpret_cast<unsigned*>(L.cnt + NQ);
+  L.pool = pool + slot * NQ * pool_cap;
+  L.pool_n = pool_n + slot * NQ;
   return L;
 }
 
@@ -622,21 +400,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
 
 __host__ __device__ constexpr int pad_depth(int d) { return (d + 15) & ~15; }
 
-__host__ __device__ constexpr size_t tile_smem(int resident, int d, int k) {
+__host__ __device__ constexpr size_t tile_smem(int resident, int d) {
   return (size_t)2 * (TN + (resident ? 0 : TQ)) * LDT * 2 +
          (resident ? (size_t)TQ * (pad_depth(d) + 8) * 2 : 0) + (size_t)(TQ + 2 * TN) * 4 +
-         lists_bytes(TQ, 8, k, k > KS);
+         pools_bytes(TQ, 8);
 }
 
 // Warps: 4 along the queries (16 each) x 2 along the rows (32 each, four
 // n8-tiles), so each thread holds 2 queries x 8 rows of every tile.
-template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 scan_tile_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ x,
                  const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask,
                  int B, int N, int d, int k, int metric, int rows_per_split, int resident,
-                 float* cand_d, int* cand_i, float* glist_d, int* glist_i,
-                 float* __restrict__ part_d, int* __restrict__ part_i) {
+                 unsigned long long* pool, int* pool_n, int pool_cap) {
   constexpr int WQ = 4, NT = 4, NS = 2 * NT;
   extern __shared__ __align__(16) char smem[];
   const int DP = pad_depth(d), QS = DP + 8;
@@ -645,8 +421,8 @@ scan_tile_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
   __nv_bfloat16* qs = ring + (size_t)2 * stage_rows * LDT;  // resident query
   float* qn = reinterpret_cast<float*>(qs + (resident ? (size_t)TQ * QS : 0));
   float* terms = qn + TQ;  // [2][TN] row terms of the current and next tile
-  auto L = carve_lists<WIDE, TQ>(reinterpret_cast<char*>(terms + 2 * TN), k,
-                                         block_slot(), cand_d, cand_i, glist_d, glist_i);
+  auto L = carve_pools<TQ>(reinterpret_cast<char*>(terms + 2 * TN), k, block_slot(), pool,
+                           pool_n, pool_cap);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = warp % WQ, wn = warp / WQ;
@@ -792,14 +568,12 @@ scan_tile_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ 
       score_and_push(L, m, q0 + m < B, qn[m], metric, p, xa, row);
     }
     __syncthreads();
-    L.merge_tile(false, warp, lane, TN);
+    L.merge_tile(warp, lane, TN);
     // The next unit's __syncthreads orders these merges before the next
-    // tile's threshold reads and buffer writes.
+    // tile's threshold reads and pool writes.
   }
   __syncthreads();
-  L.merge_tile(true, warp, lane, TN);
-  __syncthreads();
-  L.write_out(q0, B, split, gridDim.y, tid, THREADS, part_d, part_i);
+  L.write_out(tid, THREADS);
 }
 
 // ---------------------------------------------------------------- deep product (bf16)
@@ -887,26 +661,25 @@ __device__ __forceinline__ void wg_barrier(int id) {
 // Shared memory of the deep product: the ring, its barriers, the row terms
 // and two warpgroups' selection state, plus 1 KB to align the ring to the
 // swizzle's 1024 bytes.
-__host__ __device__ constexpr size_t deep_smem(int stages, int k, bool wide) {
-  return 1024 + (size_t)stages * DSTAGE + (size_t)stages * 16 + (size_t)2 * 2 * DN * 4 +
-         2 * lists_bytes(64, 4, k, wide);
-}
+constexpr size_t DEEP_SMEM =
+    1024 + (size_t)DSTAGES * DSTAGE + (size_t)DSTAGES * 16 + (size_t)2 * 2 * DN * 4 +
+    2 * pools_bytes(64, 4);
 
 // Warp 8 produces: its lane 0 issues every unit's two TMA copies (the
 // 128 x 64 query chunk and the 256 x 64 corpus chunk of unit u = tile *
 // n_chunks + chunk) into stage u % stages once both consumers released it.
+// `stages` (DSTAGES) is a launch argument, not a constant: compiled with the
+// ring's depth known, the kernel measured 3-12% slower (PERF.md).
 // Warpgroups 0 and 1 consume: each multiplies its 64 queries by the 256
 // rows, chunk by chunk, then scores the tile. Threads of a consumer hold
 // queries 16 w + g and 16 w + g + 8 (warp w of 4, g = lane / 4), so warp w
 // holds every row of its 16 queries: it pushes and merges them alone.
-template <bool WIDE>
 __global__ void __launch_bounds__(DTHREADS, 1)
 scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap xmap, const float* __restrict__ qn_g,
                  const float* __restrict__ xnorm2, const uint8_t* __restrict__ mask, int B,
                  int N, int d, int k, int metric, int rows_per_split, int stages,
-                 float* cand_d, int* cand_i, float* glist_d, int* glist_i,
-                 float* __restrict__ part_d, int* __restrict__ part_i) {
+                 unsigned long long* pool, int* pool_n, int pool_cap) {
   extern __shared__ __align__(16) char smem_raw[];
   char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * DSTAGE);
@@ -952,9 +725,8 @@ scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int cw = wg, ctid = tid - 128 * wg, warp = ctid >> 5;
   const int g = lane >> 2, tg = lane & 3;
-  auto L = carve_lists<WIDE, 64>(lists_p + cw * lists_bytes(64, 4, k, WIDE), k,
-                                         block_slot() * 2 + cw, cand_d, cand_i, glist_d,
-                                         glist_i);
+  auto L = carve_pools<64>(lists_p + cw * pools_bytes(64, 4), k, block_slot() * 2 + cw, pool,
+                           pool_n, pool_cap);
   L.init(ctid, 128);
   float* tt = terms + cw * 2 * DN;
   const int qw0 = q0 + 64 * cw;
@@ -1028,7 +800,7 @@ scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row0 = r_begin + t * DN;
     // Pass p scores tile rows [64 p, 64 p + 64): the thread's n8 blocks
     // j = 8 p + jj, columns 8 j + 2 tg + e. A pass adds at most 64
-    // candidates a query, so a buffer over CAP - 64 is merged after it.
+    // candidates a query, so a buffer without room for 64 is merged after it.
 #pragma unroll
     for (int p = 0; p < DN / DPASS; ++p) {
       float xa[16];
@@ -1051,14 +823,12 @@ scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
         L.push(m, bits, sc, [&](int v) { return rbase + 8 * (v >> 1) + (v & 1); });
       }
       __syncwarp();
-      L.merge_range(16 * warp, 16, CAP - DPASS, warp, lane);
+      L.merge_range(16 * warp, 16, DPASS, warp, lane);
       __syncwarp();
     }
   }
-  __syncwarp();
-  L.merge_range(16 * warp, 16, 0, warp, lane);
   wg_barrier(1 + cw);
-  L.write_out(qw0, B, split, gridDim.y, ctid, 128, part_d, part_i);
+  L.write_out(ctid, 128);
 }
 
 // ---------------------------------------------------------------- f32 product
@@ -1067,10 +837,10 @@ scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
 // so 8 consecutive rows fall on distinct banks.
 __host__ __device__ constexpr int f32_qld(int d) { return ((d + FK - 1) / FK) * FK + 4; }
 
-__host__ __device__ constexpr size_t f32_smem(int resident, int d, int k, bool wide) {
+__host__ __device__ constexpr size_t f32_smem(int resident, int d) {
   return (resident ? (size_t)FQ * f32_qld(d) * 4 : 0) +
          (size_t)FSTAGES * (FN + (resident ? 0 : FQ)) * FLD * 4 + (size_t)FQ * 4 +
-         lists_bytes(FQ, 8, k, wide);
+         pools_bytes(FQ, 8);
 }
 
 // Warp w holds queries 16 w .. 16 w + 15 against all FN rows of a tile, so
@@ -1079,24 +849,21 @@ __host__ __device__ constexpr size_t f32_smem(int resident, int d, int k, bool w
 // accumulators. At each depth step the 8 lanes of a quarter-warp read 8
 // consecutive stage rows (one conflict-free 128-byte wavefront) and one
 // query row (a broadcast). Selection runs in two passes of 64 rows (j < 4,
-// then j >= 4), so a pass adds at most 64 candidates a query to its
-// 128-entry buffer.
-template <bool WIDE>
+// then j >= 4), so a pass adds at most 64 candidates a query.
 __global__ void __launch_bounds__(THREADS)
 scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
                 const float* __restrict__ qn_g, const float* __restrict__ xnorm2,
                 const uint8_t* __restrict__ mask, int B, int N, int d, int k, int metric,
                 int rows_per_split, int resident, int vec,
-                float* cand_d, int* cand_i, float* glist_d, int* glist_i,
-                float* __restrict__ part_d, int* __restrict__ part_i) {
+                unsigned long long* pool, int* pool_n, int pool_cap) {
   extern __shared__ __align__(16) char smem[];
   const int QLD = f32_qld(d);
   const int stage_rows = FN + (resident ? 0 : FQ);
   float* qs = reinterpret_cast<float*>(smem);                     // [FQ][QLD] (resident)
   float* ring = qs + (resident ? (size_t)FQ * QLD : 0);           // [FSTAGES][stage_rows][FLD]
   float* qn = ring + (size_t)FSTAGES * stage_rows * FLD;          // [FQ]
-  auto L = carve_lists<WIDE, FQ>(reinterpret_cast<char*>(qn + FQ), k, block_slot(),
-                                      cand_d, cand_i, glist_d, glist_i);
+  auto L = carve_pools<FQ>(reinterpret_cast<char*>(qn + FQ), k, block_slot(), pool, pool_n,
+                           pool_cap);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qg = lane >> 4, rg = lane & 15;
@@ -1207,64 +974,19 @@ scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
         L.push(m, bits, sc, [&](int j) { return row[4 * p + j]; });
       }
       __syncwarp();
-      L.merge_range(16 * warp, 16, CAP - 64, warp, lane);
+      L.merge_range(16 * warp, 16, 64, warp, lane);
       __syncwarp();
     }
   }
   cp_async_wait<0>();
-  L.merge_range(16 * warp, 16, 0, warp, lane);
   __syncthreads();
-  L.write_out(q0, B, split, gridDim.y, tid, THREADS, part_d, part_i);
+  L.write_out(tid, THREADS);
 }
 
-// ---------------------------------------------------------------- split merge
-
-// One block per query: each valid candidate's final rank is its position in
-// its own sorted list plus, for every other list, the number of entries that
-// rank before it (a binary search: nine steps up to KS, ceil(log2(k + 1))
-// past it). Row ranges of the splits are disjoint, so ranks are distinct and
-// every rank < k is written exactly once.
-template <bool WIDE>
-__global__ void merge_kernel(const float* __restrict__ part_d,
-                             const int* __restrict__ part_i, int splits, int k,
-                             float* __restrict__ out_d, int* __restrict__ out_i) {
-  const size_t b = blockIdx.x;
-  const float* pd = part_d + b * splits * k;
-  const int* pi = part_i + b * splits * k;
-  float* od = out_d + b * k;
-  int* oi = out_i + b * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    od[j] = INFINITY;
-    oi[j] = -1;
-  }
-  __syncthreads();
-  const int m = splits * k;
-  for (int c = threadIdx.x; c < m; c += blockDim.x) {
-    const int ic = pi[c];
-    if (ic < 0) continue;
-    const float dc = pd[c];
-    const int s = c / k;
-    int rank = c % k;
-    for (int t = 0; t < splits && rank < k; ++t)
-      if (t != s)
-        rank += WIDE ? rank_in_any(pd + (size_t)t * k, pi + (size_t)t * k, k, dc, ic)
-                     : rank_in(pd + t * k, pi + t * k, k, dc, ic);
-    if (rank < k) {
-      od[rank] = dc;
-      oi[rank] = ic;
-    }
-  }
-}
-
-const void* kernel_of(int product, bool wide) {
-  if (product == kDeep)
-    return wide ? reinterpret_cast<const void*>(scan_deep_kernel<true>)
-                : reinterpret_cast<const void*>(scan_deep_kernel<false>);
-  if (product == kF32)
-    return wide ? reinterpret_cast<const void*>(scan_f32_kernel<true>)
-                : reinterpret_cast<const void*>(scan_f32_kernel<false>);
-  return wide ? reinterpret_cast<const void*>(scan_tile_kernel<true>)
-              : reinterpret_cast<const void*>(scan_tile_kernel<false>);
+const void* kernel_of(int product) {
+  if (product == kDeep) return reinterpret_cast<const void*>(scan_deep_kernel);
+  if (product == kF32) return reinterpret_cast<const void*>(scan_f32_kernel);
+  return reinterpret_cast<const void*>(scan_tile_kernel);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1317,13 +1039,11 @@ extern "C" {
 // The launch plan of a (table type, d, k) on the current device, for a bf16
 // table whose rows are 16-byte aligned (aligned = 1) or not: out[P_FIELDS]
 // gets the product (0 tile, 1 deep, 2 f32), queries and corpus rows a tile,
-// candidates a buffer, whether the query tile stays resident in shared
-// memory, ring stages (deep), the block's dynamic shared memory, how many
-// blocks fit on one SM, and whether the lists live in a global scratch (the
-// caller allocates tq * k entries a block; always past KS). It also lets the
-// kernel use that much shared memory on this device, so the caller asks once
-// per (device, shape) and passes the plan to every launch. Returns a CUDA
-// error code.
+// whether the query tile stays resident in shared memory, the block's
+// dynamic shared memory, how many blocks fit on one SM, and the pool entries
+// per (query, split). It also lets the kernels use that much shared memory
+// on this device, so the caller asks once per (device, shape) and passes the
+// plan to every launch. Returns a CUDA error code.
 int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1331,40 +1051,38 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   const size_t cap = (size_t)optin;
-  int product, tq, tn, c, resident = 0, stages = 0, threads;
-  bool wide = k > KS;
+  int product, tq, tn, resident, threads;
   size_t smem;
-  if (!x_bf16) {
-    product = kF32, tq = FQ, tn = FN, c = CAP, threads = THREADS;
-    // Resident queries and narrow lists first; then streamed queries; then
-    // lists in the global scratch.
-    bool found = false;
-    for (int w = wide ? 1 : 0; w < 2 && !found; ++w)
-      for (int r = 1; r >= 0 && !found; --r)
-        if (f32_smem(r, d, k, w) <= cap) found = true, resident = r, wide = w;
-    smem = f32_smem(resident, d, k, wide);
-  } else if ((d <= TILE_MAX_D && tile_smem(1, d, k) <= cap) || d % 8 != 0 || !aligned) {
-    product = kTile, tq = TQ, tn = TN, c = CAP, threads = THREADS;
-    resident = tile_smem(1, d, k) <= cap;
-    smem = tile_smem(resident, d, k);
+  if (!x_bf16)
+    product = kF32;
+  else if (d <= TILE_MAX_D || d % 8 != 0 || !aligned)
+    product = kTile;
+  else
+    product = kDeep;
+  if (product == kF32) {  // resident queries where they fit, else streamed
+    tq = FQ, tn = FN, threads = THREADS;
+    resident = f32_smem(1, d) <= cap;
+    smem = f32_smem(resident, d);
+  } else if (product == kTile) {
+    tq = TQ, tn = TN, threads = THREADS;
+    resident = tile_smem(1, d) <= cap;
+    smem = tile_smem(resident, d);
   } else {
-    product = kDeep, tq = DQ, tn = DN, c = CAP, threads = DTHREADS;
-    if (!wide && deep_smem(DMIN_STAGES, k, false) > cap) wide = true;
-    stages = DMAX_STAGES;
-    while (stages > DMIN_STAGES && deep_smem(stages, k, wide) > cap) --stages;
-    smem = deep_smem(stages, k, wide);
+    tq = DQ, tn = DN, threads = DTHREADS, resident = 0;
+    smem = DEEP_SMEM;
   }
-  const void* fn = kernel_of(product, wide);
+  const void* fn = kernel_of(product);
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(wsel::finish_rows),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return (int)e;
   out[P_PRODUCT] = product;
   out[P_TQ] = tq;
   out[P_TN] = tn;
-  out[P_CAP] = c;
   out[P_RESIDENT] = resident;
-  out[P_STAGES] = stages;
   out[P_SMEM] = (int)smem;
-  out[P_WIDE] = wide;
+  out[P_POOL] = wsel::pool_cap(k);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + P_BPS, fn, threads,
                                                             (int)smem);
 }
@@ -1373,31 +1091,22 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
 // [N] f32 (read for l2 only); mask [N] bytes or NULL. plan is the host array
 // vecgo_scan_topk_plan filled for this (table type, d, k, alignment) on this
 // device. qb is a [B, pad16(d)] bf16 scratch (deep product, else NULL) and qn
-// a [B] f32 scratch (deep and f32 products). cand_d/cand_i are the candidate
-// buffers, [blocks, tq, cap] f32 / int32 scratch with blocks = ceil(B / tq) *
-// splits; list_d/list_i the lists, [blocks, tq, k] scratch when the plan's
-// lists are global, else NULL. With splits > 1, part_d/part_i are [B, splits,
-// k] scratch and the merge writes out_d/out_i [B, k]; with splits == 1 the
-// scan writes out_d/out_i directly. Returns the CUDA error code of the
-// launches (0 on success).
+// a [B] f32 scratch (deep and f32 products). With blocks = ceil(B / tq) *
+// splits, pool is a [blocks, tq, plan pool] 64-bit scratch and pool_n a
+// [blocks, tq] int32 scratch; a finishing kernel writes out_d/out_i [B, k].
+// Returns the CUDA error code of the launches (0 on success).
 int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void* mask, int B,
                     int N, int d, int k, int metric, int rows_per_split, int splits,
-                    const int* plan, void* qb, void* qn, void* cand_d, void* cand_i,
-                    void* list_d, void* list_i, void* part_d, void* part_i, void* out_d,
+                    const int* plan, void* qb, void* qn, void* pool, void* pool_n, void* out_d,
                     void* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool direct = splits == 1, wide = plan[P_WIDE] != 0;
-  const int product = plan[P_PRODUCT], smem = plan[P_SMEM];
-  float* pd = static_cast<float*>(direct ? out_d : part_d);
-  int* pi = static_cast<int*>(direct ? out_i : part_i);
+  const int product = plan[P_PRODUCT], smem = plan[P_SMEM], pcap = plan[P_POOL];
   const float* qf = static_cast<const float*>(q);
   const float* xn = static_cast<const float*>(xnorm2);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   float* qnf = static_cast<float*>(qn);
-  float* cdd = static_cast<float*>(cand_d);
-  int* cii = static_cast<int*>(cand_i);
-  float* gld = static_cast<float*>(list_d);
-  int* gli = static_cast<int*>(list_i);
+  unsigned long long* pl = static_cast<unsigned long long*>(pool);
+  int* pn = static_cast<int*>(pool_n);
   const dim3 grid((B + plan[P_TQ] - 1) / plan[P_TQ], splits);
   if (product == kDeep) {
     const int dp = pad_depth(d);
@@ -1409,31 +1118,27 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
     int r = encode_bf16_2d(&qmap, qbb, B, dp, DQ);
     if (r == 0) r = encode_bf16_2d(&xmap, x, N, d, DN);
     if (r != 0) return r;
-    auto kern = wide ? scan_deep_kernel<true> : scan_deep_kernel<false>;
-    kern<<<grid, DTHREADS, smem, st>>>(qmap, xmap, qnf, xn, mk, B, N, d, k, metric,
-                                       rows_per_split, plan[P_STAGES], cdd, cii, gld, gli, pd,
-                                       pi);
+    scan_deep_kernel<<<grid, DTHREADS, smem, st>>>(qmap, xmap, qnf, xn, mk, B, N, d, k, metric,
+                                                   rows_per_split, DSTAGES, pl, pn, pcap);
   } else if (product == kF32) {
     prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, d, nullptr, qnf);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    auto kern = wide ? scan_f32_kernel<true> : scan_f32_kernel<false>;
-    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), qnf, xn, mk, B, N, d, k,
-                                      metric, rows_per_split, plan[P_RESIDENT], vec, cdd, cii,
-                                      gld, gli, pd, pi);
+    scan_f32_kernel<<<grid, THREADS, smem, st>>>(qf, static_cast<const float*>(x), qnf, xn, mk,
+                                                 B, N, d, k, metric, rows_per_split,
+                                                 plan[P_RESIDENT], vec, pl, pn, pcap);
   } else {
-    auto kern = wide ? scan_tile_kernel<true> : scan_tile_kernel<false>;
-    kern<<<grid, THREADS, smem, st>>>(qf, static_cast<const __nv_bfloat16*>(x), xn, mk, B, N, d,
-                                      k, metric, rows_per_split, plan[P_RESIDENT], cdd, cii, gld,
-                                      gli, pd, pi);
+    scan_tile_kernel<<<grid, THREADS, smem, st>>>(qf, static_cast<const __nv_bfloat16*>(x), xn,
+                                                  mk, B, N, d, k, metric, rows_per_split,
+                                                  plan[P_RESIDENT], pl, pn, pcap);
   }
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || direct) return (int)e;
-  auto merge = k > KS ? merge_kernel<true> : merge_kernel<false>;
-  merge<<<B, 128, 0, st>>>(pd, pi, splits, k, static_cast<float*>(out_d),
-                           static_cast<int*>(out_i));
+  if (e != cudaSuccess) return (int)e;
+  wsel::finish_rows<<<B, wsel::FIN_THREADS, wsel::fin_smem(k), st>>>(
+      pl, pn, grid.x * plan[P_TQ], splits, pcap, k, static_cast<float*>(out_d),
+      static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 

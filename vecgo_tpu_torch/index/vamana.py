@@ -61,7 +61,7 @@ _SCAN_BLOCK = 65536
 
 
 # Coded candidates a probed cluster in the cached search; four times as many
-# for a PQ host table (kernel B takes kk <= 64).
+# for a PQ host table (64: still within kernel B's in-shared-memory lists).
 CACHED_KK = 16
 
 

@@ -4,8 +4,9 @@ At first use, nvcc compiles every `vecgo_tpu_torch/csrc/*.cu` into an object
 file, one nvcc process per source, all started together, and links them
 into one shared library with a plain C interface, which `ctypes` loads. The
 library lands in `build/vecgo_tpu_torch/` at the root of the checkout, named
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. A failed build raises with nvcc's stderr; ptxas's
+by a hash of the sources, the headers they share (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged tree is
+reused. A failed build raises with nvcc's stderr; ptxas's
 register and shared-memory report of the last build is kept in `BUILD_LOG`. Nothing here runs at
 import time: the CPU tests import every module of the port on machines
 without nvcc.
@@ -48,14 +49,16 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vecgo_scan_topk.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                    p, p, p, p, p, p, p, p, p, p, p, p]
+    lib.vecgo_scan_topk.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.vecgo_scan_topk.restype = i
     lib.vecgo_scan_topk_plan.argtypes = [i, i, i, i, p]
     lib.vecgo_scan_topk_plan.restype = i
     lib.vecgo_coded_group_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.vecgo_coded_group_scan.restype = i
-    lib.vecgo_coded_group_scan_layout.argtypes = [i, i, i, p, p]
+    lib.vecgo_coded_group_scan_pooled.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                                  p, p, p, p, p]
+    lib.vecgo_coded_group_scan_pooled.restype = i
+    lib.vecgo_coded_group_scan_layout.argtypes = [i, i, i, i, p, p, p]
     lib.vecgo_coded_group_scan_layout.restype = i
     lib.vecgo_coded_group_scan_prepare.argtypes = []
     lib.vecgo_coded_group_scan_prepare.restype = i
@@ -72,7 +75,7 @@ def library() -> ctypes.CDLL:
             return _lib
         sources = sorted(CSRC.glob("*.cu"))
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sources + sorted(CSRC.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         out = BUILD_DIR / f"libvecgo_kernels_{h.hexdigest()[:16]}.so"

@@ -5,6 +5,9 @@ SQ8 residual codes of every probed cluster against the queries that probe
 it, and keeps each (cluster, query) pair's kk nearest slots. On a CUDA tensor
 it launches `csrc/coded_group_scan.cu` (or raises); on a CPU tensor it runs
 `coded_group_scan_reference`, the plain PyTorch version it is tested against.
+Any 1 <= kk <= S: up to 64 each query's list lives in the kernel's shared
+memory; past it each (cluster, query slot) pools its survivors in a global
+scratch that the wrapper allocates, and a second kernel selects and sorts.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import math
 
 import torch
 
-MAX_KK = 64  # one or two list entries per lane of a warp
+LIST_KK = 64  # up to here one or two list entries a lane; past it, pools
 _BIG = 3.0e38
 _MAX_SMEM = 232_448  # shared memory a block may opt into (sm_90)
 _MAX_GRID_X = 2**31 - 1
@@ -24,12 +27,14 @@ _REF_BLOCK_ELEMS = 1 << 26
 _prepared: set = set()
 
 
-def _layout(lib, d: int, qcap: int, kk: int):
-    """(query slots per block, dynamic shared memory bytes) of the kernel at
-    this (d, qcap, kk), as the library computes them."""
-    qg, smem = ctypes.c_int(), ctypes.c_int()
-    lib.vecgo_coded_group_scan_layout(d, qcap, kk, ctypes.byref(qg), ctypes.byref(smem))
-    return qg.value, smem.value
+def _layout(lib, d: int, qcap: int, kk: int, s: int):
+    """(query slots per block, dynamic shared memory bytes, pool entries of a
+    (cluster, query slot) past LIST_KK) of the kernel at this (d, qcap, kk,
+    S), as the library computes them."""
+    qg, smem, pool = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.vecgo_coded_group_scan_layout(d, qcap, kk, s, ctypes.byref(qg), ctypes.byref(smem),
+                                      ctypes.byref(pool))
+    return qg.value, smem.value, pool.value
 
 
 def _check(q, qtab, codes, bn, scale, cent, kk):
@@ -46,8 +51,8 @@ def _check(q, qtab, codes, bn, scale, cent, kk):
     for name, t, shape in (("bn", bn, (k, s)), ("scale", scale, (k,)), ("cent", cent, (k, d))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} float32, got {tuple(t.shape)} {t.dtype}")
-    if not 1 <= kk <= min(MAX_KK, s):
-        raise ValueError(f"coded_group_scan supports 1 <= kk <= min({MAX_KK}, S={s}), got {kk}")
+    if not 1 <= kk <= s:
+        raise ValueError(f"coded_group_scan supports 1 <= kk <= S={s}, got {kk}")
     for t in (qtab, codes, bn, scale, cent):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
@@ -78,25 +83,30 @@ def coded_group_scan(q, qtab, codes, bn, scale, cent, kk: int):
     from vecgo_tpu_torch.kernels import _build
 
     lib = _build.library()
-    qg, smem = _layout(lib, d, qcap, kk)
+    qg, smem, pool_cap = _layout(lib, d, qcap, kk, s)
     if smem > _MAX_SMEM:
         raise ValueError(f"coded_group_scan: d={d} needs {smem} bytes of shared memory "
                          f"(at most {_MAX_SMEM})")
-    if k * -(-qcap // qg) > _MAX_GRID_X:
-        raise ValueError(f"coded_group_scan supports K * ceil(qcap / {qg}) <= {_MAX_GRID_X}, "
-                         f"got K={k}, qcap={qcap}")
+    if k * -(-qcap // qg) > _MAX_GRID_X or (kk > LIST_KK and k * qcap > _MAX_GRID_X):
+        raise ValueError(f"coded_group_scan supports K * ceil(qcap / {qg}) <= {_MAX_GRID_X} "
+                         f"(and K * qcap past kk {LIST_KK}), got K={k}, qcap={qcap}")
     _prepare(lib, q.device)
     out_d = torch.empty((k, qcap, kk), dtype=torch.float32, device=q.device)
     out_i = torch.empty((k, qcap, kk), dtype=torch.int32, device=q.device)
     if k == 0 or qcap == 0:
         return out_d, out_i
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), qtab.data_ptr(), codes.data_ptr(), bn.data_ptr(), scale.data_ptr(),
+            cent.data_ptr(), b, k, qcap, s, d, kk)
     with torch.cuda.device(q.device):  # the C launch uses the current device
-        rc = lib.vecgo_coded_group_scan(
-            q.data_ptr(), qtab.data_ptr(), codes.data_ptr(), bn.data_ptr(),
-            scale.data_ptr(), cent.data_ptr(), b, k, qcap, s, d, kk,
-            out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if kk <= LIST_KK:
+            rc = lib.vecgo_coded_group_scan(*ptrs, out_d.data_ptr(), out_i.data_ptr(), stream)
+        else:
+            # Each (cluster, query slot)'s pool of 64-bit keys and its count.
+            pool = torch.empty(k * qcap * pool_cap, dtype=torch.int64, device=q.device)
+            pool_n = torch.empty(k * qcap, dtype=torch.int32, device=q.device)
+            rc = lib.vecgo_coded_group_scan_pooled(*ptrs, pool.data_ptr(), pool_n.data_ptr(),
+                                                   out_d.data_ptr(), out_i.data_ptr(), stream)
     _build.check(rc, "coded_group_scan launch")
     coded_group_scan.launches += 1
     return out_d, out_i

@@ -2,14 +2,16 @@
 
 `scan_topk` is the one kernel of the flat path. It carries the flat-segment
 pool scan, the compact-gather scan, the memtable chunks, the device BM25
-sweep and every quantized or streamed block scan, at any k (a pool wider
-than 256 takes the kernel's wide shape, whose lists live in a global
-scratch). On a CUDA tensor it launches `csrc/scan_topk.cu` (or raises); on a
-CPU tensor it runs `scan_topk_reference`, the plain PyTorch version it is
+sweep and every quantized or streamed block scan, at any k (the kernel's
+selection: unsorted candidate pools in a global scratch, compacted by radix
+selection, and a finishing kernel that selects and sorts each query's k).
+On a CUDA tensor it launches `csrc/scan_topk.cu` (or raises); on a CPU
+tensor it runs `scan_topk_reference`, the plain PyTorch version it is
 tested against. The library's plan picks one of three products by the
-table's type, depth, k and alignment (`PRODUCTS`): the bf16 tile product
-(d up to ~1,500), the deep bf16 product (TMA-fed `wgmma`) and the f32
-product (FMA units); `scan_topk.last_product` names the last launch's.
+table's type, depth and alignment (`PRODUCTS`): the bf16 tile product
+(d up to 128, or rows TMA cannot read), the deep bf16 product (TMA-fed
+`wgmma`) and the f32 product (FMA units); `scan_topk.last_product` names
+the last launch's.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ _METRIC_CODES = {Metric.L2: 0, Metric.DOT: 1, Metric.COSINE: 2}
 _REF_BLOCK_ELEMS = 1 << 26
 # Corpus rows per tile of the bf16 tile product (TN in csrc/scan_topk.cu).
 _TN = 64
-# Merge cost grows with splits * k candidates per query; keep it bounded.
-_MAX_MERGE_WIDTH = 8192
-# A split scans at least this many tiles, so the bulk merges that fill its
-# lists stay a small part of its work.
+# The finishing kernel reads every split's pool of a query: splits * pool
+# entries at most this many.
+_MAX_POOL_WIDTH = 65536
+# A split scans at least this many tiles, so the compactions that fill its
+# pools stay a small part of its work.
 _MIN_TILES_PER_SPLIT = 32
 # The f32 product's tiles (128 x 128) are 4x the tile product's work, and the
 # memtable's 8,192-row chunks are only 64 of them: 16 tiles a split (four
@@ -46,21 +49,19 @@ _plans: dict = {}
 
 class Plan(NamedTuple):
     """The library's launch plan for one (device, table type, d, k,
-    alignment): product, queries and rows a tile, candidates a buffer,
-    whether the query tile stays resident in shared memory, ring stages,
-    dynamic shared memory, blocks an SM holds, the SM count, whether the
-    lists live in a global scratch, and the int array the launch takes."""
+    alignment): product, queries and rows a tile, whether the query tile
+    stays resident in shared memory, dynamic shared memory, blocks an SM
+    holds, the SM count, pool entries per (query, split), and the int array
+    the launch takes."""
 
     product: str
     tq: int
     tn: int
-    cap: int
     resident: int
-    stages: int
     smem: int
     bps: int
     sms: int
-    wide: bool
+    pool: int
     raw: object
 
     @property
@@ -106,11 +107,9 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
 
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
     otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
-    card each call also allocates the kernel's candidate buffers (1 KB a
-    query per row split), its lists where they live in a global scratch
-    (8 k bytes a query per split: past k = 256, and where shared memory
-    holds the tiles instead), and for the deep and f32 products |q|^2 and
-    (deep) the queries rounded to bf16.
+    card each call also allocates the kernel's candidate pools (about 16 k
+    bytes a query per row split, 1.25 KB at least), and for the deep and
+    f32 products |q|^2 and (deep) the queries rounded to bf16.
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -133,20 +132,18 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
         return out_d.fill_(math.inf), out_i.fill_(-1)
     bf16 = int(x.dtype == torch.bfloat16)
     plan = _plan(lib, q.device, bf16, d, k, int(x.data_ptr() % 16 == 0))
-    tq, cap = plan.tq, plan.cap
-    splits, rows_per_split = split_plan(b, n, k, tq, plan.bps * plan.sms, plan.tn,
+    tq = plan.tq
+    splits, rows_per_split = split_plan(b, n, tq, plan.bps * plan.sms, plan.pool, plan.tn,
                                         plan.min_tiles)
     blocks = -(-b // tq) * splits
 
     def scratch(count, dtype=torch.float32):
         return torch.empty(count, dtype=dtype, device=q.device)
 
-    cand_d, cand_i = scratch(blocks * tq * cap), scratch(blocks * tq * cap, torch.int32)
-    list_d = list_i = part_d = part_i = qb = qn = None
-    if plan.wide:
-        list_d, list_i = scratch(blocks * tq * k), scratch(blocks * tq * k, torch.int32)
-    if splits > 1:
-        part_d, part_i = scratch(b * splits * k), scratch(b * splits * k, torch.int32)
+    qb = qn = None
+    # 64-bit keys (score, row) and their counts
+    pool = scratch(blocks * tq * plan.pool, torch.int64)
+    pool_n = scratch(blocks * tq, torch.int32)
     if plan.product != "tile":
         qn = scratch(b)
     if plan.product == "deep":
@@ -159,8 +156,7 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
         rc = lib.vecgo_scan_topk(
             q.data_ptr(), x.data_ptr(), ptr(xnorm2) if code == 0 else None, ptr(mask),
             b, n, d, k, code, rows_per_split, splits, ctypes.addressof(plan.raw), ptr(qb),
-            ptr(qn), ptr(cand_d), ptr(cand_i), ptr(list_d), ptr(list_i), ptr(part_d), ptr(part_i),
-            out_d.data_ptr(), out_i.data_ptr(),
+            ptr(qn), pool.data_ptr(), pool_n.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(rc, "scan_topk launch")
@@ -180,32 +176,33 @@ def _plan(lib, device, bf16: int, d: int, k: int, aligned: int = 1) -> Plan:
     if key not in _plans:
         from vecgo_tpu_torch.kernels import _build
 
-        raw = (ctypes.c_int * 9)()
+        raw = (ctypes.c_int * 7)()
         with torch.cuda.device(device):
             rc = lib.vecgo_scan_topk_plan(bf16, d, k, aligned, ctypes.addressof(raw))
         _build.check(rc, "scan_topk plan")
-        product, tq, tn, cap, resident, stages, smem, bps, wide = raw
+        product, tq, tn, resident, smem, bps, pool = raw
         if bps < 1:
             raise RuntimeError(f"scan_topk: no block fits one SM (bf16={bf16}, d={d}, k={k})")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _plans[key] = Plan(PRODUCTS[product], tq, tn, cap, resident, stages, smem, bps, sms,
-                           bool(wide), raw)
+        _plans[key] = Plan(PRODUCTS[product], tq, tn, resident, smem, bps, sms, pool, raw)
     return _plans[key]
 
 
-def split_plan(b: int, n: int, k: int, tq: int, slots: int, tn: int = _TN,
+def split_plan(b: int, n: int, tq: int, slots: int, pool: int, tn: int = _TN,
                min_tiles: int = _MIN_TILES_PER_SPLIT):
     """(splits, rows_per_split) for B queries in tiles of `tq` over N rows in
-    tiles of `tn`, with `slots` blocks resident on the card at once.
+    tiles of `tn`, with `slots` blocks resident on the card at once and
+    `pool` entries in each (query, split)'s candidate pool.
 
     Query tiles alone rarely fill the card (4096 queries are 64 tiles of
     64), so the rows are split too: the fewest splits whose grid fills its
     last wave to `_WAVE_FILL`, between one full wave and the most splits
-    that keep `min_tiles` tiles each and the merge narrow.
+    that keep `min_tiles` tiles each and the finishing kernel's reads
+    (splits * pool) within `_MAX_POOL_WIDTH`.
     """
     q_tiles = -(-b // tq)
     n_tiles = -(-n // tn)
-    s_max = max(1, min(n_tiles // min_tiles, _MAX_MERGE_WIDTH // k))
+    s_max = max(1, min(n_tiles // min_tiles, _MAX_POOL_WIDTH // pool))
     s_min = min(s_max, -(-slots // q_tiles))
     best, best_fill = s_min, 0.0
     for s in range(s_min, min(s_max, 8 * s_min) + 1):

@@ -125,7 +125,7 @@ class BlockScanner:
     (`Quantizer.scan_form`), the block is decoded to a transient bf16 table
     and handed to the kernel with the transformed query; the per-query
     constant the transform drops is added to the returned distances (it
-    changes no ranking). Any k goes to the kernel (past 256 its wide shape).
+    changes no ranking). Any k goes to the kernel.
     Where the score has no such form (cosine's and RaBitQ's per-row factors,
     symmetric Hamming), the block's plain [B, rows] score matrix goes through
     a plain selection, in sub-blocks of at most 2^26 scores.
