@@ -10,7 +10,8 @@ once on one CUDA card.
    (one nvcc per source, all started together).
 2. Kernel phase: `scan_topk` against its plain PyTorch version on the card at
    the shapes the engine gives it (the segment scan at pools 18 and 82, f32
-   memtable chunks at pools 74 and 82, wide rows), plus k = 256, the deep
+   memtable chunks at pools 74 and 82, wide rows), the short bf16 product at
+   d 96 and at d 256 (its crossover to the deep product), plus k = 256, the deep
    bf16 shapes (262,144 x 3,072 at k 10; the dbpedia-openai-1M shape,
    1M x 1,536 cos, at k 100) and the f32 scan over 1M x 128 that
    ShardedFlat splits; each case prints the kernel product that ran (the
@@ -2819,8 +2820,15 @@ def main() -> int:
     # at the churn margin's pool, the memtable's f32 chunks at its pools,
     # wide f32 rows, k 256, and pools past 256.
     cases = [
-        kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card, "tile"),
-        kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card, "tile"),
+        kernel_case("segment-k18", rng, BATCH, N, DIM, 18, torch.bfloat16, "l2", 0, card, "short"),
+        kernel_case("segment-k82", rng, BATCH, N, DIM, 82, torch.bfloat16, "l2", 0, card, "short"),
+        # The short product at a depth that is not a multiple of 64 (96: the
+        # second chunk half zeros), and at the deepest table it takes (256,
+        # the plan's crossover to the deep product).
+        kernel_case("segment-d96-k18", rng, BATCH, N, 96, 18, torch.bfloat16, "l2", 0, card,
+                    "short", on_device=True),
+        kernel_case("crossover-d256-k18", rng, BATCH, N // 2, 256, 18, torch.bfloat16, "l2", 0,
+                    card, "short", on_device=True),
         kernel_case("chunk-pool74", rng, BATCH, 8192, DIM, 74, torch.float32, "l2", 0.3, card,
                     "f32"),
         kernel_case("chunk-pool82", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card,

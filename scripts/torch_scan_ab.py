@@ -11,7 +11,8 @@ package imported from its root, its kernels built there by its own
 `_build`), in the order other, this, this, other; every process makes the
 same inputs on the card from --seed and times every case with CUDA events
 over --reps launches after a warm-up. Cases: the segment's bf16 pool scan
-(4096 x 1M x 128, k 18 and 82), the memtable's f32 chunks (8,192 rows, k 74
+(4096 x 1M x 128, k 18 and 82; at d 96; 524,288 x 256 at k 18, the deepest
+table the short product takes), the memtable's f32 chunks (8,192 rows, k 74
 with 30% masked and k 82), f32 cos at d 768, the f32 scan over 1M x 128
 that ShardedFlat splits (k 10), the deep bf16 shapes (262,144 x 3,072 l2
 k 10; 1M x 1,536 cos k 100) and the BM25 sweep (4096 x 1,049,576 x 4096,
@@ -21,11 +22,16 @@ over the segment and over one 131,072-row block, k 4096 over 65,536 rows
 (10% masked) and a memtable chunk at the pool of a k = 300 query (f32,
 8,192 rows, k 308).
 
---sweep also times, in this tree alone: the tile and the deep bf16 product
-on the same inputs at d 128-1,536 (the deep product driven past the plan's
-choice by handing the wrapper the plan of a d = 4096 table) and the f32
-chunk shape at each minimum of tiles a split. Prints one line per case with
-the card's name and power limit, then one JSON line.
+--sweep also times, in this tree alone, the bf16 products on the same
+inputs (4096 queries, clustered l2 rows) at d 8-512 and k 1-1000: the short
+product to d 256 (its plan, as the library gives it for an aligned table),
+the deep product (driven past the plan's choice by the plan of a d = 4096
+table) and, to d 128, the tile product (by the plan of an unaligned table);
+the f32 chunk shape at each minimum of tiles a split; and the short
+product's split minimum on probed-partition shapes (512 and 2,048 queries
+over 8,192 and 34,304 rows at k 100, 64 queries over 8,192 and 131,072
+rows), with the tile product on the same inputs. Prints one line
+per case with the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ B = 4096
 CASES = {
     "segment-k18": (1 << 20, 128, 18, "bf16", "l2", 0.0, "clustered"),
     "segment-k82": (1 << 20, 128, 82, "bf16", "l2", 0.0, "clustered"),
+    "segment-d96-k18": (1 << 20, 96, 18, "bf16", "l2", 0.0, "clustered"),
+    "crossover-d256-k18": (1 << 19, 256, 18, "bf16", "l2", 0.0, "clustered"),
     "chunk-pool74": (8192, 128, 74, "f32", "l2", 0.3, "clustered"),
     "chunk-pool82": (8192, 128, 82, "f32", "l2", 0.0, "clustered"),
     "wide-d768": (65536, 768, 10, "f32", "cos", 0.0, "clustered"),
@@ -116,27 +124,39 @@ def worker(root, seed, reps, sweep):
     print(json.dumps(out), flush=True)
 
 
+# The sweep's depths and pools.
+SWEEP_D = (8, 16, 32, 64, 96, 128, 160, 192, 256, 384, 512)
+SWEEP_K = (1, 18, 82, 256, 1000)
+
+
 def sweep_products(torch, st, seed, reps):
-    """Tile against deep bf16 products by d, and the f32 chunk by split
-    minimum (this tree's plan and split rule, driven past their choice)."""
+    """The short, tile and deep bf16 products by d and k, and the f32 chunk
+    by split minimum (this tree's plans and split rule, driven past their
+    choice)."""
     from vecgo_tpu_torch.kernels import _build
 
     lib, dev = _build.library(), torch.device("cuda")
     plan_of = st._plan
     rows = {}
-    for k in (18, 82):
-        deep = plan_of(lib, dev, 1, 4096, k, 1)
-        for d in (128, 160, 192, 256, 512, 768, 1024, 1536):
-            n = 1 << 20 if d <= 256 else 1 << 19 if d <= 1024 else 1 << 18
-            q, x, xn, _ = make(torch, seed + d, n, d, torch.bfloat16, "l2", 0.0, "clustered")
-            st._plan = lambda *a, **kw: plan_of(lib, dev, 1, d, k, 0)  # unaligned: the tile plan
-            tile = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
-            st._plan = lambda *a, **kw: deep
-            deep_ms = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
-            st._plan = plan_of
-            rows[f"bf16 d{d} N{n} k{k}"] = {"tile_ms": tile, "deep_ms": deep_ms}
-            del q, x, xn
-            torch.cuda.empty_cache()
+    for d in SWEEP_D:
+        n = 1 << 20 if d <= 128 else 1 << 19 if d <= 256 else 1 << 18
+        q, x, xn, _ = make(torch, seed + d, n, d, torch.bfloat16, "l2", 0.0, "clustered")
+        for k in SWEEP_K:
+            plans = {"deep": plan_of(lib, dev, 1, 4096, k, 1)}
+            own = plan_of(lib, dev, 1, d, k, 1)
+            if own.product == "short":
+                plans["short"] = own
+            if d <= 128:
+                plans["tile"] = plan_of(lib, dev, 1, d, k, 0)  # unaligned: the tile plan
+            row = {}
+            for name, plan in plans.items():
+                st._plan = lambda *a, **kw: plan
+                row[f"{name}_ms"] = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+                st._plan = plan_of
+            row["plan"] = own.product
+            rows[f"bf16 d{d} N{n} k{k}"] = row
+        del q, x, xn
+        torch.cuda.empty_cache()
     chunk = {}
     floor = st._MIN_TILES_F32
     for k in (10, 82):
@@ -146,7 +166,24 @@ def sweep_products(torch, st, seed, reps):
             chunk[f"f32 chunk k{k} min_tiles {tiles}"] = time_ms(
                 torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
         st._MIN_TILES_F32 = floor
-    return {"products": rows, "chunk_splits": chunk}
+    short = {}
+    floor = st._MIN_TILES_SHORT
+    # Probed partitions (a few hundred queries over a few thousand rows) and
+    # a small batch over a block: the short product's split minimum.
+    for b, n, k in ((512, 8192, 100), (2048, 34304, 100), (64, 8192, 100), (64, 131072, 18)):
+        q, x, xn, _ = make(torch, seed + n + k, n, 128, torch.bfloat16, "l2", 0.0, "clustered")
+        q = q[:b].contiguous()
+        for tiles in (1, 2, 4, 8, 16, 32):
+            st._MIN_TILES_SHORT = tiles
+            short[f"short B{b} N{n} k{k} min_tiles {tiles}"] = time_ms(
+                torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+        st._MIN_TILES_SHORT = floor
+        tile = plan_of(lib, dev, 1, 128, k, 0)
+        st._plan = lambda *a, **kw: tile
+        short[f"short B{b} N{n} k{k} tile product"] = time_ms(
+            torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+        st._plan = plan_of
+    return {"products": rows, "chunk_splits": chunk, "short_splits": short}
 
 
 def main() -> int:
@@ -197,8 +234,12 @@ def main() -> int:
         sweep = runs["this"][0]["sweep"]
         result["sweep"] = sweep
         for key, v in sweep["products"].items():
-            print(f"sweep {key}: tile {v['tile_ms']:.3f} ms, deep {v['deep_ms']:.3f} ms [{card}]")
+            times = ", ".join(f"{p} {v[p + '_ms']:.3f} ms" for p in ("short", "tile", "deep")
+                              if p + "_ms" in v)
+            print(f"sweep {key}: {times}; the plan picks {v['plan']} [{card}]")
         for key, v in sweep["chunk_splits"].items():
+            print(f"sweep {key}: {v:.3f} ms [{card}]")
+        for key, v in sweep["short_splits"].items():
             print(f"sweep {key}: {v:.3f} ms [{card}]")
     print(json.dumps(result))
     return 0

@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Where `scan_topk`'s short product spends its time, on one CUDA card, by
+instrumented builds of this tree's kernel.
+
+    python3 scripts/torch_scan_profile.py [--seed 0] [--reps 5] [--variants a,b]
+
+The card's profilers (ncu, nsys) are not available to this repository's
+runs, so the short product is taken apart by builds: each variant is a copy
+of `vecgo_tpu_torch/` under `build/scan_profile/<variant>/` with a few
+source lines replaced (each replacement must match exactly once, so a
+variant that no longer fits the kernel fails loudly), built by its own
+`_build` in a process of its own. Every variant counts, in two device
+counters, the warp passes whose vote found a survivor (the rare path:
+exact scores, pushes, compactions) and the pool compactions (of every
+product: the short product's alone run in these shapes). Variants:
+
+- built: the kernel as it is (plus the counters);
+- no-score: the score pass skipped (the TMA ring, the products and the
+  turns alone);
+- fast-only: the fast test and the vote run, the rare path never does;
+- no-bound: each split keeps its own threshold, nothing shared;
+- two-wg: two consumer warpgroups at every depth and k (the plan gives
+  three up to d = 192 and k = 64);
+- bound-late: the shared bounds loaded in the tile that uses them, not a
+  tile ahead.
+
+Shapes: 4096 clustered queries over clustered l2 rows (1,048,576 rows, or
+524,288 at d 256; chip_smoke.py's generator, made on the card from
+--seed) at (d, k) in SHAPES. Each prints its time (CUDA events over --reps
+launches after a warm-up), the rare passes (and their share of all warp
+passes), the compactions and the device time of each kernel
+(torch.profiler over two launches), with the card's name and power limit,
+then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B = 4096
+SHAPES = ((128, 18), (128, 1), (128, 64), (128, 82), (128, 256), (128, 1000), (256, 18))
+
+_COUNT = [
+    ("namespace {\n\nconstexpr int THREADS",
+     "namespace {\n__device__ unsigned long long g_rare = 0, g_comp = 0;\nconstexpr int THREADS"),
+    ("    if (!(vote0 | vote1)) continue;\n",
+     "    if (!(vote0 | vote1)) continue;\n    if (lane == 0) atomicAdd(&g_rare, 1ull);\n"),
+    ("    const int m = m0 + __ffs(todo) - 1;\n      todo &= todo - 1;\n      float t;",
+     "    const int m = m0 + __ffs(todo) - 1;\n      todo &= todo - 1;\n"
+     "      if (lane == 0) atomicAdd(&g_comp, 1ull);\n      float t;"),
+    ('extern "C" {\n',
+     'extern "C" {\nunsigned long long vecgo_profile_count(int which) {\n'
+     '  unsigned long long v = 0, z = 0;\n'
+     '  cudaMemcpyFromSymbol(&v, which ? g_comp : g_rare, 8);\n'
+     '  cudaMemcpyToSymbol(which ? g_comp : g_rare, &z, 8);\n  return v;\n}\n'),
+]
+VARIANTS = {
+    "built": [],
+    "no-score": [("      if (scores) {", "      if (scores && pm < 0.f) {")],
+    "fast-only": [("    if (!(vote0 | vote1)) continue;\n",
+                   "    if (!(vote0 | vote1) || pm > 0.f) continue;\n")],
+    "no-bound": [("          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));",
+                  "          th[h] = own[h];")],
+    "two-wg": [("constexpr int SHORT_WG3_MAX_K = 64;", "constexpr int SHORT_WG3_MAX_K = 0;")],
+    "bound-late": [("        key[h] = next_key[h];\n"
+                    "        next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);",
+                    "        key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);")],
+}
+
+
+def make_tree(name: str) -> str:
+    """This tree's package with the variant's replacements (and the
+    counters) under build/scan_profile/<name>/."""
+    dst = os.path.join(HERE, "build", "scan_profile", name)
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(os.path.join(HERE, "vecgo_tpu_torch"), os.path.join(dst, "vecgo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(dst, "vecgo_tpu_torch", "csrc", "scan_topk.cu")
+    with open(src) as f:
+        text = f.read()
+    for old, new in _COUNT + VARIANTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old[:60]!r} matches {text.count(old)} times")
+        text = text.replace(old, new)
+    with open(src, "w") as f:
+        f.write(text)
+    return dst
+
+
+def worker(root: str, seed: int, reps: int) -> None:
+    sys.path.insert(0, root)
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vecgo_tpu_torch.kernels import _build
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    lib = _build.library()
+    lib.vecgo_profile_count.restype = ctypes.c_ulonglong
+    lib.vecgo_profile_count.argtypes = [ctypes.c_int]
+    dev = torch.device("cuda")
+    out = {}
+    for i, (d, k) in enumerate(SHAPES):
+        n = 1 << 20 if d <= 128 else 1 << 19
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        centres = torch.randn((1024, d), generator=g, device=dev)
+        x = centres[torch.randint(0, 1024, (n,), generator=g, device=dev)]
+        x += 0.35 * torch.randn((n, d), generator=g, device=dev)
+        q = centres[torch.randint(0, 1024, (B,), generator=g, device=dev)]
+        q += 0.35 * torch.randn((B, d), generator=g, device=dev)
+        xn = (x * x).sum(1)
+        xb = x.bfloat16()
+        del x
+
+        def run():
+            return st.scan_topk(q, xb, xn, k, "l2")
+
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        lib.vecgo_profile_count(0)
+        lib.vecgo_profile_count(1)
+        run()
+        torch.cuda.synchronize()
+        rare, comp = lib.vecgo_profile_count(0), lib.vecgo_profile_count(1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            run()
+            torch.cuda.synchronize()
+        kernels = {ev.key.split("(")[0].split("::")[-1][:32]: ev.device_time_total / 2e3
+                   for ev in prof.key_averages() if ev.device_time_total > 0}
+        out[f"d{d} k{k}"] = {"n": n, "ms": ms, "product": st.scan_topk.last_product,
+                             "rare_passes": rare, "rare_share": rare / ((B // 16) * (n // 64)),
+                             "compactions": comp, "kernels_ms": kernels}
+        del q, xb, xn
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.seed, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_scan_profile: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    names = args.variants.split(",")
+    trees = {name: make_tree(name) for name in names}
+    result = {"card": card, "variants": {}}
+    for name, root in trees.items():
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                               "--seed", str(args.seed), "--reps", str(args.reps)],
+                              capture_output=True, text=True, cwd=root)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"variant {name} failed ({proc.returncode})")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        result["variants"][name] = res
+        for shape, v in res.items():
+            kern = ", ".join(f"{a} {b:.3f}" for a, b in v["kernels_ms"].items())
+            print(f"scan profile {name} {shape} N={v['n']}: {v['product']} {v['ms']:.3f} ms, "
+                  f"rare passes {v['rare_passes']} ({v['rare_share']:.2%}), compactions "
+                  f"{v['compactions']}; device ms: {kern} [{card}]", flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

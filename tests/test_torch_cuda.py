@@ -201,7 +201,7 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     args = (q, x.to(dtype), xn, 256, "l2", None)
     plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 256)
     splits, rows_per_split = st.split_plan(64, 40_000, plan.tq, plan.bps * plan.sms, plan.pool,
-                                           plan.tn, plan.min_tiles)
+                                           plan.tn, plan.min_tiles, plan.max_splits)
     assert splits > 1 and rows_per_split >= 300
     d_k, i_k = scan_topk(*args)
     d_r, i_r = scan_topk_reference(*args)
@@ -211,11 +211,12 @@ def test_kernel_merges_splits_when_one_split_holds_the_whole_list(cuda, dtype):
     assert torch.equal(i_k.sort(1).values, i_r.sort(1).values)
 
 
-# ---- kernel A's deep bf16 product (TMA + wgmma) and f32 product ----
-# The deep product takes every bf16 table past the tile product's depth
-# (TMA needs rows of a multiple of 8 bf16, 16-byte aligned; other tables take
-# the tile product's element loads); the f32 product every f32 table. dot
-# and cos run on unit rows, so both stay within REL of 1.
+# ---- kernel A's short and deep bf16 products (TMA + wgmma), f32 product ----
+# The short product takes the bf16 tables TMA can read (rows of a multiple of
+# 8 bf16, 16-byte aligned) up to d = 256, the deep product those past it;
+# other bf16 tables take the tile product's register-staged loads; the f32
+# product every f32 table. dot and cos run on unit rows, so both stay within
+# REL of 1.
 
 
 def _unit_rows(r, n, d):
@@ -236,6 +237,24 @@ def _unit_rows(r, n, d):
      # N below one 256-row tile, B not a multiple of 128.
      (129, 50, 1536, 10, torch.bfloat16, "dot", 0.0, "deep"),
      (129, 200, 2048, 100, torch.bfloat16, "l2", 0.2, "deep"),
+     # The short product (bf16, d % 8 == 0, d <= 256, k <= 1024): every
+     # metric with masks; k 1, 18, 82, 256, 1000 and N; B 1, 63, 129 and
+     # 4097; N below one 128-row tile and N not a multiple of it; d 8 to 256;
+     # each build (1-4 depth chunks, three warpgroups to k 64, two past it).
+     (1, 300, 8, 5, torch.bfloat16, "l2", 0.0, "short"),
+     (63, 5000, 16, 1, torch.bfloat16, "dot", 0.3, "short"),
+     (129, 100, 64, 18, torch.bfloat16, "cos", 0.0, "short"),
+     (129, 4000, 72, 82, torch.bfloat16, "l2", 0.2, "short"),
+     (4097, 3000, 96, 18, torch.bfloat16, "l2", 0.1, "short"),
+     (300, 20000, 128, 256, torch.bfloat16, "dot", 0.0, "short"),
+     (200, 20000, 128, 1000, torch.bfloat16, "cos", 0.5, "short"),
+     (70, 1000, 128, 1000, torch.bfloat16, "l2", 0.3, "short"),
+     (130, 9000, 192, 36, torch.bfloat16, "cos", 0.1, "short"),
+     (70, 5000, 160, 100, torch.bfloat16, "dot", 0.2, "short"),
+     (257, 9001, 256, 82, torch.bfloat16, "l2", 0.0, "short"),
+     (33, 127, 256, 10, torch.bfloat16, "dot", 0.0, "short"),
+     # The deep product past the short one's depth.
+     (130, 9000, 264, 36, torch.bfloat16, "l2", 0.2, "deep"),
      # d not a multiple of 8: the tile product's element loads.
      (77, 3001, 4100, 18, torch.bfloat16, "l2", 0.1, "tile"),
      (77, 3001, 4100, 36, torch.bfloat16, "cos", 0.0, "tile"),
@@ -270,11 +289,14 @@ def test_kernel_deep_and_f32_products_match_plain_version(cuda, b, n, d, k, dtyp
 
 
 @pytest.mark.cuda
-def test_kernel_deep_product_takes_unaligned_rows_by_element_loads(cuda):
-    """A bf16 table whose rows are not 16-byte aligned cannot be read by TMA:
-    the plan gives it the tile product, which matches the plain version."""
+@pytest.mark.parametrize("d", [2048, 128])
+def test_kernel_deep_product_takes_unaligned_rows_by_element_loads(cuda, d):
+    """A bf16 table whose rows are not 16-byte aligned cannot be read by TMA,
+    at the deep product's depths or the short product's: the plan gives it
+    the tile product (rows staged through registers), which matches the
+    plain version."""
     r = np.random.default_rng(5)
-    n, d = 3000, 2048
+    n = 3000
     flat = torch.empty(n * d + 1, dtype=torch.bfloat16, device=cuda)
     x = flat[1:].view(n, d)
     x.copy_(torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)))
@@ -289,9 +311,34 @@ def test_kernel_deep_product_takes_unaligned_rows_by_element_loads(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048), (torch.float32, 128)])
+@pytest.mark.parametrize("d,metric", [(128, "l2"), (96, "dot"), (256, "cos")])
+def test_kernel_short_product_on_row_slices(cuda, d, metric):
+    """Probed partitions and decoded blocks hand the kernel row-slice views
+    of one table, at row offsets TMA reads from their own base: each
+    slice's answer (slice-local row ids) matches the plain version's on the
+    same view, with the slice's own mask and norms."""
+    r = np.random.default_rng(d)
+    n = 20_000
+    x = _unit_rows(r, n, d) if metric != "l2" else r.standard_normal((n, d)).astype(np.float32)
+    q = _unit_rows(r, 100, d) if metric != "l2" else r.standard_normal((100, d)).astype(np.float32)
+    x, q = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
+    xn = (x * x).sum(1)
+    xb = x.to(torch.bfloat16)
+    mask = torch.from_numpy(r.random(n) >= 0.2).to(cuda)
+    for lo, hi in [(0, 1000), (1, 130), (4999, 12000), (19_900, 20_000)]:
+        args = (q, xb[lo:hi], xn[lo:hi], 18, metric, mask[lo:hi])
+        d_k, i_k = scan_topk(*args)
+        assert scan_topk.last_product == "short"
+        d_r, i_r = scan_topk_reference(*args)
+        torch.cuda.synchronize()
+        _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048), (torch.float32, 128),
+                                     (torch.bfloat16, 128), (torch.bfloat16, 256)])
 def test_kernel_new_products_break_exact_ties_across_splits(cuda, dtype, d):
-    """As the tie test above, at the deep and f32 products' tiles: 37
+    """As the tie test above, at the deep, f32 and short products' tiles: 37
     distinct rows repeated over 40,000 (several splits of 256- or 128-row
     tiles); both sides keep the lowest row ids of every tie."""
     r = np.random.default_rng(d)
@@ -309,16 +356,18 @@ def test_kernel_new_products_break_exact_ties_across_splits(cuda, dtype, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2048), (torch.float32, 128)])
+@pytest.mark.parametrize("dtype,d,product", [(torch.bfloat16, 2048, "deep"),
+                                             (torch.float32, 128, "f32"),
+                                             (torch.bfloat16, 128, "short")])
 @pytest.mark.parametrize("order,n,k", [("random", 512, 256), ("nearing", 2048, 200),
                                        ("nearing", 3000, 1000)])
-def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d, order, n, k):
+def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d, product, order,
+                                                                 n, k):
     """No mask, so every tile of a filling list enters it whole: the deep
-    product's 256-row tiles fill a 128-entry buffer every two 64-row passes,
-    the f32 product's 128-row tiles a 256-entry buffer every two tiles. With
+    product's 256-row tiles and the short product's 128-row tiles in 64-row
+    passes, the f32 product's 128-row tiles in two passes of 64 rows. With
     rows that come nearer the queries tile by tile ("nearing"), every
-    candidate ranks before every listed entry at every merge; k = 1000 takes
-    the pools in the global scratch."""
+    candidate ranks before every pooled entry at every compaction."""
     r = np.random.default_rng(n + k + d)
     q = r.standard_normal((130, d)).astype(np.float32)
     x = r.standard_normal((n, d)).astype(np.float32)
@@ -329,7 +378,7 @@ def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d,
     xn = (x * x).sum(1)
     args = (q, x.to(dtype), xn, k, "l2", None)
     d_k, i_k = scan_topk(*args)
-    assert scan_topk.last_product == ("deep" if dtype == torch.bfloat16 else "f32")
+    assert scan_topk.last_product == product
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     _check_against_plain(*args, d_k, i_k, d_r, i_r)
@@ -412,7 +461,7 @@ def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dty
     args = (q, x.to(dtype), xn, 1000, "l2", None)
     plan = st._plan(_build.library(), q.device, int(dtype == torch.bfloat16), 128, 1000)
     splits, rows_per_split = st.split_plan(64, 200_000, plan.tq, plan.bps * plan.sms, plan.pool,
-                                           plan.tn, plan.min_tiles)
+                                           plan.tn, plan.min_tiles, plan.max_splits)
     assert splits > 1 and rows_per_split >= 1200
     d_k, i_k = scan_topk(*args)
     d_r, i_r = scan_topk_reference(*args)
@@ -428,12 +477,18 @@ def test_kernel_wide_merges_splits_when_one_split_holds_the_whole_list(cuda, dty
 # "nonfinite": NaN and inf rows, never listed. N below one split's minimum
 # runs one split; k = N and k > N end in (+inf, -1) past the eligible rows.
 WIDE_CASES = [
-    ("tile", 130, 20_000, 64, 257, torch.bfloat16, "l2", 0.1, "random"),
-    ("tile", 70, 3000, 128, 1000, torch.bfloat16, "l2", 0.9, "dup"),
+    ("short", 130, 20_000, 64, 257, torch.bfloat16, "l2", 0.1, "random"),
+    ("short", 70, 3000, 128, 1000, torch.bfloat16, "l2", 0.9, "dup"),
+    # Pools past 1,024 at d <= 128: the tile product (the plan's rule).
     ("tile", 70, 9000, 128, 4096, torch.bfloat16, "dot", 1.0, "nonfinite"),
     ("tile", 40, 3000, 64, 3000, torch.bfloat16, "l2", 1.0, "random"),
     ("tile", 40, 2000, 64, 2500, torch.bfloat16, "cos", 0.9, "random"),
-    ("tile", 100, 50_000, 128, 1000, torch.bfloat16, "l2", 1.0, "random"),
+    ("short", 40, 1024, 64, 1024, torch.bfloat16, "cos", 0.9, "random"),
+    ("short", 100, 50_000, 128, 1000, torch.bfloat16, "l2", 1.0, "random"),
+    # d not a multiple of 8: the tile product.
+    ("tile", 130, 20_000, 100, 257, torch.bfloat16, "l2", 0.1, "random"),
+    ("tile", 70, 3000, 100, 1000, torch.bfloat16, "dot", 0.9, "dup"),
+    ("tile", 70, 9000, 100, 4096, torch.bfloat16, "l2", 1.0, "nonfinite"),
     ("deep", 130, 20_000, 1536, 73, torch.bfloat16, "l2", 1.0, "random"),
     ("deep", 130, 40_000, 1536, 100, torch.bfloat16, "cos", 0.9, "dup"),
     ("deep", 64, 6000, 1536, 1000, torch.bfloat16, "l2", 0.1, "nonfinite"),
@@ -441,8 +496,10 @@ WIDE_CASES = [
     ("f32", 100, 20_000, 768, 300, torch.float32, "cos", 0.9, "dup"),
     ("f32", 60, 1500, 128, 300, torch.float32, "dot", 0.1, "nonfinite"),
     # Small k, whose pools hold k + 128 entries (the pools' least room).
-    ("tile", 130, 20_000, 128, 18, torch.bfloat16, "l2", 0.9, "random"),
-    ("tile", 70, 40_000, 128, 256, torch.bfloat16, "dot", 1.0, "dup"),
+    ("short", 130, 20_000, 128, 18, torch.bfloat16, "l2", 0.9, "random"),
+    ("short", 70, 40_000, 128, 256, torch.bfloat16, "dot", 1.0, "dup"),
+    ("short", 130, 20_000, 256, 100, torch.bfloat16, "cos", 0.9, "nonfinite"),
+    ("tile", 130, 20_000, 100, 18, torch.bfloat16, "l2", 0.9, "random"),
     ("deep", 130, 20_000, 1536, 36, torch.bfloat16, "cos", 1.0, "random"),
     ("f32", 300, 8192, 128, 74, torch.float32, "l2", 0.7, "dup"),
     ("f32", 60, 1500, 128, 10, torch.float32, "dot", 0.1, "nonfinite"),
@@ -454,7 +511,7 @@ WIDE_CASES = [
 def test_kernel_wide_shape_in_each_product(cuda, product, b, n, d, k, dtype, metric, keep,
                                            rows):
     """The selection (pools, radix compaction, the finishing kernel) against
-    the plain version in the tile, deep and f32 products: masks keeping
+    the plain version in the short, tile, deep and f32 products: masks keeping
     10% and 90% of rows, exact ties, non-finite rows, one split and several,
     k = N and k > N."""
     from vecgo_tpu_torch.kernels import _build

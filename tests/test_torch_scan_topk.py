@@ -296,26 +296,39 @@ def test_reference_matches_jax_route_at_deep_d(d, metric):
     ("deep", 128, 256, 32, 1_000_000, 100),  # dbpedia-openai-1M at a pool of 100
     ("f32", 128, 128, 16, 1 << 20, 10),      # the one-device scan ShardedFlat splits
     ("f32", 128, 128, 16, 8192, 82),         # a memtable chunk
+    ("short", 192, 128, 8, 1 << 20, 18),     # the flat segment's pool scan (three warpgroups)
+    ("short", 192, 128, 8, 131_072, 18),     # a decoded block at a small pool
+    ("short", 128, 128, 8, 131_072, 100),    # a decoded block at a pool of 100 (two)
+    ("short", 128, 128, 8, 65_536, 256),     # k 256 over 65,536 rows
+    ("short", 128, 128, 8, 1 << 20, 1000),   # a coarse quantizer's pool over the segment
 ])
 def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, n, k):
-    """The deep product's 128 x 256 tiles and the f32 product's 128 x 128
-    tiles (one block an SM): 4096 queries are 32 query tiles, so the rows are
-    split; each split keeps its minimum of tiles (the f32 product's lower
-    one, st._MIN_TILES_F32), the finishing kernel's reads stay bounded, the splits cover the rows once, and at 1M
-    rows the last wave is at least _WAVE_FILL full."""
+    """The deep product's 128 x 256 tiles, the f32 product's 128 x 128 tiles
+    and the short product's 192 or 128 queries x 128 rows (one block an SM;
+    its persistent blocks walk the same units): 4096 queries are 22 or 32
+    query tiles, so the rows are split; each split keeps its minimum of
+    tiles (the f32 and short products' lower ones, st._MIN_TILES_F32 and
+    st._MIN_TILES_SHORT; the short product at most st._MAX_SPLITS_SHORT
+    splits), the finishing kernel's reads stay bounded, the splits cover
+    the rows once, and at 1M rows the last wave is at least _WAVE_FILL
+    full."""
     from vecgo_tpu_torch.ops import scan_topk as st
 
     assert product in st.PRODUCTS
-    assert min_tiles == (st._MIN_TILES_F32 if product == "f32" else st._MIN_TILES_PER_SPLIT)
+    assert min_tiles == {"f32": st._MIN_TILES_F32, "short": st._MIN_TILES_SHORT}.get(
+        product, st._MIN_TILES_PER_SPLIT)
+    max_splits = st._MAX_SPLITS_SHORT if product == "short" else st._MAX_POOL_WIDTH
     slots = 132
     pool = _pool_cap(k)
-    splits, rows = st.split_plan(4096, n, tq, slots, pool, tn, min_tiles)
+    splits, rows = st.split_plan(4096, n, tq, slots, pool, tn, min_tiles, max_splits)
     n_tiles = -(-n // tn)
     assert rows % tn == 0
     assert splits == 1 or rows >= min_tiles * tn
+    assert splits <= max_splits
     assert (splits - 1) * rows < n <= splits * rows
     assert splits * pool <= st._MAX_POOL_WIDTH
-    assert 32 * splits >= min(slots, 32 * (n_tiles // min_tiles))
+    q_tiles = -(-4096 // tq)
+    assert q_tiles * splits >= min(slots, q_tiles * min(n_tiles // min_tiles, max_splits))
     if n >= 1 << 20:
-        waves = 32 * splits / slots
+        waves = q_tiles * splits / slots
         assert waves / np.ceil(waves) >= st._WAVE_FILL

@@ -10,22 +10,40 @@
 // so the blocks resident at one time share a split's rows and read them from
 // L2.
 //
-// Three products, chosen by `vecgo_scan_topk_plan` from the table type, d, k
+// Four products, chosen by `vecgo_scan_topk_plan` from the table type, d, k
 // and the table's alignment (no option picks one):
 //
-// * The tile product (bf16 tables of d <= 128, and any bf16 table TMA cannot
-//   address: d not a multiple of 8, or a row pointer not 16-byte aligned).
-//   At B = 4096, N = 1M, d = 128 the scan is 1.1 TFLOP against a 256 MB
-//   table, so the tensor cores bound it (1.11 ms). 64 queries x 64 rows a
-//   tile, mma.sync m16n8k16 (bf16 x bf16 -> fp32; bf16 products are exact in
-//   fp32), the query tile rounded to bf16 once and resident while it fits
-//   (else its depth chunks ride beside the corpus), corpus chunks of 64 rows
-//   x 64 depth double-buffered through registers. With two depth chunks a
-//   tile, the tile's score pass and barriers cost more than its product, so
-//   the loop is bound by latency; the deep product measured slower at
-//   d = 128 and faster from d = 160 (PERF.md).
-// * The deep product (every other bf16 table: the device BM25 sweep at
-//   d = 4096, 3,072-d and 1,536-d embeddings). There a tile is 24-64 depth
+// * The short product (bf16 tables TMA can read, d <= 256, k <= 1024: the flat
+//   segment's pool scan, compact-gather and masked scans, every decoded
+//   block and probed partition, the vector half of hybrid search). At
+//   B = 4096, N = 1M, d = 128 the scan is 1.1 TFLOP against a 256 MB table,
+//   so the tensor cores bound it (1.11 ms); what the earlier tile product
+//   spent its time on was the score pass (about 4.3e9 scores), not the
+//   product. Here the queries are rounded to bf16 once (a first pass, which
+//   also takes |q|^2) and the block's query tile is loaded by TMA into
+//   shared memory for the whole unit; corpus tiles of 128 rows come through
+//   a TMA ring fed by one producer warp, which also stores each tile's row
+//   terms (|x|^2, the mask and the padding folded into one float) in shared
+//   memory. Three consumer warpgroups (two past d = 192 or k = 64) each run
+//   wgmma m64n128k16 for 64 queries and take turns at the tensor cores, so
+//   the others score while one's product runs. The fast test costs an FMA and a compare a score (|q|^2 folded
+//   into the threshold); a warp votes before any pool work and skips a pass
+//   none of its 16 queries' rows survive; the few that do score exactly and
+//   push. A compaction's threshold is published to a bound that the query's
+//   splits share (any split's pool threshold bounds the k-th score over all
+//   rows). Blocks are persistent and walk (query tile, split) units. With
+//   the score pass skipped the kernel runs at its product bound; what is
+//   left is the score pass (PERF.md).
+// * The tile product (bf16 tables TMA cannot read: d not a multiple of 8, or
+//   a row pointer not 16-byte aligned, such as a view that starts mid-row;
+//   and pools past k = 1024 up to d = 128).
+//   64 queries x 64 rows a tile, mma.sync m16n8k16, the query tile rounded
+//   to bf16 once and resident while it fits (else its depth chunks ride
+//   beside the corpus), corpus chunks staged through registers with element
+//   loads where rows are unaligned.
+// * The deep product (bf16 tables past d = 256, and pools past k = 1024
+//   past d = 128: the device BM25 sweep at d = 4096, 3,072-d and 1,536-d
+//   embeddings). There a tile is 24-64 depth
 //   chunks and the product is the work: B 4096 x N 1M x d 4096 is 35 TFLOP,
 //   35.6 ms on the tensor cores, against 8.6 GB of table (2.6 ms). What
 //   bounds a block is feeding the tensor cores from L2: every query tile
@@ -61,7 +79,7 @@
 //   holds all 128 rows of its 16 queries and selects in two passes of 64
 //   rows, so selection needs no block barrier either.
 //
-// Selection is the same for all three, and no thread inserts serially. Scores
+// Selection is the same for all four, and no thread inserts serially. Scores
 // are formed in registers from the accumulators (a row term carries |x|^2,
 // the mask and the padding as +inf), each thread tests them against its
 // query's threshold (in shared memory) and survivors go to the query's pool
@@ -114,8 +132,44 @@ constexpr int DPASS = 64;                  // tile rows one selection pass score
 // The ring: three stages measured faster than four (BM25 rows at d = 4096
 // by a third, dense rows the same within the spread, PERF.md).
 constexpr int DSTAGES = 3;
-// bf16 tables up to this depth take the tile product (measured faster there;
-// the deep product from d = 160 up, PERF.md).
+
+// Short product: 64 resident queries a consumer warpgroup (NWG of them:
+// three up to d = 192 and k = 64, else two) x 128 rows a tile; the query
+// tile is nch = ceil(d / 64) chunks of 64 NWG rows x 64 bf16, a stage nch
+// chunks of 128 rows x 64 bf16 (16 KB each), and the ring takes as many
+// stages (up to four) as fit beside the queries in SRING bytes.
+constexpr int SN = 128;
+constexpr int SCHUNK = SN * DK * 2;
+constexpr int SMAX_CH = 4;  // d <= 256
+constexpr int SMAX_WG = 3;
+constexpr int SRING = 12 * SCHUNK;
+constexpr int SMAX_STAGES = 4;
+constexpr int STERMS = 8;  // row-term slots (>= stages + 2)
+constexpr int SPASS = 64;  // tile rows one selection pass scores
+// Consumer warpgroups of the short product at nch depth chunks and pool k:
+// three while two ring stages fit beside the 192-row query tile and k is at
+// most SHORT_WG3_MAX_K, else two (where most passes run the rare path, the
+// two-warpgroup build, with 168 registers a thread against 128, measured
+// as fast at k 64 and faster from k 82; scripts/torch_scan_profile.py,
+// PERF.md).
+constexpr int SHORT_WG3_MAX_K = 64;
+__host__ __device__ constexpr int short_wgs(int nch, int k) {
+  return nch <= 3 && k <= SHORT_WG3_MAX_K ? 3 : 2;
+}
+__host__ __device__ constexpr int short_stages(int nch, int nwg) {
+  return (SRING - nch * 64 * nwg * DK * 2) / (nch * SCHUNK) < SMAX_STAGES
+             ? (SRING - nch * 64 * nwg * DK * 2) / (nch * SCHUNK)
+             : SMAX_STAGES;
+}
+static_assert(STERMS >= SMAX_STAGES + 2, "row terms outlive their stage");
+// bf16 tables that TMA can read take the short product up to this depth and
+// this k (it measured faster than the deep and tile products at every d <=
+// 256 and k <= 1000 of the sweep in scripts/torch_scan_ab.py, and slower
+// than the tile product at k 4096 over 65,536 rows, where each split's
+// pool holds half its rows; PERF.md). Past them the earlier rule: the tile
+// product up to TILE_MAX_D, the deep product past it.
+constexpr int SHORT_MAX_D = 256;
+constexpr int SHORT_MAX_K = 1024;
 constexpr int TILE_MAX_D = 128;
 
 // f32 product: 128 queries x 128 rows a tile, 32-deep stages.
@@ -126,7 +180,7 @@ constexpr int FLD = FK + 4;  // padded stage row (floats): conflict-free 16-byte
 constexpr int FSTAGES = 3;
 
 enum Metric { kL2 = 0, kDot = 1, kCos = 2 };
-enum Product { kTile = 0, kDeep = 1, kF32 = 2 };
+enum Product { kTile = 0, kDeep = 1, kF32 = 2, kShort = 3 };
 // The plan's fields (vecgo_scan_topk_plan's out array).
 enum PlanField { P_PRODUCT, P_TQ, P_TN, P_RESIDENT, P_SMEM, P_BPS, P_POOL, P_FIELDS };
 // A tensor map that could not be encoded (or no encoder to call).
@@ -283,10 +337,13 @@ __device__ __forceinline__ float query_norm(const float* __restrict__ q, int qi,
 
 // |q|^2 of every query (f32, from the f32 rows) and, when qb is set, the
 // rows rounded to bf16 once, zero-padded to dp columns: one warp a query.
+// When bound is set, each query's shared bound starts as +inf's key.
 __global__ void prep_queries_kernel(const float* __restrict__ q, int B, int d, int dp,
-                                    __nv_bfloat16* __restrict__ qb, float* __restrict__ qn) {
+                                    __nv_bfloat16* __restrict__ qb, float* __restrict__ qn,
+                                    unsigned* __restrict__ bound) {
   const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (w >= B) return;
+  if (bound != nullptr && lane == 0) bound[w] = wsel::fkey(INFINITY);
   const float* row = q + (size_t)w * d;
   float s = 0.f;
   for (int c = lane; c < dp; c += 32) {
@@ -654,6 +711,49 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, as wgmma_m64n256k16 with 16
+// column blocks: d[4 j + 2 h + e] is (row + 8 h, column 8 j + 2 (t % 4) + e).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Pins accumulator registers to this point of the program: reads placed
+// after it cannot be hoisted above a preceding wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
 __device__ __forceinline__ void wg_barrier(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
@@ -831,6 +931,349 @@ scan_deep_kernel(const __grid_constant__ CUtensorMap qmap,
   L.write_out(ctid, 128);
 }
 
+// ---------------------------------------------------------------- short product (bf16)
+
+// Shared memory of the short product: the resident query tile and the ring
+// share SRING bytes (chunks of 128 rows x 64 bf16, 128-byte swizzled), then
+// the row terms, the barriers and up to three warpgroups' selection state, plus 1 KB
+// to align the chunks to the swizzle's 1024 bytes. The size does not depend
+// on d, so one plan serves every depth the kernel takes.
+constexpr size_t SHORT_SMEM = 1024 + (size_t)SRING + (size_t)STERMS * SN * 4 +
+                              (size_t)(2 * SMAX_STAGES + 2) * 8 + SMAX_WG * pools_bytes(64, 4);
+
+// The score pass of one warp over one tile (SN rows, in two passes of
+// SPASS) from the accumulators of its 16 queries. The fast test costs one
+// FMA and one compare a score: xa - pm p against tf = th - qa, widened by
+// 2^-18 (qa + |th|), which covers the rounding of both sides for any row
+// whose score reaches th (with xnorm2 the rows' squared norms, such a row
+// has |x|^2 <= 2.02 qa + 2 |th|), so it never drops one; -inf for a query
+// past B. Only a warp whose vote finds a survivor scores the candidates of
+// the query halves that voted exactly, as the other products do, and
+// pushes those below th, each lane only its set bits; the rest go on to
+// the next pass. The pools' own compaction runs only when a
+// push left a pool without room for the next pass, and a compaction that
+// lowers a query's pool threshold (own) publishes it to the query's bound
+// shared by all its splits.
+template <class L_t>
+__device__ __forceinline__ void short_score(L_t& L, const float (&acc)[64], const float* tc,
+                                            int row0, int w, int g, int tg, int lane,
+                                            const float (&qa)[2], const bool (&live)[2],
+                                            const int (&qi)[2], float (&own)[2], float (&th)[2],
+                                            float pm, unsigned* bound) {
+  float tf[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    tf[h] = isfinite(th[h]) ? th[h] - qa[h] + 0x1p-18f * (qa[h] + fabsf(th[h])) : th[h];
+#pragma unroll
+  for (int p = 0; p < SN / SPASS; ++p) {
+    float xa[16];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const float2 t2 = *reinterpret_cast<const float2*>(tc + SPASS * p + 8 * v + 2 * tg);
+      xa[2 * v] = t2.x;
+      xa[2 * v + 1] = t2.y;
+    }
+    bool hit[2][2] = {{false, false}, {false, false}};  // two flags a query half
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < 16; ++v)
+        hit[h][v & 1] |= fmaf(-pm, acc[4 * (8 * p + (v >> 1)) + 2 * h + (v & 1)], xa[v]) < tf[h];
+    const unsigned vote0 = __ballot_sync(FULL, hit[0][0] || hit[0][1]);
+    const unsigned vote1 = __ballot_sync(FULL, hit[1][0] || hit[1][1]);
+    if (!(vote0 | vote1)) continue;
+    const int rbase = row0 + SPASS * p + 2 * tg;
+    bool over = false;  // a push of this lane left a pool without room for a pass
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!(h ? vote1 : vote0)) continue;  // no lane's fast test passed in this query half
+      float sc[16];
+      unsigned bits = 0;
+#pragma unroll
+      for (int v = 0; v < 16; ++v) {
+        sc[v] = qa[h] + xa[v] - pm * acc[4 * (8 * p + (v >> 1)) + 2 * h + (v & 1)];
+        if (isfinite(sc[v]) && sc[v] < th[h]) bits |= 1u << v;
+      }
+      if (bits) {  // one shared atomic reserves the lane's slots (as Pools::push)
+        const int m = 16 * w + g + 8 * h;
+        const int pos = atomicAdd(&L.cnt[m], __popc(bits));
+        over |= pos + __popc(bits) > L.cap - SPASS;
+        unsigned long long* pp = L.pool + (size_t)m * L.cap + pos;
+        // Only the set bits, each score fetched from the 16 registers by a
+        // select on the bits of its index.
+        while (bits) {
+          const int v = __ffs(bits) - 1;
+          bits &= bits - 1;
+          float s8[8], s4[4], s2[2];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s8[i] = v & 1 ? sc[2 * i + 1] : sc[2 * i];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s4[i] = v & 2 ? s8[2 * i + 1] : s8[2 * i];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) s2[i] = v & 4 ? s4[2 * i + 1] : s4[2 * i];
+          *pp++ = wsel::ckey(v & 8 ? s2[1] : s2[0], rbase + 8 * (v >> 1) + (v & 1));
+        }
+      }
+    }
+    if (!__any_sync(FULL, over)) continue;
+    __syncwarp();
+    L.merge_range(16 * w, 16, SPASS, w, lane);
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float t = live[h] ? L.thr[16 * w + g + 8 * h] : -INFINITY;
+      if (t < own[h]) {
+        own[h] = t;
+        th[h] = fminf(th[h], t);
+        tf[h] = th[h] - qa[h] + 0x1p-18f * (qa[h] + fabsf(th[h]));
+        if (tg == 0) atomicMin(bound + qi[h], wsel::fkey(t));
+      }
+    }
+  }
+}
+
+// The row terms of tile rows row0 + lane + 32 i: |x|^2 (l2) or base (1 for
+// cos, 0 for dot), +inf for masked rows and rows past the split.
+__device__ __forceinline__ void short_terms(float (&tv)[SN / 32], int row0, int r_end, int N,
+                                            int lane, int metric, float base,
+                                            const float* __restrict__ xnorm2,
+                                            const uint8_t* __restrict__ mask) {
+#pragma unroll
+  for (int i = 0; i < SN / 32; ++i) {
+    const int row = row0 + lane + 32 * i, rc = min(row, N - 1);
+    float v = metric == kL2 ? __ldg(xnorm2 + rc) : base;
+    if (row >= r_end || (mask != nullptr && !__ldg(mask + rc))) v = INFINITY;
+    tv[i] = v;
+  }
+}
+
+// A ring position: stage s in phase parity ph, t tiles loaded (or consumed)
+// so far, which also names the tile's row-term slot.
+struct Ring {
+  int s, t;
+  uint32_t ph;
+  int stages;
+  __device__ __forceinline__ void next() {
+    ++t;
+    if (++s == stages) { s = 0; ph ^= 1; }
+  }
+};
+
+// One warpgroup's products of its 64 resident queries (chunk c at q + c *
+// qchunk) and the tile in the stage at sb, into acc (overwritten), as one
+// committed group: NCH chunks of four k16 steps (columns past d are zeros
+// in both operands), with no branch between the wgmmas.
+template <int NCH>
+__device__ __forceinline__ void short_issue(float (&acc)[64], uint32_t q, uint32_t qchunk,
+                                            uint32_t sb) {
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_m64n128k16(acc, sw128_desc(q + c * qchunk + kk * 32),
+                       sw128_desc(sb + c * SCHUNK + kk * 32), c > 0 || kk > 0);
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// Persistent blocks: block b walks units b, b + gridDim.x, ... of
+// q_tiles x splits, unit u being query tile u % q_tiles over split
+// u / q_tiles (so the blocks resident at once share a split's rows), with
+// its pools at slot u as a grid of (query tile, split) blocks would have
+// them. The last warp produces: per unit the query tile (NCH chunks of
+// 64 NWG rows, by TMA) once the previous unit's products retired; per tile
+// the NCH corpus chunks into the ring stage and the tile's row terms (|x|^2,
+// 1 or 0, +inf for masked, padded and out-of-split rows), which its lanes
+// load a tile ahead and store into slot (tile count % STERMS). Warpgroups
+// 0 .. NWG - 1 consume 64 queries each and take turns at the tensor cores
+// in a ring of named barriers (warpgroup i issues tile t's wgmma after i - 1
+// issued its own, and warpgroup 0 after NWG - 1 issued tile t - 1's), so
+// the tensor cores run one warpgroup's product while the others score. A
+// stage is released as soon as its products retire (each warp arrives);
+// its row terms outlive it in their slot (the producer runs at most
+// `stages` tiles ahead of the oldest unretired product, and a warp retires
+// tile t + 1 only after scoring tile t, so STERMS >= stages + 2 slots are
+// never overwritten while read). One accumulator set of 64 registers a
+// thread: NWG warpgroups and the producer warp leave each thread 128 (three)
+// or 168 (two) registers.
+template <int NCH, int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+scan_short_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap xmap, const float* __restrict__ qn_g,
+                  unsigned* __restrict__ bound, const float* __restrict__ xnorm2,
+                  const uint8_t* __restrict__ mask, int B, int N, int k, int metric,
+                  int rows_per_split, int q_tiles, int units,
+                  unsigned long long* pool, int* pool_n, int pool_cap) {
+  constexpr int SQ = 64 * NWG;
+  constexpr int stages = short_stages(NCH, NWG);
+  static_assert(stages >= 2, "two ring stages fit beside the query tile");
+  constexpr uint32_t qchunk = (uint32_t)SQ * DK * 2;
+  constexpr uint32_t stage_bytes = (uint32_t)NCH * SCHUNK;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t qbuf = smem_u32(smem), ring = qbuf + NCH * qchunk;
+  float* terms = reinterpret_cast<float*>(smem + SRING);  // [STERMS][SN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + STERMS * SN);
+  uint64_t* empty = full + SMAX_STAGES;
+  uint64_t* qfull = empty + SMAX_STAGES;
+  uint64_t* qempty = qfull + 1;
+  char* pools_p = reinterpret_cast<char*>(qempty + 1);
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 4 * NWG);  // every consumer warp
+    }
+    mbar_init(smem_u32(qfull), 1);
+    mbar_init(smem_u32(qempty), 4 * NWG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    const float base_term = metric == kCos ? 1.f : 0.f;
+    Ring r{0, 0, 0u, stages};
+    int j = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++j) {
+      const int r_begin = (u / q_tiles) * rows_per_split;
+      const int r_end = min(N, r_begin + rows_per_split);
+      const int n_tiles = (r_end - r_begin + SN - 1) / SN;
+      if (lane == 0) {
+        if (j > 0) mbar_wait(smem_u32(qempty), (j - 1) & 1);
+        mbar_expect_tx(smem_u32(qfull), NCH * qchunk);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load_2d(qbuf + c * qchunk, &qmap, c * DK, (u % q_tiles) * SQ, smem_u32(qfull));
+      }
+      float tv[SN / 32];
+      short_terms(tv, r_begin, r_end, N, lane, metric, base_term, xnorm2, mask);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int row0 = r_begin + t * SN;
+        mbar_wait(smem_u32(empty + r.s), r.ph ^ 1);
+        float* tt = terms + (r.t % STERMS) * SN;
+#pragma unroll
+        for (int i = 0; i < SN / 32; ++i) tt[lane + 32 * i] = tv[i];
+        __syncwarp();  // every lane's terms precede lane 0's release of the stage
+        if (lane == 0) {
+          const uint32_t bar = smem_u32(full + r.s);
+          mbar_expect_tx(bar, stage_bytes);
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            tma_load_2d(ring + r.s * stage_bytes + c * SCHUNK, &xmap, c * DK, row0, bar);
+        }
+        // The next tile's terms load while this warp waits for its stage.
+        if (t + 1 < n_tiles)
+          short_terms(tv, row0 + SN, r_end, N, lane, metric, base_term, xnorm2, mask);
+        r.next();
+      }
+    }
+    return;
+  }
+
+  const int cw = wg, w = (tid & 127) >> 5, g = lane >> 2, tg = lane & 3;
+  const float pm = metric == kL2 ? 2.f : 1.f;
+  const uint32_t qa_base = qbuf + cw * 64 * 128;  // this warpgroup's 64 query rows of a chunk
+  char* lp = pools_p + cw * pools_bytes(64, 4);
+  Ring r{0, 0, 0u, stages};
+  int j = 0;
+  bool first = true;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++j) {
+    const int qt = u % q_tiles;
+    const int r_begin = (u / q_tiles) * rows_per_split;
+    const int r_end = min(N, r_begin + rows_per_split);
+    const int n_tiles = (r_end - r_begin + SN - 1) / SN;
+    const int qw0 = qt * SQ + 64 * cw;
+    auto L = carve_pools<64>(lp, k, (size_t)u * NWG + cw, pool, pool_n, pool_cap);
+    if (lane < 16) {  // each warp keeps the state of its own 16 queries
+      L.thr[16 * w + lane] = INFINITY;
+      L.cnt[16 * w + lane] = 0;
+    }
+    __syncwarp();
+    float qa[2], own[2], th[2];
+    int qi[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qi[h] = qw0 + 16 * w + g + 8 * h;
+      live[h] = qi[h] < B;
+      qa[h] = metric == kL2 && live[h] ? qn_g[qi[h]] : 0.f;
+      own[h] = live[h] ? INFINITY : -INFINITY;
+    }
+    // A warpgroup with no live query (B <= 64 past the tile's start)
+    // multiplies zero rows all the same, to keep its turns, and scores none.
+    const bool scores = qw0 < B;
+    mbar_wait(smem_u32(qfull), j & 1);
+    // The shared bounds: a split's pool threshold bounds the k-th score over
+    // all rows, so a row must beat its own split's threshold and reach the
+    // least any split published (ties included: an earlier split's row may
+    // win one; key + 1 is the next float up in the keys' order). Each tile
+    // scores with the bounds loaded a tile before, so the load's latency
+    // hides behind that tile.
+    unsigned key[2], next_key[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
+#pragma unroll 1
+    for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        key[h] = next_key[h];
+        next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
+      }
+      if (cw != 0 || !first) named_sync(1 + cw);
+      first = false;
+      mbar_wait(smem_u32(full + r.s), r.ph);
+      short_issue<NCH>(acc, qa_base, qchunk, ring + r.s * stage_bytes);
+      named_arrive(1 + (cw + 1) % NWG);
+      wgmma_wait<0>();
+      fence_operand(acc);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(smem_u32(empty + r.s));
+        if (t + 1 == n_tiles) mbar_arrive(smem_u32(qempty));
+      }
+      if (scores) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));
+        short_score(L, acc, terms + (r.t % STERMS) * SN, r_begin + t * SN, w, g, tg, lane, qa,
+                    live, qi, own, th, pm, bound);
+      }
+      r.next();
+    }
+    __syncwarp();
+    if (lane < 16) L.pool_n[16 * w + lane] = L.cnt[16 * w + lane];
+  }
+  if (cw == 0 && !first) named_sync(1);  // the last warpgroup's last turn
+}
+
+// The short product's build for (d, k): its chunk count and warpgroups.
+const void* short_kernel(int d, int k) {
+  const int nch = (d + DK - 1) / DK;
+  if (short_wgs(nch, k) == 3) {
+    if (nch == 1) return reinterpret_cast<const void*>(scan_short_kernel<1, 3>);
+    if (nch == 2) return reinterpret_cast<const void*>(scan_short_kernel<2, 3>);
+    return reinterpret_cast<const void*>(scan_short_kernel<3, 3>);
+  }
+  if (nch == 1) return reinterpret_cast<const void*>(scan_short_kernel<1, 2>);
+  if (nch == 2) return reinterpret_cast<const void*>(scan_short_kernel<2, 2>);
+  if (nch == 3) return reinterpret_cast<const void*>(scan_short_kernel<3, 2>);
+  return reinterpret_cast<const void*>(scan_short_kernel<4, 2>);
+}
+
 // ---------------------------------------------------------------- f32 product
 
 // A resident query row (floats): d rounded up to the 32-deep stage, plus 4,
@@ -983,8 +1426,9 @@ scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
   L.write_out(tid, THREADS);
 }
 
-const void* kernel_of(int product) {
+const void* kernel_of(int product, int d, int k) {
   if (product == kDeep) return reinterpret_cast<const void*>(scan_deep_kernel);
+  if (product == kShort) return short_kernel(d, k);
   if (product == kF32) return reinterpret_cast<const void*>(scan_f32_kernel);
   return reinterpret_cast<const void*>(scan_tile_kernel);
 }
@@ -1038,7 +1482,7 @@ extern "C" {
 
 // The launch plan of a (table type, d, k) on the current device, for a bf16
 // table whose rows are 16-byte aligned (aligned = 1) or not: out[P_FIELDS]
-// gets the product (0 tile, 1 deep, 2 f32), queries and corpus rows a tile,
+// gets the product (0 tile, 1 deep, 2 f32, 3 short), queries and corpus rows a tile,
 // whether the query tile stays resident in shared memory, the block's
 // dynamic shared memory, how many blocks fit on one SM, and the pool entries
 // per (query, split). It also lets the kernels use that much shared memory
@@ -1053,9 +1497,16 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
   const size_t cap = (size_t)optin;
   int product, tq, tn, resident, threads;
   size_t smem;
+  // TMA reads rows whose pitch is a multiple of 16 bytes from a 16-byte
+  // aligned base; other bf16 tables (d % 8 != 0, or a view that starts
+  // mid-row) take the tile product's register-staged loads.
   if (!x_bf16)
     product = kF32;
-  else if (d <= TILE_MAX_D || d % 8 != 0 || !aligned)
+  else if (d % 8 != 0 || !aligned)
+    product = kTile;
+  else if (d <= SHORT_MAX_D && k <= SHORT_MAX_K)
+    product = kShort;
+  else if (d <= TILE_MAX_D)
     product = kTile;
   else
     product = kDeep;
@@ -1067,11 +1518,15 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
     tq = TQ, tn = TN, threads = THREADS;
     resident = tile_smem(1, d) <= cap;
     smem = tile_smem(resident, d);
+  } else if (product == kShort) {
+    const int nwg = short_wgs((d + DK - 1) / DK, k);
+    tq = 64 * nwg, tn = SN, threads = 128 * nwg + 32, resident = 1;
+    smem = SHORT_SMEM;
   } else {
     tq = DQ, tn = DN, threads = DTHREADS, resident = 0;
     smem = DEEP_SMEM;
   }
-  const void* fn = kernel_of(product);
+  const void* fn = kernel_of(product, d, k);
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(reinterpret_cast<const void*>(wsel::finish_rows),
@@ -1090,8 +1545,10 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
 // q [B,d] f32; x [N,d] f32 or bf16, as the plan's product takes it; xnorm2
 // [N] f32 (read for l2 only); mask [N] bytes or NULL. plan is the host array
 // vecgo_scan_topk_plan filled for this (table type, d, k, alignment) on this
-// device. qb is a [B, pad16(d)] bf16 scratch (deep product, else NULL) and qn
-// a [B] f32 scratch (deep and f32 products). With blocks = ceil(B / tq) *
+// device. qb is a [B, pad16(d)] bf16 scratch (deep and short products, else
+// NULL) and qn a [B] f32 scratch (deep and f32 products; [2B] for the short
+// product, whose second half holds the bound each query's splits share).
+// With blocks = ceil(B / tq) *
 // splits, pool is a [blocks, tq, plan pool] 64-bit scratch and pool_n a
 // [blocks, tq] int32 scratch; a finishing kernel writes out_d/out_i [B, k].
 // Returns the CUDA error code of the launches (0 on success).
@@ -1108,10 +1565,36 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
   unsigned long long* pl = static_cast<unsigned long long*>(pool);
   int* pn = static_cast<int*>(pool_n);
   const dim3 grid((B + plan[P_TQ] - 1) / plan[P_TQ], splits);
-  if (product == kDeep) {
+  if (product == kShort) {
+    if (d > SMAX_CH * DK || d % 8 != 0) return (int)cudaErrorInvalidValue;
     const int dp = pad_depth(d);
     __nv_bfloat16* qbb = static_cast<__nv_bfloat16*>(qb);
-    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, dp, qbb, qnf);
+    // qn holds |q|^2 and then each query's bound shared by its splits.
+    unsigned* bound = reinterpret_cast<unsigned*>(qnf + B);
+    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, dp, qbb, qnf, bound);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    CUtensorMap qmap, xmap;
+    int r = encode_bf16_2d(&qmap, qbb, B, dp, plan[P_TQ]);
+    if (r == 0) r = encode_bf16_2d(&xmap, x, N, d, SN);
+    if (r != 0) return r;
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int units = (int)grid.x * splits;
+    const int blocks = units < plan[P_BPS] * sms ? units : plan[P_BPS] * sms;
+    const int nwg = short_wgs((d + DK - 1) / DK, k);
+    if (plan[P_TQ] != 64 * nwg) return (int)cudaErrorInvalidValue;
+    int q_tiles = (int)grid.x, units_a = units, cap_a = pcap;
+    void* args[] = {&qmap, &xmap, &qnf, &bound, &xn, &mk, &B, &N, &k, &metric,
+                    &rows_per_split, &q_tiles, &units_a, &pl, &pn, &cap_a};
+    e = cudaLaunchKernel(short_kernel(d, k), dim3(blocks), dim3(128 * nwg + 32), args, smem, st);
+    if (e != cudaSuccess) return (int)e;
+  } else if (product == kDeep) {
+    const int dp = pad_depth(d);
+    __nv_bfloat16* qbb = static_cast<__nv_bfloat16*>(qb);
+    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, dp, qbb, qnf, nullptr);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     CUtensorMap qmap, xmap;
@@ -1121,7 +1604,7 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
     scan_deep_kernel<<<grid, DTHREADS, smem, st>>>(qmap, xmap, qnf, xn, mk, B, N, d, k, metric,
                                                    rows_per_split, DSTAGES, pl, pn, pcap);
   } else if (product == kF32) {
-    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, d, nullptr, qnf);
+    prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, d, nullptr, qnf, nullptr);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&

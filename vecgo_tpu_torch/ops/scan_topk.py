@@ -7,11 +7,12 @@ selection: unsorted candidate pools in a global scratch, compacted by radix
 selection, and a finishing kernel that selects and sorts each query's k).
 On a CUDA tensor it launches `csrc/scan_topk.cu` (or raises); on a CPU
 tensor it runs `scan_topk_reference`, the plain PyTorch version it is
-tested against. The library's plan picks one of three products by the
-table's type, depth and alignment (`PRODUCTS`): the bf16 tile product
-(d up to 128, or rows TMA cannot read), the deep bf16 product (TMA-fed
-`wgmma`) and the f32 product (FMA units); `scan_topk.last_product` names
-the last launch's.
+tested against. The library's plan picks one of four products by the
+table's type, depth, k and alignment (`PRODUCTS`): the short bf16 product
+(rows TMA can read, d up to 256: resident queries, a TMA ring, `wgmma` in
+turns), the bf16 tile product (rows TMA cannot read), the deep bf16
+product (past d 256) and the f32 product (FMA units);
+`scan_topk.last_product` names the last launch's.
 """
 
 from __future__ import annotations
@@ -39,10 +40,19 @@ _MIN_TILES_PER_SPLIT = 32
 # memtable's 8,192-row chunks are only 64 of them: 16 tiles a split (four
 # splits, one wave of 128 blocks, measured fastest there; PERF.md).
 _MIN_TILES_F32 = 16
+# The short product's tiles are 128 rows and its query tiles 128-192
+# queries, so a small scan (a probed partition: a few hundred queries over a
+# few thousand rows) gets few units at 32 tiles a split; it splits rows down
+# to 8 tiles, but into at most 32 splits: each split fills its own pools
+# before the bound its splits share tightens, which cost more than the SMs
+# gained at 128 splits of 8 tiles (64 queries over 131,072 rows; PERF.md,
+# `scripts/torch_scan_ab.py --sweep`).
+_MIN_TILES_SHORT = 8
+_MAX_SPLITS_SHORT = 32
 # The grid's last wave should be at least this full.
 _WAVE_FILL = 0.9
 # The plan's product codes (csrc/scan_topk.cu `Product`).
-PRODUCTS = ("tile", "deep", "f32")
+PRODUCTS = ("tile", "deep", "f32", "short")
 # (device, bf16, d, k, rows 16-byte aligned) -> Plan
 _plans: dict = {}
 
@@ -66,7 +76,12 @@ class Plan(NamedTuple):
 
     @property
     def min_tiles(self) -> int:
-        return _MIN_TILES_F32 if self.product == "f32" else _MIN_TILES_PER_SPLIT
+        return {"f32": _MIN_TILES_F32, "short": _MIN_TILES_SHORT}.get(self.product,
+                                                                      _MIN_TILES_PER_SPLIT)
+
+    @property
+    def max_splits(self) -> int:
+        return _MAX_SPLITS_SHORT if self.product == "short" else _MAX_POOL_WIDTH
 
 
 def metric_code(metric) -> int:
@@ -108,8 +123,9 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
     otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
     card each call also allocates the kernel's candidate pools (about 16 k
-    bytes a query per row split, 1.25 KB at least), and for the deep and
-    f32 products |q|^2 and (deep) the queries rounded to bf16.
+    bytes a query per row split, 1.25 KB at least), and for the short, deep
+    and f32 products |q|^2 (the short product also a shared bound per
+    query) and (short, deep) the queries rounded to bf16.
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -134,7 +150,7 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     plan = _plan(lib, q.device, bf16, d, k, int(x.data_ptr() % 16 == 0))
     tq = plan.tq
     splits, rows_per_split = split_plan(b, n, tq, plan.bps * plan.sms, plan.pool, plan.tn,
-                                        plan.min_tiles)
+                                        plan.min_tiles, plan.max_splits)
     blocks = -(-b // tq) * splits
 
     def scratch(count, dtype=torch.float32):
@@ -145,8 +161,10 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     pool = scratch(blocks * tq * plan.pool, torch.int64)
     pool_n = scratch(blocks * tq, torch.int32)
     if plan.product != "tile":
-        qn = scratch(b)
-    if plan.product == "deep":
+        # |q|^2; the short product keeps each query's bound shared by its
+        # splits behind it.
+        qn = scratch(2 * b if plan.product == "short" else b)
+    if plan.product in ("deep", "short"):
         qb = scratch(b * (-(-d // 16) * 16), torch.bfloat16)
 
     def ptr(t):
@@ -189,7 +207,7 @@ def _plan(lib, device, bf16: int, d: int, k: int, aligned: int = 1) -> Plan:
 
 
 def split_plan(b: int, n: int, tq: int, slots: int, pool: int, tn: int = _TN,
-               min_tiles: int = _MIN_TILES_PER_SPLIT):
+               min_tiles: int = _MIN_TILES_PER_SPLIT, max_splits: int = _MAX_POOL_WIDTH):
     """(splits, rows_per_split) for B queries in tiles of `tq` over N rows in
     tiles of `tn`, with `slots` blocks resident on the card at once and
     `pool` entries in each (query, split)'s candidate pool.
@@ -197,12 +215,12 @@ def split_plan(b: int, n: int, tq: int, slots: int, pool: int, tn: int = _TN,
     Query tiles alone rarely fill the card (4096 queries are 64 tiles of
     64), so the rows are split too: the fewest splits whose grid fills its
     last wave to `_WAVE_FILL`, between one full wave and the most splits
-    that keep `min_tiles` tiles each and the finishing kernel's reads
-    (splits * pool) within `_MAX_POOL_WIDTH`.
+    that keep `min_tiles` tiles each, at most `max_splits`, and the
+    finishing kernel's reads (splits * pool) within `_MAX_POOL_WIDTH`.
     """
     q_tiles = -(-b // tq)
     n_tiles = -(-n // tn)
-    s_max = max(1, min(n_tiles // min_tiles, _MAX_POOL_WIDTH // pool))
+    s_max = max(1, min(n_tiles // min_tiles, _MAX_POOL_WIDTH // pool, max_splits))
     s_min = min(s_max, -(-slots // q_tiles))
     best, best_fill = s_min, 0.0
     for s in range(s_min, min(s_max, 8 * s_min) + 1):
