@@ -17,13 +17,18 @@ once on one CUDA card.
    ShardedFlat splits; each case prints the kernel product that ran (the
    cases of the deep and f32 products check that theirs did), its time
    beside its bound (the larger of operations over the card's peak for
-   their type and bytes over 3.35 TB/s), its share of that bound, the JAX
-   package's route in torch ops (a blockwise torch.mm with torch.topk and
-   a running merge: a yardstick the port never calls) and the product
-   alone through torch.mm (context only); then pools
+   their type and bytes over 3.35 TB/s; for the split f32 product its three
+   tf32 passes at 495 TFLOP/s, with the FMA units' fp32 bound beside it),
+   its share of that bound, the JAX package's route in torch ops (a
+   blockwise torch.mm with torch.topk and a running merge: a yardstick the
+   port never calls) and the product alone through torch.mm (context only;
+   for f32 tables IEEE fp32 with TF32 off, the f32 product's yardstick);
+   then pools
    past 256: k = 1000 over the 1M-row segment and over one 131,072-row
    block, k = 4096 over 65,536 rows, and a memtable chunk (f32, 8,192 rows)
-   at the pool of a k = 300 query (k 308). Every case runs the kernel's
+   at the pool of a k = 300 query (k 308) and at k = 1000; and the FMA f32
+   product on memtable chunks TMA cannot read (a view that starts mid-row,
+   and GloVe-50's 50-d rows). Every case runs the kernel's
    selection (unsorted candidate pools in a global scratch, compacted by
    radix selection, and a finishing kernel). Phase 5
    adds the same comparison on what its paths hand the kernel: a 131,072-row
@@ -210,11 +215,15 @@ QPS_WINDOW_S = 1.0
 REL_TOL = 2e-5
 # Kernel B: relative to |q - c|^2 + |x^ - c|^2, the bound the CPU tests hold.
 CODED_REL_TOL = 1e-4
-# Published H100 SXM peaks at 700 W (NVIDIA data sheet): dense bf16 on the
-# tensor cores, fp32 on the FMA units, HBM3.
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): dense bf16 and
+# tf32 on the tensor cores, fp32 on the FMA units, HBM3.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 HBM_BPS = 3.35e12
+# tf32 passes of the split f32 product (fp32-class accuracy: hi.hi + lo.hi +
+# hi.lo).
+SPLIT_PASSES = 3
 
 
 def card_line() -> str:
@@ -248,12 +257,13 @@ def clustered(rng, n: int, centers: np.ndarray) -> np.ndarray:
     return x + 0.35 * rng.standard_normal((n, centers.shape[1])).astype(np.float32)
 
 
-def bound(flop: float, nbytes: float, bf16_tensor: bool):
+def bound(flop: float, nbytes: float, bf16_tensor: bool, peak: float = 0.0):
     """The least time the H100 could take for this work (ms) and what bounds
     it: operations over the peak rate of their type (989 TFLOP/s bf16 dense
-    on the tensor cores, 67 TFLOP/s fp32 on the FMA units) against bytes over
-    3.35 TB/s, each input read once and each output written once."""
-    t_ops = flop / (PEAK_BF16 if bf16_tensor else PEAK_F32)
+    on the tensor cores, 67 TFLOP/s fp32 on the FMA units, or `peak`)
+    against bytes over 3.35 TB/s, each input read once and each output
+    written once."""
+    t_ops = flop / (peak or (PEAK_BF16 if bf16_tensor else PEAK_F32))
     t_mem = nbytes / HBM_BPS
     return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes")
 
@@ -309,7 +319,8 @@ def route_ms(q, xs, xn, k, metric, mask) -> float:
 def mm_ms(q, xs) -> float:
     """The product alone through torch.mm on the same table in 64k-row
     blocks (context only: the port never calls it; no single PyTorch call
-    computes the scan with its top-k)."""
+    computes the scan with its top-k); an f32 table's in IEEE fp32 (TF32
+    off), the yardstick of the f32 product."""
     qc = q.to(xs.dtype)
     out = torch.empty((q.shape[0], 65536), dtype=xs.dtype, device=q.device)
 
@@ -318,7 +329,12 @@ def mm_ms(q, xs) -> float:
             e = min(xs.shape[0], s + 65536)
             torch.mm(qc, xs[s:e].T, out=out[:, : e - s])
 
-    return cuda_ms(run, reps=3)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(run, reps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def scan_case(name, q, xs, xn, k, metric, mask, card, note="", product=None):
@@ -366,22 +382,32 @@ def scan_case(name, q, xs, xn, k, metric, mask, card, note="", product=None):
     nbytes = (b * d * 4 + n * d * xs.element_size() + n * 4 * (code == 0)
               + (n if mask is not None else 0) + b * k * 8)
     bound_ms, bound_by = bound(2.0 * b * n * d, nbytes, xs.dtype == torch.bfloat16)
+    extra = {}
+    if ran == "f32":
+        # The split product's bound: the tf32 passes fp32-class accuracy
+        # needs on the tensor cores; the FMA units' fp32 bound beside it.
+        extra["fma_bound_ms"] = bound_ms
+        bound_ms, bound_by = bound(SPLIT_PASSES * 2.0 * b * n * d, nbytes, False, PEAK_TF32)
     print(f"kernel {name}: B={b} N={n} d={d} k={k} {str(xs.dtype)[6:]} {('l2', 'dot', 'cos')[code]}"
           f"{note}: {ran} product {ms:.3f} ms, "
           f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}, "
+          + (f"fp32 FMA bound {extra['fma_bound_ms']:.3f} ms "
+             f"({extra['fma_bound_ms'] / ms:.1%}), " if extra else "") +
           f"plain {plain_ms:.3f} ms, route (torch.mm + torch.topk) {route:.3f} ms, "
           f"torch.mm product alone {mm:.3f} ms, "
           f"max_abs_err {err:.3g} (tol {tol:.3g}), tie swaps {int(bad.sum())} [{card}]",
           flush=True)
     return {"name": name, "product": ran, "err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
-            "route_ms": route, "mm_ms": mm}
+            "route_ms": route, "mm_ms": mm, **extra}
 
 
 def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card, product=None,
-                on_device=False):
+                on_device=False, offset=0):
     """`scan_case` on clustered rows made here: with numpy, or (on_device,
-    for the large deep-d tables) with a CUDA generator seeded from rng."""
+    for the large deep-d tables) with a CUDA generator seeded from rng; with
+    `offset`, the table is a view that starts that many elements into its
+    buffer."""
     dev = torch.device("cuda")
     if on_device:
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
@@ -402,11 +428,16 @@ def kernel_case(name, rng, b, n, d, k, dtype, metric, mask_frac, card, product=N
     xn = (x * x).sum(1)
     xs = x.to(dtype).contiguous()
     del x
+    if offset:
+        buf = torch.empty(n * d + offset, dtype=dtype, device=dev)
+        buf[offset:].view(n, d).copy_(xs)
+        xs = buf[offset:].view(n, d)
     mask = None
     if mask_frac:
         mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
-    return scan_case(name, q, xs, xn, k, metric, mask, card,
-                     f" mask {mask_frac:.0%} out" if mask_frac else "", product)
+    note = (f" mask {mask_frac:.0%} out" if mask_frac else "") + (
+        f" view +{offset}" if offset else "")
+    return scan_case(name, q, xs, xn, k, metric, mask, card, note, product)
 
 
 def path_block_case(name, quant, metric, q, blk, k, mask, card, note=""):
@@ -2853,6 +2884,14 @@ def main() -> int:
         # The f32 product past 256: a memtable chunk at a k = 300 query's pool.
         kernel_case("chunk-k308", rng, BATCH, 8192, DIM, 308, torch.float32, "l2", 0, card,
                     "f32"),
+        kernel_case("chunk-k1000", rng, BATCH, 8192, DIM, 1000, torch.float32, "l2", 0, card,
+                    "f32"),
+        # The FMA f32 product: memtable chunks TMA cannot read, a view that
+        # starts mid-row and GloVe-50's rows (d % 4 != 0).
+        kernel_case("chunk-view-fma", rng, BATCH, 8192, DIM, 82, torch.float32, "l2", 0, card,
+                    "f32-fma", offset=1),
+        kernel_case("chunk-d50-fma", rng, BATCH, 8192, 50, 82, torch.float32, "l2", 0.3, card,
+                    "f32-fma"),
     ]
     main_case = cases[0]
     torch.cuda.empty_cache()
@@ -2907,7 +2946,7 @@ def main() -> int:
         "library_ms": None,
         "cases": {c["name"]: {k: c[k] for k in ("product", "ms", "bound_ms", "bound_by", "share",
                                                  "plain_ms", "route_ms", "mm_ms",
-                                                 "sparse_bound_ms") if k in c}
+                                                 "sparse_bound_ms", "fma_bound_ms") if k in c}
                   for c in cases},
     }, {
         "name": "coded_group_scan",

@@ -27,7 +27,11 @@ inputs (4096 queries, clustered l2 rows) at d 8-512 and k 1-1000: the short
 product to d 256 (its plan, as the library gives it for an aligned table),
 the deep product (driven past the plan's choice by the plan of a d = 4096
 table) and, to d 128, the tile product (by the plan of an unaligned table);
-the f32 chunk shape at each minimum of tiles a split; and the short
+the f32 products at d 32-768 and k 1-1000: the split product (its plan)
+against the FMA product (the plan of an unaligned table), and the two at
+d 128 over 8,192-262,144 rows at pools of 82-1000, where filling the pools
+is most of the work (at 8,192 rows and k 1000 the FMA product measured
+faster; PERF.md); the f32 chunk shape at each minimum of tiles a split (k 10, 82, 308); and the short
 product's split minimum on probed-partition shapes (512 and 2,048 queries
 over 8,192 and 34,304 rows at k 100, 64 queries over 8,192 and 131,072
 rows), with the tile product on the same inputs. Prints one line
@@ -127,12 +131,13 @@ def worker(root, seed, reps, sweep):
 # The sweep's depths and pools.
 SWEEP_D = (8, 16, 32, 64, 96, 128, 160, 192, 256, 384, 512)
 SWEEP_K = (1, 18, 82, 256, 1000)
+SWEEP_F32_D = (32, 64, 96, 128, 192, 256, 384, 512, 768)
 
 
 def sweep_products(torch, st, seed, reps):
-    """The short, tile and deep bf16 products by d and k, and the f32 chunk
-    by split minimum (this tree's plans and split rule, driven past their
-    choice)."""
+    """The short, tile and deep bf16 products and the split and FMA f32
+    products by d and k, and the f32 chunk by split minimum (this tree's
+    plans and split rule, driven past their choice)."""
     from vecgo_tpu_torch.kernels import _build
 
     lib, dev = _build.library(), torch.device("cuda")
@@ -157,9 +162,38 @@ def sweep_products(torch, st, seed, reps):
             rows[f"bf16 d{d} N{n} k{k}"] = row
         del q, x, xn
         torch.cuda.empty_cache()
+    for d in SWEEP_F32_D:
+        n = 1 << 20 if d <= 128 else 1 << 19 if d <= 256 else 1 << 18
+        q, x, xn, _ = make(torch, seed + d, n, d, torch.float32, "l2", 0.0, "clustered")
+        for k in SWEEP_K:
+            plans = {"f32": plan_of(lib, dev, 0, d, k, 1), "f32-fma": plan_of(lib, dev, 0, d, k, 0)}
+            row = {}
+            for name, plan in plans.items():
+                st._plan = lambda *a, **kw: plan
+                row[f"{name}_ms"] = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+                st._plan = plan_of
+            row["plan"] = plans["f32"].product
+            rows[f"f32 d{d} N{n} k{k}"] = row
+        del q, x, xn
+        torch.cuda.empty_cache()
+    for n in (8192, 16384, 65536, 262144):
+        q, x, xn, _ = make(torch, seed + n, n, 128, torch.float32, "l2", 0.0, "clustered")
+        for k in (82, 150, 256, 308, 512, 1000):
+            plans = {"f32": plan_of(lib, dev, 0, 128, k, 1),
+                     "f32-fma": plan_of(lib, dev, 0, 128, k, 0)}
+            row = {}
+            for name, plan in plans.items():
+                st._plan = lambda *a, **kw: plan
+                row[f"{name}_ms"] = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, "l2"), reps)
+                st._plan = plan_of
+            st.scan_topk(q, x, xn, k, "l2")
+            row["plan"] = st.scan_topk.last_product
+            rows[f"f32 pools d128 N{n} k{k}"] = row
+        del q, x, xn
+        torch.cuda.empty_cache()
     chunk = {}
     floor = st._MIN_TILES_F32
-    for k in (10, 82):
+    for k in (10, 82, 308):
         q, x, xn, _ = make(torch, seed + k, 8192, 128, torch.float32, "l2", 0.0, "clustered")
         for tiles in (4, 8, 16, 32, 64):
             st._MIN_TILES_F32 = tiles
@@ -234,7 +268,8 @@ def main() -> int:
         sweep = runs["this"][0]["sweep"]
         result["sweep"] = sweep
         for key, v in sweep["products"].items():
-            times = ", ".join(f"{p} {v[p + '_ms']:.3f} ms" for p in ("short", "tile", "deep")
+            times = ", ".join(f"{p} {v[p + '_ms']:.3f} ms"
+                              for p in ("short", "tile", "deep", "f32", "f32-fma")
                               if p + "_ms" in v)
             print(f"sweep {key}: {times}; the plan picks {v['plan']} [{card}]")
         for key, v in sweep["chunk_splits"].items():

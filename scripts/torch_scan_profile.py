@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where `scan_topk`'s short product spends its time, on one CUDA card, by
-instrumented builds of this tree's kernel.
+"""Where `scan_topk`'s short product (or, with --f32, its split f32 product)
+spends its time, on one CUDA card, by instrumented builds of this tree's
+kernel.
 
-    python3 scripts/torch_scan_profile.py [--seed 0] [--reps 5] [--variants a,b]
+    python3 scripts/torch_scan_profile.py [--seed 0] [--reps 5] [--variants a,b] [--f32]
 
 The card's profilers (ncu, nsys) are not available to this repository's
 runs, so the short product is taken apart by builds: each variant is a copy
@@ -24,9 +25,20 @@ product: the short product's alone run in these shapes). Variants:
 - bound-late: the shared bounds loaded in the tile that uses them, not a
   tile ahead.
 
+With --f32 the split f32 product's variants (F32_VARIANTS):
+
+- built: as it is;
+- no-score: the score pass skipped (the ring, the split, the three passes);
+- no-split: the splitter warps write no low parts (they only wait and
+  release), so the low-part pass multiplies whatever the buffer holds;
+- big-only: the two small passes skipped (one tf32 pass, the product of a
+  1xTF32 scan).
+
 Shapes: 4096 clustered queries over clustered l2 rows (1,048,576 rows, or
 524,288 at d 256; chip_smoke.py's generator, made on the card from
---seed) at (d, k) in SHAPES. Each prints its time (CUDA events over --reps
+--seed) at (d, k) in SHAPES; with --f32 the f32 cases of chip_smoke.py
+(F32_SHAPES: the 1M x 128 scan ShardedFlat splits, cos rows at d 768, the
+memtable chunk at pools 82 and 308). Each prints its time (CUDA events over --reps
 launches after a warm-up), the rare passes (and their share of all warp
 passes), the compactions and the device time of each kernel
 (torch.profiler over two launches), with the card's name and power limit,
@@ -38,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -65,19 +78,38 @@ VARIANTS = {
     "no-score": [("      if (scores) {", "      if (scores && pm < 0.f) {")],
     "fast-only": [("    if (!(vote0 | vote1)) continue;\n",
                    "    if (!(vote0 | vote1) || pm > 0.f) continue;\n")],
-    "no-bound": [("          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));",
-                  "          th[h] = own[h];")],
+    "no-bound": [("          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));\n"
+                  "        short_score(L, acc, terms + (r.t % STERMS)",
+                  "          th[h] = own[h];\n        short_score(L, acc, terms + (r.t % STERMS)")],
     "two-wg": [("constexpr int SHORT_WG3_MAX_K = 64;", "constexpr int SHORT_WG3_MAX_K = 0;")],
-    "bound-late": [("        key[h] = next_key[h];\n"
-                    "        next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);",
-                    "        key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);")],
+    "bound-late": [("    key[h] = next_key[h];\n"
+                    "    next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);",
+                    "    key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);")],
 }
 
 
-def make_tree(name: str) -> str:
+F32_SHAPES = {"f32-1M": (1 << 20, 128, 10, "l2"), "wide-d768": (65536, 768, 10, "cos"),
+              "chunk-pool82": (8192, 128, 82, "l2"), "chunk-k308": (8192, 128, 308, "l2")}
+F32_VARIANTS = {
+    "built": [],
+    "no-score": [("short_score(L, acc, terms + (tiles % XSTERMS)",
+                  "if (pm < 0.f) short_score(L, acc, terms + (tiles % XSTERMS)")],
+    "no-split": [("          lo[e] = make_float4(", "          if (N < 0) lo[e] = make_float4(")],
+    "big-only": [
+        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(ql + kk * 32), sw128_desc(raw + kk * 32), kk > 0);",
+         "    ;"),
+        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(lo + kk * 32), 1);",
+         "    ;"),
+        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), 1);",
+         "    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), kk > 0);"),
+    ],
+}
+
+
+def make_tree(name: str, f32: bool = False) -> str:
     """This tree's package with the variant's replacements (and the
     counters) under build/scan_profile/<name>/."""
-    dst = os.path.join(HERE, "build", "scan_profile", name)
+    dst = os.path.join(HERE, "build", "scan_profile", ("f32-" if f32 else "") + name)
     if os.path.exists(dst):
         shutil.rmtree(dst)
     shutil.copytree(os.path.join(HERE, "vecgo_tpu_torch"), os.path.join(dst, "vecgo_tpu_torch"),
@@ -85,7 +117,7 @@ def make_tree(name: str) -> str:
     src = os.path.join(dst, "vecgo_tpu_torch", "csrc", "scan_topk.cu")
     with open(src) as f:
         text = f.read()
-    for old, new in _COUNT + VARIANTS[name]:
+    for old, new in _COUNT + (F32_VARIANTS if f32 else VARIANTS)[name]:
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: {old[:60]!r} matches {text.count(old)} times")
         text = text.replace(old, new)
@@ -94,7 +126,39 @@ def make_tree(name: str) -> str:
     return dst
 
 
-def worker(root: str, seed: int, reps: int) -> None:
+def f32_shapes(torch, seed):
+    """(name, q, x, xn, k, metric) of each F32_SHAPES case, made on the card."""
+    dev = torch.device("cuda")
+    for i, (name, (n, d, k, metric)) in enumerate(F32_SHAPES.items()):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        centres = torch.randn((1024, d), generator=g, device=dev)
+        x = centres[torch.randint(0, 1024, (n,), generator=g, device=dev)]
+        x += 0.35 * torch.randn((n, d), generator=g, device=dev)
+        q = centres[torch.randint(0, 1024, (B,), generator=g, device=dev)]
+        q += 0.35 * torch.randn((B, d), generator=g, device=dev)
+        if metric == "cos":
+            x /= x.norm(dim=1, keepdim=True)
+            q /= q.norm(dim=1, keepdim=True)
+        yield name, q, x, (x * x).sum(1), k, metric
+
+
+def bf16_shapes(torch, seed):
+    """(name, q, x, xn, k, metric) of each SHAPES case (bf16 rows), made on
+    the card."""
+    dev = torch.device("cuda")
+    for i, (d, k) in enumerate(SHAPES):
+        n = 1 << 20 if d <= 128 else 1 << 19
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        centres = torch.randn((1024, d), generator=g, device=dev)
+        x = centres[torch.randint(0, 1024, (n,), generator=g, device=dev)]
+        x += 0.35 * torch.randn((n, d), generator=g, device=dev)
+        q = centres[torch.randint(0, 1024, (B,), generator=g, device=dev)]
+        q += 0.35 * torch.randn((B, d), generator=g, device=dev)
+        xn = (x * x).sum(1)
+        yield f"d{d} k{k}", q, x.bfloat16(), xn, k, "l2"
+
+
+def worker(root: str, seed: int, reps: int, f32: bool = False) -> None:
     sys.path.insert(0, root)
     import ctypes
 
@@ -109,20 +173,11 @@ def worker(root: str, seed: int, reps: int) -> None:
     lib.vecgo_profile_count.argtypes = [ctypes.c_int]
     dev = torch.device("cuda")
     out = {}
-    for i, (d, k) in enumerate(SHAPES):
-        n = 1 << 20 if d <= 128 else 1 << 19
-        g = torch.Generator(device=dev).manual_seed(seed + i)
-        centres = torch.randn((1024, d), generator=g, device=dev)
-        x = centres[torch.randint(0, 1024, (n,), generator=g, device=dev)]
-        x += 0.35 * torch.randn((n, d), generator=g, device=dev)
-        q = centres[torch.randint(0, 1024, (B,), generator=g, device=dev)]
-        q += 0.35 * torch.randn((B, d), generator=g, device=dev)
-        xn = (x * x).sum(1)
-        xb = x.bfloat16()
-        del x
+    for name, q, xb, xn, k, metric in (f32_shapes if f32 else bf16_shapes)(torch, seed):
+        n = xb.shape[0]
 
         def run():
-            return st.scan_topk(q, xb, xn, k, "l2")
+            return st.scan_topk(q, xb, xn, k, metric)
 
         run()
         torch.cuda.synchronize()
@@ -142,9 +197,10 @@ def worker(root: str, seed: int, reps: int) -> None:
             run()
             run()
             torch.cuda.synchronize()
-        kernels = {ev.key.split("(")[0].split("::")[-1][:32]: ev.device_time_total / 2e3
+        kernels = {re.sub(r"^void |\(anonymous namespace\)::", "", ev.key)
+                   .split("(")[0].split("<")[0].split("::")[-1][:32]: ev.device_time_total / 2e3
                    for ev in prof.key_averages() if ev.device_time_total > 0}
-        out[f"d{d} k{k}"] = {"n": n, "ms": ms, "product": st.scan_topk.last_product,
+        out[name] = {"n": n, "ms": ms, "product": st.scan_topk.last_product,
                              "rare_passes": rare, "rare_share": rare / ((B // 16) * (n // 64)),
                              "compactions": comp, "kernels_ms": kernels}
         del q, xb, xn
@@ -156,11 +212,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variants", help="comma-separated (default: every variant)")
+    ap.add_argument("--f32", action="store_true", help="the split f32 product's variants")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.seed, args.reps)
+        worker(args.worker, args.seed, args.reps, args.f32)
         return 0
     import torch
 
@@ -169,12 +226,13 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    names = args.variants.split(",")
-    trees = {name: make_tree(name) for name in names}
+    names = (args.variants or ",".join(F32_VARIANTS if args.f32 else VARIANTS)).split(",")
+    trees = {name: make_tree(name, args.f32) for name in names}
     result = {"card": card, "variants": {}}
     for name, root in trees.items():
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
-                               "--seed", str(args.seed), "--reps", str(args.reps)],
+                               "--seed", str(args.seed), "--reps", str(args.reps)]
+                              + (["--f32"] if args.f32 else []),
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

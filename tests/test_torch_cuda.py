@@ -11,7 +11,11 @@ and no jax it runs as
 Tolerance (kernel A): both sides sum the same fp32 (or exact bf16) products
 in another order, so distances agree within 2e-5 of |q|^2 + |x|^2 (l2) or
 of 1 (dot, cos); ids agree except where the two rows' float64 scores tie
-within that. Kernel B's tolerance is stated beside its tests.
+within that. The f32 product of tables TMA reads is a split-precision sum
+(three tf32 passes), not an IEEE fp32 one: its distances are held to the
+float64 answer at the same tolerance (closer to it than the plain version,
+whose own fp32 error reaches 2.3e-5 on unnormalized dot rows at d 100).
+Kernel B's tolerance is stated beside its tests.
 """
 
 import numpy as np
@@ -49,7 +53,10 @@ def _check_against_plain(q, x, xn, k, metric, mask, d_k, i_k, d_r, i_r):
     assert torch.equal(torch.isfinite(d_k), torch.isfinite(d_r))
     fin = torch.isfinite(d_r)
     if fin.any():
-        assert float((d_k - d_r).abs()[fin].max()) <= tol
+        # The split f32 product against the float64 answer for its rows.
+        split = dtype == torch.float32 and scan_topk.last_product == "f32"
+        ref = _exact(q, x, i_k, metric, xn) if split else d_r
+        assert float((d_k - ref).abs()[fin].max()) <= tol
     swapped = (i_k != i_r) & fin
     if swapped.any():
         qo = q.to(dtype).float() if dtype == torch.bfloat16 else q
@@ -259,12 +266,15 @@ def _unit_rows(r, n, d):
      (77, 3001, 4100, 18, torch.bfloat16, "l2", 0.1, "tile"),
      (77, 3001, 4100, 36, torch.bfloat16, "cos", 0.0, "tile"),
      # The f32 product: resident query tiles (d 32, 100, 128), streamed
-     # ones (d 768), narrow and wide k, ragged B, N below a tile.
+     # ones (d 768), narrow and wide k, ragged B, N below a tile; rows TMA
+     # cannot read (d % 4 != 0) run on the FMA product.
      (300, 8192, 32, 10, torch.float32, "l2", 0.0, "f32"),
      (77, 3001, 100, 82, torch.float32, "dot", 0.2, "f32"),
      (300, 8192, 128, 82, torch.float32, "l2", 0.3, "f32"),
      (129, 90, 128, 10, torch.float32, "cos", 0.0, "f32"),
      (200, 20000, 128, 1000, torch.float32, "l2", 0.1, "f32"),
+     (200, 8192, 128, 1000, torch.float32, "l2", 0.1, "f32"),
+     (200, 8192, 126, 1000, torch.float32, "l2", 0.1, "f32-fma"),
      (40, 4096, 768, 10, torch.float32, "cos", 0.0, "f32"),
      (130, 5000, 768, 256, torch.float32, "l2", 0.0, "f32"),
      (70, 3000, 100, 300, torch.float32, "cos", 0.0, "f32")],
@@ -308,6 +318,109 @@ def test_kernel_deep_product_takes_unaligned_rows_by_element_loads(cuda, d):
     d_r, i_r = scan_topk_reference(*args)
     torch.cuda.synchronize()
     _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset,product", [(100, 0, "f32"), (128, 4, "f32"),
+                                              (102, 0, "f32-fma"), (128, 1, "f32-fma"),
+                                              (100, 3, "f32-fma")])
+def test_kernel_f32_rows_tma_cannot_read_take_the_fma_product(cuda, d, offset, product):
+    """An f32 table whose rows TMA reads (a pitch of a multiple of 16 bytes
+    from a 16-byte aligned base: d 100, or a view that starts 4 floats in)
+    takes the split product; one whose pitch is not (d 102) or a view that
+    starts mid-row at an unaligned float (1, 3) takes the FMA product. Each
+    matches the plain version."""
+    r = np.random.default_rng(d + offset)
+    n = 20_000
+    flat = torch.empty(n * d + offset, device=cuda)
+    x = flat[offset:].view(n, d)
+    x.copy_(torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)))
+    q = torch.from_numpy(r.standard_normal((70, d)).astype(np.float32)).to(cuda)
+    xn = (x * x).sum(1)
+    for k, metric in ((20, "l2"), (300, "dot")):
+        args = (q, x, xn, k, metric, None)
+        d_k, i_k = scan_topk(*args)
+        assert scan_topk.last_product == product
+        d_r, i_r = scan_topk_reference(*args)
+        torch.cuda.synchronize()
+        _check_against_plain(*args, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+def test_kernel_f32_product_reads_raw_rows_as_their_tf32_high_part(cuda):
+    """The split product hands the tensor cores raw f32 rows as their tf32
+    high part, which is right only where the tensor cores ignore an
+    operand's low 13 bits (truncate, not round), and adds the low part
+    x - trunc(x) beside it. Rows of values with 21 significant bits (their
+    low part exact in tf32), most with bits below tf32's, against one-hot
+    queries: every dot score is a row's value exactly, as the plain
+    version's; tensor cores that rounded would miss by up to 2^-11 of it."""
+    r = np.random.default_rng(3)
+    n, d = 4096, 32
+    mant = r.integers(1 << 20, 1 << 21, size=(n, d)).astype(np.float64)
+    x = mant * 2.0 ** -20 * r.choice([-1.0, 1.0], size=(n, d)) * 2.0 ** r.integers(-3, 4, (n, d))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    assert bool(((x.view(torch.int32) & 0x1FFF) != 0).float().mean() > 0.9)
+    q = torch.eye(d, device=cuda)
+    d_k, i_k = scan_topk(q, x, None, 16, "dot")
+    assert scan_topk.last_product == "f32"
+    d_r, i_r = scan_topk_reference(q, x, None, 16, "dot")
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_r)
+    assert torch.equal(i_k, i_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k,metric", [(4096, 8192, 128, 82, "l2"),
+                                            (4096, 1 << 20, 128, 10, "l2"),
+                                            (4096, 65536, 768, 10, "cos"),
+                                            (77, 3001, 100, 18, "dot")],
+                         ids=["chunk-pool82", "f32-1M", "wide-d768", "normal-d100-dot"])
+def test_kernel_f32_product_is_fp32_class(cuda, b, n, d, k, metric):
+    """The split product's error against float64 at the memtable chunk's,
+    ShardedFlat's and the wide rows' shapes (4096 queries; rows around 1,024
+    random centres, sigma 0.35, as chip_smoke.py makes them), and on the
+    unnormalized normal rows of the dot case above: the 99.9th percentile of
+    |score - exact| / (|q|^2 + |x|^2) over the returned scores is at most 8x
+    the plain IEEE fp32 version's on the same inputs (TF32 off), each side's
+    returned rows scored exactly in float64 with the caller's |x|^2."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    centres = torch.randn((1024, d), generator=g, device=cuda)
+
+    def made(rows):
+        pick = torch.randint(0, 1024, (rows,), generator=g, device=cuda)
+        return centres[pick] + 0.35 * torch.randn((rows, d), generator=g, device=cuda)
+
+    x, q = made(n), made(b)
+    if metric == "dot":  # the normal rows of test_kernel_matches_plain_version's case
+        r = np.random.default_rng(n + k + d)
+        q = torch.from_numpy(r.standard_normal((b, d)).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    if metric == "cos":
+        x, q = x / x.norm(dim=1, keepdim=True), q / q.norm(dim=1, keepdim=True)
+    xn = (x * x).sum(1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        d_k, i_k = scan_topk(q, x, xn, k, metric)
+        assert scan_topk.last_product == "f32"
+        d_r, i_r = scan_topk_reference(q, x, xn, k, metric)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _check_against_plain(q, x, xn, k, metric, None, d_k, i_k, d_r, i_r)
+
+    def errors(dd, ii):
+        exact = _exact(q, x, ii, metric, xn)
+        den = (q.double() ** 2).sum(1, keepdim=True) + (x.double() ** 2).sum(1)[ii.long()]
+        err = (dd.double() - exact).abs()[ii >= 0]
+        return float(torch.quantile(err / den[ii >= 0], 0.999)), float(err.max())
+
+    (kernel, kernel_max), (plain, plain_max) = errors(d_k, i_k), errors(d_r, i_r)
+    print(f"f32 product p99.9 relative error b={b} n={n} d={d} k={k} {metric}: kernel "
+          f"{kernel:.3g}, plain {plain:.3g} ({kernel / plain:.2f}x); max |score - exact| "
+          f"kernel {kernel_max:.3g}, plain {plain_max:.3g} [{torch.cuda.get_device_name(0)}]")
+    assert kernel <= 8 * plain
 
 
 @pytest.mark.cuda
@@ -357,17 +470,26 @@ def test_kernel_new_products_break_exact_ties_across_splits(cuda, dtype, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,product", [(torch.bfloat16, 2048, "deep"),
+                                             (torch.float32, 128, "f32-fma"),
                                              (torch.float32, 128, "f32"),
                                              (torch.bfloat16, 128, "short")])
 @pytest.mark.parametrize("order,n,k", [("random", 512, 256), ("nearing", 2048, 200),
                                        ("nearing", 3000, 1000)])
-def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, dtype, d, product, order,
-                                                                 n, k):
+def test_kernel_new_products_merge_full_buffers_while_lists_fill(cuda, monkeypatch, dtype, d,
+                                                                 product, order, n, k):
     """No mask, so every tile of a filling list enters it whole: the deep
-    product's 256-row tiles and the short product's 128-row tiles in 64-row
-    passes, the f32 product's 128-row tiles in two passes of 64 rows. With
-    rows that come nearer the queries tile by tile ("nearing"), every
-    candidate ranks before every pooled entry at every compaction."""
+    product's 256-row tiles and the short and split f32 products' 128-row
+    tiles in 64-row passes, the FMA f32 product's 128-row tiles in two
+    passes of 64 rows. The f32 products run by their own plans (the FMA
+    one's is that of rows TMA cannot read) on the same table. With rows that
+    come nearer the queries tile by tile ("nearing"), every candidate ranks
+    before every pooled entry at every compaction."""
+    if dtype == torch.float32:
+        from vecgo_tpu_torch.kernels import _build
+        from vecgo_tpu_torch.ops import scan_topk as st
+
+        plan = st._plan(_build.library(), cuda, 0, d, k, int(product == "f32"))
+        monkeypatch.setattr(st, "_plan", lambda *a, **kw: plan)
     r = np.random.default_rng(n + k + d)
     q = r.standard_normal((130, d)).astype(np.float32)
     x = r.standard_normal((n, d)).astype(np.float32)
@@ -495,6 +617,9 @@ WIDE_CASES = [
     ("f32", 200, 8192, 128, 300, torch.float32, "l2", 1.0, "random"),
     ("f32", 100, 20_000, 768, 300, torch.float32, "cos", 0.9, "dup"),
     ("f32", 60, 1500, 128, 300, torch.float32, "dot", 0.1, "nonfinite"),
+    ("f32", 200, 8192, 128, 1000, torch.float32, "l2", 1.0, "random"),
+    ("f32-fma", 200, 8192, 126, 1000, torch.float32, "l2", 1.0, "random"),
+    ("f32-fma", 60, 1500, 126, 1000, torch.float32, "dot", 0.1, "nonfinite"),
     # Small k, whose pools hold k + 128 entries (the pools' least room).
     ("short", 130, 20_000, 128, 18, torch.bfloat16, "l2", 0.9, "random"),
     ("short", 70, 40_000, 128, 256, torch.bfloat16, "dot", 1.0, "dup"),

@@ -294,8 +294,10 @@ def test_reference_matches_jax_route_at_deep_d(d, metric):
     ("deep", 128, 256, 32, 1_049_576, 36),   # the BM25 sweep
     ("deep", 128, 256, 32, 262_144, 10),     # 3,072-d rows
     ("deep", 128, 256, 32, 1_000_000, 100),  # dbpedia-openai-1M at a pool of 100
-    ("f32", 128, 128, 16, 1 << 20, 10),      # the one-device scan ShardedFlat splits
-    ("f32", 128, 128, 16, 8192, 82),         # a memtable chunk
+    ("f32", 64, 128, 8, 1 << 20, 10),        # the one-device scan ShardedFlat splits
+    ("f32", 64, 128, 8, 8192, 82),           # a memtable chunk
+    ("f32-fma", 128, 128, 16, 8192, 1000),   # a memtable chunk at a pool of 1,000, unaligned
+    ("f32-fma", 128, 128, 16, 1 << 20, 10),  # rows TMA cannot read
     ("short", 192, 128, 8, 1 << 20, 18),     # the flat segment's pool scan (three warpgroups)
     ("short", 192, 128, 8, 131_072, 18),     # a decoded block at a small pool
     ("short", 128, 128, 8, 131_072, 100),    # a decoded block at a pool of 100 (two)
@@ -303,21 +305,21 @@ def test_reference_matches_jax_route_at_deep_d(d, metric):
     ("short", 128, 128, 8, 1 << 20, 1000),   # a coarse quantizer's pool over the segment
 ])
 def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, n, k):
-    """The deep product's 128 x 256 tiles, the f32 product's 128 x 128 tiles
-    and the short product's 192 or 128 queries x 128 rows (one block an SM;
-    its persistent blocks walk the same units): 4096 queries are 22 or 32
-    query tiles, so the rows are split; each split keeps its minimum of
-    tiles (the f32 and short products' lower ones, st._MIN_TILES_F32 and
-    st._MIN_TILES_SHORT; the short product at most st._MAX_SPLITS_SHORT
-    splits), the finishing kernel's reads stay bounded, the splits cover
-    the rows once, and at 1M rows the last wave is at least _WAVE_FILL
-    full."""
+    """The deep product's 128 x 256 tiles, the FMA f32 product's 128 x 128
+    tiles, the split f32 product's 64 queries x 128 rows and the short
+    product's 192 or 128 queries x 128 rows (one block an SM; the short and
+    split products' persistent blocks walk the same units): 4096 queries
+    are 22-64 query tiles, so the rows are split; each split keeps its
+    minimum of tiles (the f32 and short products' lower ones, st._MIN_TILES_*;
+    the short and split products at most st._MAX_SPLITS_SHORT splits), the
+    finishing kernel's reads stay bounded, the splits cover the rows once,
+    and at 1M rows the last wave is at least _WAVE_FILL full."""
     from vecgo_tpu_torch.ops import scan_topk as st
 
     assert product in st.PRODUCTS
-    assert min_tiles == {"f32": st._MIN_TILES_F32, "short": st._MIN_TILES_SHORT}.get(
-        product, st._MIN_TILES_PER_SPLIT)
-    max_splits = st._MAX_SPLITS_SHORT if product == "short" else st._MAX_POOL_WIDTH
+    assert min_tiles == {"f32-fma": st._MIN_TILES_FMA, "f32": st._MIN_TILES_F32,
+                         "short": st._MIN_TILES_SHORT}.get(product, st._MIN_TILES_PER_SPLIT)
+    max_splits = st._MAX_SPLITS_SHORT if product in ("short", "f32") else st._MAX_POOL_WIDTH
     slots = 132
     pool = _pool_cap(k)
     splits, rows = st.split_plan(4096, n, tq, slots, pool, tn, min_tiles, max_splits)
@@ -332,3 +334,76 @@ def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, 
     if n >= 1 << 20:
         waves = q_tiles * splits / slots
         assert waves / np.ceil(waves) >= st._WAVE_FILL
+
+
+# The split f32 product's arithmetic (the CUDA kernel's f32 product on tables
+# TMA reads), emulated here with integer masks of the f32 bits: tf32 keeps
+# the sign, the exponent and 10 mantissa bits (the low 13 bits zero).
+def _tf32_trunc(a):
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_rna(a):  # round to nearest, ties away from zero
+    return ((a.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _bf16_rne(a):  # round to nearest even
+    b = a.view(np.uint32)
+    return ((b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1)))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _split_rows(rng, n, d, peaked):
+    """Rows around 256 random centres (sigma 0.35); `peaked` rows carry
+    most of their norm in two coordinates, where a product's error is that
+    of its few largest terms."""
+    c = rng.standard_normal((256, d))
+    x = c[rng.integers(0, 256, n)] + 0.35 * rng.standard_normal((n, d))
+    if peaked:
+        x[:, :2] *= 16 * np.sqrt(d / 32)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cos"])
+@pytest.mark.parametrize("d", [32, 128, 768])
+def test_split_f32_product_is_fp32_class_and_two_piece_bf16_is_not(d, metric):
+    """The kernel's split product: a raw row is read as its tf32 high part
+    trunc(x) and its low part is rna(x - trunc(x)); a query splits into
+    hi = rna(q) and lo = rna(q - hi); the score sums hi.x_hi + (lo.x_hi +
+    hi.x_lo), the small terms first. Against float64, the 99.9th percentile
+    of |score - exact| / (|q|^2 + |x|^2) is within 8x the IEEE fp32 product's
+    on engine-like and on peaked rows. The TPU's Precision.HIGH (bf16 split
+    in two pieces, the same three products) is outside that bound on peaked
+    rows at every depth, so the bound tells the two apart."""
+    for peaked in (False, True):
+        rng = np.random.default_rng(d + peaked)
+        x, q = _split_rows(rng, 2048, d, peaked), _split_rows(rng, 64, d, peaked)
+        if metric == "cos":
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+        xn, qn = (x * x).sum(1, dtype=np.float32), (q * q).sum(1, dtype=np.float32)
+        q64, x64 = q.astype(np.float64), x.astype(np.float64)
+
+        def score(p, qn_, xn_):
+            return {"l2": lambda: qn_[:, None] + xn_[None, :] - 2 * p,
+                    "dot": lambda: -p, "cos": lambda: 1 - p}[metric]()
+
+        exact = score(q64 @ x64.T, (q64 ** 2).sum(1), xn.astype(np.float64))
+        scale = (q64 ** 2).sum(1)[:, None] + (x64 ** 2).sum(1)[None, :]
+
+        def p999(p):
+            s = score(p.astype(np.float32), qn, xn).astype(np.float32)
+            return np.quantile(np.abs(s - exact) / scale, 0.999)
+
+        ieee = p999(q @ x.T)
+        xh = _tf32_trunc(x)
+        xl = _tf32_rna(x - xh)
+        qh = _tf32_rna(q)
+        ql = _tf32_rna(q - qh)
+        assert not (xl.view(np.uint32) & 0x1FFF).any() and not (ql.view(np.uint32) & 0x1FFF).any()
+        split = qh @ xh.T + (ql @ xh.T + qh @ xl.T).astype(np.float32)
+        assert p999(split) <= 8 * ieee
+        if peaked:
+            bh, ah = _bf16_rne(x), _bf16_rne(q)
+            high = ah @ bh.T + (ah @ _bf16_rne(x - bh).T + _bf16_rne(q - ah) @ bh.T)
+            assert p999(high) > 8 * ieee

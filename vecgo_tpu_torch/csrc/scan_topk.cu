@@ -10,7 +10,7 @@
 // so the blocks resident at one time share a split's rows and read them from
 // L2.
 //
-// Four products, chosen by `vecgo_scan_topk_plan` from the table type, d, k
+// Five products, chosen by `vecgo_scan_topk_plan` from the table type, d, k
 // and the table's alignment (no option picks one):
 //
 // * The short product (bf16 tables TMA can read, d <= 256, k <= 1024: the flat
@@ -62,24 +62,44 @@
 //   block barrier. Measured, it runs near a third of the bound;
 //   sharing each corpus chunk between two blocks of a cluster (TMA
 //   multicast, half the bytes from L2) measured slower (PERF.md).
-// * The f32 product (every f32 table: the memtable chunks, ShardedFlat,
-//   streamed decodes). The port's precision contract is IEEE fp32 (no TF32),
-//   so the product runs on the FMA units: B 4096 x N 1M x d 128 is 1.1 TFLOP,
-//   16.4 ms at 67 TFLOP/s, against a 512 MB table. A naive loop is bound by
-//   shared-memory issue and query reloads, not by the FMA units. Here the
-//   128-query tile stays resident in shared memory for the whole scan where
-//   it fits (d up to ~170 at small k; past that its depth chunks ride the
-//   ring beside the corpus, each loaded once a tile), corpus chunks of 128
-//   rows x 32 depth stream through a three-stage cp.async ring (the next two
-//   chunks land during the current product), and each thread keeps an 8 x 8
-//   register micro-tile fed by 16-byte shared loads (16 loads per 256 FMAs,
-//   each a broadcast across the warp). That is one shared-memory wavefront
-//   per four FMAs, which on this card (128 fp32 lanes and 128 B/clk of
-//   shared memory an SM) holds the loop near half the FMA peak. Each warp
-//   holds all 128 rows of its 16 queries and selects in two passes of 64
-//   rows, so selection needs no block barrier either.
+// * The f32 product (f32 tables TMA can read, d % 4 == 0 and 16-byte aligned
+//   rows: the memtable chunks, ShardedFlat, streamed decodes, f32 tables).
+//   The JAX package scans f32 at Precision.HIGH (a 3-pass bf16 product on
+//   the TPU's matrix unit, not fp32-class); here fp32-class accuracy comes
+//   from a split-precision product on the tensor cores: each operand in a
+//   tf32 high part and a low part, hi.hi + lo.hi + hi.lo on wgmma
+//   m64n128k8 (tf32), the small terms summed before the large one. The
+//   tensor cores ignore an f32 operand's low 13 bits, so a raw row is its
+//   own high part and only its low part, rna(x - trunc(x)), is formed: three
+//   splitter warps write it beside each ring stage once TMA landed it. The
+//   queries split once in a first pass (hi = rna(q), lo = rna(q - hi), and
+//   |q|^2). B 4096 x N 1M x d 128 is three passes of 1.1 TFLOP at 495
+//   TFLOP/s (6.7 ms) against the FMA units' 16.4 ms for one. The tensor
+//   cores truncate their f32 sums at each step, so each 32-deep chunk's sum
+//   starts from zero and joins the tile's total in registers (round to
+//   nearest): the scores land nearer the float64 answer than an IEEE fp32
+//   sum's (PERF.md). One warpgroup multiplies 64 queries (resident, or
+//   streamed chunk by chunk past d 160) by 128-row tiles that come chunk by
+//   chunk through a TMA ring fed by one producer warp; a second warpgroup
+//   scores each tile as the short product does (fast test, vote, a bound
+//   the splits share, persistent blocks) while the next one multiplies.
+//   Measured, it runs nearly as fast with the score pass skipped: the
+//   products bound it, through shared memory (the operands' reads, the
+//   split's and TMA's writes) and the turn per chunk from issue to add
+//   (384 threads leave 168 registers a thread, no room for a second
+//   accumulator set; PERF.md).
+// * The FMA f32 product (f32 tables TMA cannot read: d % 4 != 0, such as
+//   GloVe's 25 and 50, or a view that starts mid-row). IEEE fp32 on the
+//   FMA units: the 128-query tile stays resident in shared memory for the
+//   whole scan where it fits (d up to ~170 at small k; past that its depth
+//   chunks ride the ring beside the corpus, each loaded once a tile), corpus
+//   chunks of 128 rows x 32 depth stream through a three-stage cp.async
+//   ring, and each thread keeps an 8 x 8 register micro-tile fed by 16-byte
+//   shared loads (16 loads per 256 FMAs, each a broadcast across the warp).
+//   Each warp holds all 128 rows of its 16 queries and selects in two passes
+//   of 64 rows, so selection needs no block barrier either.
 //
-// Selection is the same for all four, and no thread inserts serially. Scores
+// Selection is the same for all five, and no thread inserts serially. Scores
 // are formed in registers from the accumulators (a row term carries |x|^2,
 // the mask and the padding as +inf), each thread tests them against its
 // query's threshold (in shared memory) and survivors go to the query's pool
@@ -112,7 +132,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps (tile and f32 products)
+constexpr int THREADS = 256;  // 8 warps (tile and FMA f32 products)
 constexpr int TQ = 64;        // queries per block (tile product)
 constexpr int TN = 64;        // corpus rows per tile (tile product)
 // Tile product: two stages of TN rows x TD depth.
@@ -172,15 +192,49 @@ constexpr int SHORT_MAX_D = 256;
 constexpr int SHORT_MAX_K = 1024;
 constexpr int TILE_MAX_D = 128;
 
-// f32 product: 128 queries x 128 rows a tile, 32-deep stages.
+// FMA f32 product (f32 rows TMA cannot read): 128 queries x 128 rows a
+// tile, 32-deep stages.
 constexpr int FQ = 128;
 constexpr int FN = 128;
 constexpr int FK = 32;
 constexpr int FLD = FK + 4;  // padded stage row (floats): conflict-free 16-byte reads
 constexpr int FSTAGES = 3;
 
+// Split f32 product: 64 queries x 128 rows a tile; a ring stage is one
+// 32-deep chunk of the tile (128 bytes of f32 a row: one 128-byte swizzled
+// row), its raw rows and their low parts, plus (queries streamed) the
+// chunk's query high and low parts. The queries and the ring share XBUF
+// bytes; a tile's sums go to the scorer through XSCORE bytes.
+constexpr int XQ = 64;
+constexpr int XN = 128;
+constexpr int XK = 32;
+// Warpgroup 0 multiplies, 1 scores, 2 is the producer warp and 3 splitter
+// warps.
+constexpr int XTHREADS = 384;
+constexpr int XSPLITTERS = 3;
+constexpr int XQCHUNK = XQ * XK * 4;        // 8 KB: one part of 64 queries x 32
+constexpr int XCHUNK = XN * XK * 4;         // 16 KB: 128 rows x 32
+constexpr int XSCORE = XQ * XN * 4;         // 32 KB: a tile's sums
+constexpr int XBUF = 184 * 1024;
+constexpr int XMAX_STAGES = 5;
+// Row-term slots: the producer runs up to `stages` chunks ahead of the
+// multiplier, which runs up to two tiles ahead of the scorer.
+constexpr int XSTERMS = 8;
+static_assert(XSTERMS >= XMAX_STAGES + 3, "row terms outlive their tile's scoring");
+// Ring stages beside the queries: resident (both parts of every chunk of
+// the 64-query tile, nch chunks) while three stages fit, else streamed.
+__host__ __device__ constexpr int split_stages(int nch, int resident) {
+  return resident ? ((XBUF - 2 * nch * XQCHUNK) / (2 * XCHUNK) < XMAX_STAGES
+                         ? (XBUF - 2 * nch * XQCHUNK) / (2 * XCHUNK)
+                         : XMAX_STAGES)
+                  : XBUF / (2 * XCHUNK + 2 * XQCHUNK);
+}
+__host__ __device__ constexpr int split_resident(int nch) {
+  return (XBUF - 2 * nch * XQCHUNK) / (2 * XCHUNK) >= 3;
+}
+
 enum Metric { kL2 = 0, kDot = 1, kCos = 2 };
-enum Product { kTile = 0, kDeep = 1, kF32 = 2, kShort = 3 };
+enum Product { kTile = 0, kDeep = 1, kF32Fma = 2, kShort = 3, kF32 = 4 };
 // The plan's fields (vecgo_scan_topk_plan's out array).
 enum PlanField { P_PRODUCT, P_TQ, P_TN, P_RESIDENT, P_SMEM, P_BPS, P_POOL, P_FIELDS };
 // A tensor map that could not be encoded (or no encoder to call).
@@ -1047,6 +1101,18 @@ __device__ __forceinline__ void short_terms(float (&tv)[SN / 32], int row0, int 
   }
 }
 
+// The shared bounds a tile scores with (key), loaded a tile before
+// (next_key), so the load's latency hides behind that tile.
+__device__ __forceinline__ void next_bounds(unsigned (&key)[2], unsigned (&next_key)[2],
+                                            const bool (&live)[2], const int (&qi)[2],
+                                            const unsigned* bound) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    key[h] = next_key[h];
+    next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
+  }
+}
+
 // A ring position: stage s in phase parity ph, t tiles loaded (or consumed)
 // so far, which also names the tile's row-term slot.
 struct Ring {
@@ -1228,11 +1294,7 @@ scan_short_kernel(const __grid_constant__ CUtensorMap qmap,
       next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
 #pragma unroll 1
     for (int t = 0; t < n_tiles; ++t) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        key[h] = next_key[h];
-        next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
-      }
+      next_bounds(key, next_key, live, qi, bound);
       if (cw != 0 || !first) named_sync(1 + cw);
       first = false;
       mbar_wait(smem_u32(full + r.s), r.ph);
@@ -1274,7 +1336,7 @@ const void* short_kernel(int d, int k) {
   return reinterpret_cast<const void*>(scan_short_kernel<4, 2>);
 }
 
-// ---------------------------------------------------------------- f32 product
+// ---------------------------------------------------------------- FMA f32 product
 
 // A resident query row (floats): d rounded up to the 32-deep stage, plus 4,
 // so 8 consecutive rows fall on distinct banks.
@@ -1426,10 +1488,352 @@ scan_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
   L.write_out(tid, THREADS);
 }
 
+// ---------------------------------------------------------------- split f32 product
+
+// tf32's round to nearest (ties away): the f32 container of the value, its
+// low 13 bits zero.
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The low part of x. The tensor cores read an f32 operand as tf32 by
+// ignoring its low 13 bits, so a raw row is its own high part trunc(x); its
+// low part x - trunc(x) is exact in f32 and is rounded to tf32 here. A
+// non-finite x gives NaN (inf - inf), so its row never scores.
+__device__ __forceinline__ float tf32_low(float x) {
+  return tf32_round(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+}
+
+// |q|^2 of every query (f32), each query's bound shared by its splits (+inf's
+// key), and the query in two tf32 parts, hi = rna(q) and lo = rna(q - hi),
+// zero-padded to dp columns: one warp a query.
+__global__ void prep_split_queries_kernel(const float* __restrict__ q, int B, int d, int dp,
+                                          float* __restrict__ qh, float* __restrict__ ql,
+                                          float* __restrict__ qn, unsigned* __restrict__ bound) {
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (w >= B) return;
+  if (lane == 0) bound[w] = wsel::fkey(INFINITY);
+  const float* row = q + (size_t)w * d;
+  float s = 0.f;
+  for (int c = lane; c < dp; c += 32) {
+    const float v = c < d ? row[c] : 0.f;
+    s = fmaf(v, v, s);
+    const float h = tf32_round(v);
+    qh[(size_t)w * dp + c] = h;
+    ql[(size_t)w * dp + c] = tf32_round(v - h);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if (lane == 0) qn[w] = s;
+}
+
+// d[64 x 128] (+)= A[64 x 8] . B[128 x 8]^T, tf32 operands K-major in shared
+// memory as TMA's 128-byte swizzle lays them (f32 containers), f32
+// accumulators in wgmma_m64n128k16's layout.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The products of one chunk (4 k8 steps) into acc (overwritten) as one
+// committed group: the two small terms first, lo(q).x and hi(q).lo(x), then
+// the large one, hi(q).x. The tensor cores truncate their f32 sums at each
+// step, so a chunk's sum starts from zero and joins the tile's total in
+// registers (rounded to nearest): the truncations stay on chunk-sized sums.
+__device__ __forceinline__ void split_issue(float (&acc)[64], uint32_t qh, uint32_t ql,
+                                            uint32_t raw, uint32_t lo) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < XK / 8; ++kk)
+    wgmma_m64n128k8_tf32(acc, sw128_desc(ql + kk * 32), sw128_desc(raw + kk * 32), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < XK / 8; ++kk)
+    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(lo + kk * 32), 1);
+#pragma unroll
+  for (int kk = 0; kk < XK / 8; ++kk)
+    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), 1);
+  wgmma_commit();
+}
+
+// tot (+)= acc once acc's products retired.
+__device__ __forceinline__ void split_add(float (&tot)[64], float (&acc)[64], bool first) {
+  fence_operand(acc);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = first ? acc[i] : tot[i] + acc[i];
+}
+
+// Shared memory of the split product: the queries and the ring in XBUF
+// bytes (chunks of 128 bytes a row, 128-byte swizzled), a tile's sums, the
+// row terms, the barriers and the scorer's selection state, plus 1 KB to
+// align the chunks to the swizzle's 1024 bytes. One size for every depth.
+constexpr size_t SPLIT_SMEM = 1024 + (size_t)XBUF + (size_t)XSCORE + (size_t)XSTERMS * XN * 4 +
+                              (size_t)(3 * XMAX_STAGES + 4) * 8 + pools_bytes(64, 4);
+
+// Persistent blocks over (query tile, split) units as the short product's,
+// 64 queries a unit, in three warpgroups (168 registers a thread). Warp 8
+// produces: per unit
+// the query tile's hi and lo chunks (resident: by TMA once the previous
+// unit's products retired), per ring stage one 32-deep chunk of a 128-row
+// tile (and, streamed, the chunk's query parts), and per tile the row
+// terms, which its lanes load a tile ahead into slot (tile count %
+// XSTERMS). Warps 9-11 split: once a stage landed they write its rows' low
+// parts beside them and fence them for the tensor cores. Warpgroup 0
+// multiplies: per chunk the three products on wgmma m64n128k8 (tf32) into
+// one accumulator set, whose sum joins the tile's total (a second set) as
+// soon as they retire, which frees the stage; the total goes to shared
+// memory for the scorer, and the next tile's products start. Warpgroup 1
+// scores each tile from there as the short product does (fast test, vote,
+// exact score, pools, the shared bound) while the tensor cores run the
+// next, so the score pass leaves the product's path. (A third accumulator
+// set, to overlap one chunk's sum with the next chunk's products, spills:
+// 384 threads leave 168 registers, and setmaxnreg does not raise what
+// ptxas allocates.)
+__global__ void __launch_bounds__(XTHREADS, 1)
+scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
+                  const __grid_constant__ CUtensorMap qlmap,
+                  const __grid_constant__ CUtensorMap xmap, const float* __restrict__ qn_g,
+                  unsigned* __restrict__ bound, const float* __restrict__ xnorm2,
+                  const uint8_t* __restrict__ mask, int B, int N, int d, int k, int metric,
+                  int rows_per_split, int q_tiles, int units, int resident,
+                  unsigned long long* pool, int* pool_n, int pool_cap) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nch = (d + XK - 1) / XK;
+  const int stages = split_stages(nch, resident);
+  const uint32_t qres = smem_u32(smem);  // resident: the hi chunks, then the lo chunks
+  const uint32_t ring_off = resident ? 2 * nch * XQCHUNK : 0;
+  const uint32_t ring = qres + ring_off;
+  // A stage: the raw rows, their low parts, then (streamed) the query chunk's two parts.
+  const uint32_t stage_bytes = 2 * XCHUNK + (resident ? 0 : 2 * XQCHUNK);
+  float4* sums = reinterpret_cast<float4*>(smem + XBUF);  // [16][128 threads] float4
+  float* terms = reinterpret_cast<float*>(smem + XBUF + XSCORE);  // [XSTERMS][XN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + XSTERMS * XN);
+  uint64_t* split = full + XMAX_STAGES;
+  uint64_t* empty = split + XMAX_STAGES;
+  uint64_t* qfull = empty + XMAX_STAGES;
+  uint64_t* qempty = qfull + 1;
+  uint64_t* sfull = qempty + 1;  // a tile's sums are in `sums`
+  uint64_t* sempty = sfull + 1;  // the scorer has taken them
+  char* pools_p = reinterpret_cast<char*>(sempty + 1);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(split + s), XSPLITTERS);
+      mbar_init(smem_u32(empty + s), 4);  // every multiplying warp
+    }
+    mbar_init(smem_u32(qfull), 1);
+    mbar_init(smem_u32(qempty), 4);
+    mbar_init(smem_u32(sfull), 4);
+    mbar_init(smem_u32(sempty), 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    if (warp == 8) {
+      const float base_term = metric == kCos ? 1.f : 0.f;
+      Ring r{0, 0, 0u, stages};
+      int tiles = 0, j = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++j) {
+        const int q0 = (u % q_tiles) * XQ;
+        const int r_begin = (u / q_tiles) * rows_per_split;
+        const int r_end = min(N, r_begin + rows_per_split);
+        const int n_tiles = (r_end - r_begin + XN - 1) / XN;
+        if (resident && lane == 0) {
+          if (j > 0) mbar_wait(smem_u32(qempty), (j - 1) & 1);
+          mbar_expect_tx(smem_u32(qfull), 2 * nch * XQCHUNK);
+          for (int c = 0; c < nch; ++c) {
+            tma_load_2d(qres + c * XQCHUNK, &qhmap, c * XK, q0, smem_u32(qfull));
+            tma_load_2d(qres + (nch + c) * XQCHUNK, &qlmap, c * XK, q0, smem_u32(qfull));
+          }
+        }
+        float tv[XN / 32];
+        short_terms(tv, r_begin, r_end, N, lane, metric, base_term, xnorm2, mask);
+        for (int t = 0; t < n_tiles; ++t, ++tiles) {
+          const int row0 = r_begin + t * XN;
+          for (int c = 0; c < nch; ++c) {
+            mbar_wait(smem_u32(empty + r.s), r.ph ^ 1);
+            if (c == 0) {
+              float* tt = terms + (tiles % XSTERMS) * XN;
+#pragma unroll
+              for (int i = 0; i < XN / 32; ++i) tt[lane + 32 * i] = tv[i];
+              __syncwarp();  // every lane's terms precede lane 0's arrival
+            }
+            if (lane == 0) {
+              const uint32_t bar = smem_u32(full + r.s), sb = ring + r.s * stage_bytes;
+              mbar_expect_tx(bar, stage_bytes - XCHUNK);  // all but the low parts come by TMA
+              tma_load_2d(sb, &xmap, c * XK, row0, bar);
+              if (!resident) {
+                tma_load_2d(sb + 2 * XCHUNK, &qhmap, c * XK, q0, bar);
+                tma_load_2d(sb + 2 * XCHUNK + XQCHUNK, &qlmap, c * XK, q0, bar);
+              }
+            }
+            // The next tile's terms load while this warp waits for its stages.
+            if (c == 0 && t + 1 < n_tiles)
+              short_terms(tv, row0 + XN, r_end, N, lane, metric, base_term, xnorm2, mask);
+            r.next();
+          }
+        }
+      }
+    } else {
+      const int sp = tid - 288;
+      Ring r{0, 0, 0u, stages};
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int r_begin = (u / q_tiles) * rows_per_split;
+        const int r_end = min(N, r_begin + rows_per_split);
+        const int n = (r_end - r_begin + XN - 1) / XN * nch;
+        for (int i = 0; i < n; ++i) {
+          mbar_wait(smem_u32(full + r.s), r.ph);
+          float4* raw = reinterpret_cast<float4*>(smem + ring_off + r.s * stage_bytes);
+          float4* lo = raw + XCHUNK / 16;
+          for (int e = sp; e < XCHUNK / 16; e += 32 * XSPLITTERS) {
+            const float4 v = raw[e];
+            lo[e] = make_float4(tf32_low(v.x), tf32_low(v.y), tf32_low(v.z), tf32_low(v.w));
+          }
+          // The low parts, written by threads, become visible to wgmma's reads.
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(split + r.s));
+          r.next();
+        }
+      }
+    }
+  } else if (wg == 0) {
+    Ring r{0, 0, 0u, stages};
+    int j = 0;
+    uint32_t sph = 0;
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++j) {
+      const int r_begin = (u / q_tiles) * rows_per_split;
+      const int r_end = min(N, r_begin + rows_per_split);
+      const int n_tiles = (r_end - r_begin + XN - 1) / XN;
+      if (resident) mbar_wait(smem_u32(qfull), j & 1);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll 1
+        for (int c = 0; c < nch; ++c) {
+          mbar_wait(smem_u32(full + r.s), r.ph);
+          mbar_wait(smem_u32(split + r.s), r.ph);
+          const uint32_t sb = ring + r.s * stage_bytes;
+          const uint32_t qh = resident ? qres + c * XQCHUNK : sb + 2 * XCHUNK;
+          const uint32_t ql = resident ? qres + (nch + c) * XQCHUNK : sb + 2 * XCHUNK + XQCHUNK;
+          split_issue(acc, qh, ql, sb, sb + XCHUNK);
+          wgmma_wait<0>();
+          split_add(tot, acc, c == 0);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(empty + r.s));
+          r.next();
+        }
+        if (lane == 0 && resident && t + 1 == n_tiles) mbar_arrive(smem_u32(qempty));
+        // The tile's sums to the scorer, in the accumulators' own layout.
+        mbar_wait(smem_u32(sempty), sph ^ 1);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          sums[i * 128 + tid] = make_float4(tot[4 * i], tot[4 * i + 1], tot[4 * i + 2],
+                                            tot[4 * i + 3]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(sfull));
+        sph ^= 1;
+      }
+    }
+  } else {
+    const int ctid = tid - 128, w = ctid >> 5, g = lane >> 2, tg = lane & 3;
+    const float pm = metric == kL2 ? 2.f : 1.f;
+    int tiles = 0;
+    uint32_t sph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int q0 = (u % q_tiles) * XQ;
+      const int r_begin = (u / q_tiles) * rows_per_split;
+      const int r_end = min(N, r_begin + rows_per_split);
+      const int n_tiles = (r_end - r_begin + XN - 1) / XN;
+      auto L = carve_pools<64>(pools_p, k, (size_t)u, pool, pool_n, pool_cap);
+      if (lane < 16) {  // each warp keeps the state of its own 16 queries
+        L.thr[16 * w + lane] = INFINITY;
+        L.cnt[16 * w + lane] = 0;
+      }
+      __syncwarp();
+      float qa[2], own[2], th[2];
+      int qi[2];
+      bool live[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        qi[h] = q0 + 16 * w + g + 8 * h;
+        live[h] = qi[h] < B;
+        qa[h] = metric == kL2 && live[h] ? qn_g[qi[h]] : 0.f;
+        own[h] = live[h] ? INFINITY : -INFINITY;
+      }
+      // The shared bounds, loaded a tile ahead (as the short product's).
+      unsigned key[2], next_key[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t, ++tiles) {
+        next_bounds(key, next_key, live, qi, bound);
+        float acc[64];
+        mbar_wait(smem_u32(sfull), sph);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float4 v = sums[i * 128 + ctid];
+          acc[4 * i] = v.x;
+          acc[4 * i + 1] = v.y;
+          acc[4 * i + 2] = v.z;
+          acc[4 * i + 3] = v.w;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(sempty));
+        sph ^= 1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));
+        short_score(L, acc, terms + (tiles % XSTERMS) * XN, r_begin + t * XN, w, g, tg, lane, qa,
+                    live, qi, own, th, pm, bound);
+      }
+      __syncwarp();
+      if (lane < 16) L.pool_n[16 * w + lane] = L.cnt[16 * w + lane];
+    }
+  }
+}
+
 const void* kernel_of(int product, int d, int k) {
   if (product == kDeep) return reinterpret_cast<const void*>(scan_deep_kernel);
   if (product == kShort) return short_kernel(d, k);
-  if (product == kF32) return reinterpret_cast<const void*>(scan_f32_kernel);
+  if (product == kF32) return reinterpret_cast<const void*>(scan_split_kernel);
+  if (product == kF32Fma) return reinterpret_cast<const void*>(scan_f32_kernel);
   return reinterpret_cast<const void*>(scan_tile_kernel);
 }
 
@@ -1459,17 +1863,19 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [rows, cols] bf16 row-major tensor (cols * 2 a multiple of 16 bytes) read
-// in boxes of box_rows x 64 columns, 128-byte swizzled; zeros outside.
-int encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                   uint32_t box_rows) {
+// A [rows, cols] bf16 (or f32) row-major tensor, its row pitch a multiple
+// of 16 bytes, read in boxes of box_rows x 128 bytes (64 bf16, 32 f32),
+// 128-byte swizzled; zeros outside.
+int encode_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+              uint32_t box_rows, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeFailed;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {DK, box_rows};
+  const cuuint64_t strides[1] = {cols * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {f32 ? (cuuint32_t)XK : (cuuint32_t)DK, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1482,7 +1888,8 @@ extern "C" {
 
 // The launch plan of a (table type, d, k) on the current device, for a bf16
 // table whose rows are 16-byte aligned (aligned = 1) or not: out[P_FIELDS]
-// gets the product (0 tile, 1 deep, 2 f32, 3 short), queries and corpus rows a tile,
+// gets the product (0 tile, 1 deep, 2 f32 FMA, 3 short, 4 f32 split), queries and
+// corpus rows a tile,
 // whether the query tile stays resident in shared memory, the block's
 // dynamic shared memory, how many blocks fit on one SM, and the pool entries
 // per (query, split). It also lets the kernels use that much shared memory
@@ -1499,9 +1906,10 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
   size_t smem;
   // TMA reads rows whose pitch is a multiple of 16 bytes from a 16-byte
   // aligned base; other bf16 tables (d % 8 != 0, or a view that starts
-  // mid-row) take the tile product's register-staged loads.
+  // mid-row) take the tile product's register-staged loads, other f32
+  // tables (d % 4 != 0, unaligned) the FMA product's.
   if (!x_bf16)
-    product = kF32;
+    product = d % 4 != 0 || !aligned ? kF32Fma : kF32;
   else if (d % 8 != 0 || !aligned)
     product = kTile;
   else if (d <= SHORT_MAX_D && k <= SHORT_MAX_K)
@@ -1510,7 +1918,10 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
     product = kTile;
   else
     product = kDeep;
-  if (product == kF32) {  // resident queries where they fit, else streamed
+  if (product == kF32) {
+    tq = XQ, tn = XN, threads = XTHREADS, resident = split_resident((d + XK - 1) / XK);
+    smem = SPLIT_SMEM;
+  } else if (product == kF32Fma) {  // resident queries where they fit, else streamed
     tq = FQ, tn = FN, threads = THREADS;
     resident = f32_smem(1, d) <= cap;
     smem = f32_smem(resident, d);
@@ -1545,9 +1956,11 @@ int vecgo_scan_topk_plan(int x_bf16, int d, int k, int aligned, int* out) {
 // q [B,d] f32; x [N,d] f32 or bf16, as the plan's product takes it; xnorm2
 // [N] f32 (read for l2 only); mask [N] bytes or NULL. plan is the host array
 // vecgo_scan_topk_plan filled for this (table type, d, k, alignment) on this
-// device. qb is a [B, pad16(d)] bf16 scratch (deep and short products, else
-// NULL) and qn a [B] f32 scratch (deep and f32 products; [2B] for the short
-// product, whose second half holds the bound each query's splits share).
+// device. qb is a [B, pad16(d)] bf16 scratch (deep and short products), a
+// [2, B, pad32(d)] f32 scratch (the split product: the queries' tf32 high
+// and low parts), else NULL; qn a [B] f32 scratch (deep and FMA products;
+// [2B] for the short and split products, whose second half holds the bound
+// each query's splits share).
 // With blocks = ceil(B / tq) *
 // splits, pool is a [blocks, tq, plan pool] 64-bit scratch and pool_n a
 // [blocks, tq] int32 scratch; a finishing kernel writes out_d/out_i [B, k].
@@ -1575,8 +1988,8 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     CUtensorMap qmap, xmap;
-    int r = encode_bf16_2d(&qmap, qbb, B, dp, plan[P_TQ]);
-    if (r == 0) r = encode_bf16_2d(&xmap, x, N, d, SN);
+    int r = encode_2d(&qmap, qbb, B, dp, plan[P_TQ]);
+    if (r == 0) r = encode_2d(&xmap, x, N, d, SN);
     if (r != 0) return r;
     int dev = 0, sms = 0;
     e = cudaGetDevice(&dev);
@@ -1598,12 +2011,37 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     CUtensorMap qmap, xmap;
-    int r = encode_bf16_2d(&qmap, qbb, B, dp, DQ);
-    if (r == 0) r = encode_bf16_2d(&xmap, x, N, d, DN);
+    int r = encode_2d(&qmap, qbb, B, dp, DQ);
+    if (r == 0) r = encode_2d(&xmap, x, N, d, DN);
     if (r != 0) return r;
     scan_deep_kernel<<<grid, DTHREADS, smem, st>>>(qmap, xmap, qnf, xn, mk, B, N, d, k, metric,
                                                    rows_per_split, DSTAGES, pl, pn, pcap);
   } else if (product == kF32) {
+    if (d % 4 != 0) return (int)cudaErrorInvalidValue;
+    const int nch = (d + XK - 1) / XK, dp = nch * XK;
+    float* qh = static_cast<float*>(qb);
+    float* ql = qh + (size_t)B * dp;
+    // qn holds |q|^2 and then each query's bound shared by its splits.
+    unsigned* bound = reinterpret_cast<unsigned*>(qnf + B);
+    prep_split_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, dp, qh, ql, qnf, bound);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    CUtensorMap qhmap, qlmap, xmap;
+    int r = encode_2d(&qhmap, qh, B, dp, XQ, true);
+    if (r == 0) r = encode_2d(&qlmap, ql, B, dp, XQ, true);
+    if (r == 0) r = encode_2d(&xmap, x, N, d, XN, true);
+    if (r != 0) return r;
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (plan[P_TQ] != XQ) return (int)cudaErrorInvalidValue;
+    const int units = (int)grid.x * splits;
+    const int blocks = units < plan[P_BPS] * sms ? units : plan[P_BPS] * sms;
+    scan_split_kernel<<<blocks, XTHREADS, smem, st>>>(
+        qhmap, qlmap, xmap, qnf, bound, xn, mk, B, N, d, k, metric, rows_per_split, (int)grid.x,
+        units, plan[P_RESIDENT], pl, pn, pcap);
+  } else if (product == kF32Fma) {
     prep_queries_kernel<<<(B + 7) / 8, 256, 0, st>>>(qf, B, d, d, nullptr, qnf, nullptr);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

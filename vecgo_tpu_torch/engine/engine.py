@@ -107,7 +107,7 @@ class EngineOptions:
     # the cap is far below the reference's single-query 20k.
     ef_filtered_cap: int = 2048
     beam_width: int = 4
-    flat_scan_dtype: str = "bf16"  # "bf16" (1-pass MXU scan + exact f32 rerank) | "f32" (3-pass HIGH scan)
+    flat_scan_dtype: str = "bf16"  # "bf16" (1-pass MXU scan + exact f32 rerank) | "f32" (fp32-class: the split-precision f32 product on the card)
     serve_compact: bool = False  # coded-table repack: half HBM, ~2x probes
     serve_refine: bool = True  # int16 pool-rescore plane (+2 B/dim/row HBM): recall to the pool bound
     serve_ivf_min_n: int = 4096  # min rows for a coded IVF serving table (below: pure graph walk)

@@ -171,18 +171,30 @@ class PlanCache:
                 total += sum(int(getattr(v, "nbytes", 0)) for v in c.values())
         return total
 
-    def sweep_gathered(self, budget_bytes: int):
-        """Evict LRU plans until cached compact-gather sub-corpora fit the
-        HBM budget. Gathers attach lazily at first dispatch, so this runs
-        AFTER dispatch, not at put() (a 50%-selectivity filter at 1M x 128
-        holds a ~128 MB bf16 sub-corpus per plan)."""
-        if budget_bytes <= 0:
+    def sweep_gathered(self, budget_bytes: int, device_left: Optional[int] = None,
+                       reserve: int = 0, keep=None):
+        """Evict LRU plans until cached compact-gather sub-corpora, plus
+        `reserve` bytes about to be gathered, fit the smaller of
+        `budget_bytes` (0 = no limit of its own) and, under a device budget,
+        `device_left`, what that budget has left after the resident
+        segments. The newest plan and `keep` stay. Under a device budget
+        this runs before a dispatch gathers (`reserve`: what the plan will
+        gather), so the gathers never hold more than the room; it also runs
+        after every dispatch, since gathers and masks attach lazily there (a
+        50%-selectivity filter at 1M x 128 holds a ~128 MB bf16 sub-corpus
+        per plan)."""
+        limit = budget_bytes if budget_bytes > 0 else None
+        if device_left is not None:
+            limit = device_left if limit is None else min(limit, device_left)
+        if limit is None:
             return
         with self._lock:
-            total = sum(self._gathered_bytes(p) for p in self._d.values())
-            while total > budget_bytes and len(self._d) > 1:
-                _, old = self._d.popitem(last=False)
-                total -= self._gathered_bytes(old)
+            total = reserve + sum(self._gathered_bytes(p) for p in self._d.values())
+            for key in list(self._d)[:-1]:
+                if total <= limit:
+                    break
+                if self._d[key] is not keep:
+                    total -= self._gathered_bytes(self._d.pop(key))
 
     def clear(self):
         with self._lock:
@@ -224,9 +236,22 @@ def _plan_still_resident(plan: "_Plan", device_budget) -> bool:
     return True
 
 
+def device_left(device_budget) -> Optional[int]:
+    """What a device budget has left after its resident segments (None
+    without a budget)."""
+    if device_budget is None or device_budget.budget <= 0:
+        return None
+    return max(0, device_budget.budget - device_budget.used)
+
+
 def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
-    """Per-snapshot strategy selection + mask construction (chunk-invariant)."""
+    """Per-snapshot strategy selection + mask construction (chunk-invariant).
+
+    Under a device budget a low-selectivity filter on a flat segment gathers
+    its sub-corpus only where it fits what the budget has left after the
+    resident segments; otherwise it rides the full scan as a row mask."""
     plan = _Plan()
+    compact = []  # flat sources whose filter would gather, in plan order
     fs = as_filterset(opts.filter)
     plan.filtered = fs is not None
 
@@ -296,7 +321,7 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
                 # then costs O(sel * N) instead of a full masked sweep — this
                 # is why the reference's filtered QPS RISES as selectivity
                 # falls (search.go:286-311); ours now does too.
-                kind = "flat_compact"
+                compact.append(len(plan.sources))
             plan.n_brute += 1
         elif not resident:
             # Beyond-budget graph segment: prefer the cluster-cached coded
@@ -335,7 +360,23 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
         plan.sources.append(
             _Source(seg.seg_id, seg, kind, mask, rows_c, seg.n)
         )
+    left = device_left(device_budget)
+    scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
+    for i in compact:
+        src = plan.sources[i]
+        need = compact_bytes(src.rows_considered, src.source.dim, scan_dtype)
+        if left is None or need <= left:
+            src.kind = "flat_compact"
+            if left is not None:
+                left -= need
     return plan
+
+
+def _gather_need(plan, scan_dtype: str) -> int:
+    """Bytes the plan's compact sources will gather at their first dispatch."""
+    return sum(compact_bytes(s.rows_considered, s.source.dim, scan_dtype)
+               for s in plan.sources
+               if s.kind == "flat_compact" and "rows" not in (s.compact or {}))
 
 
 def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
@@ -497,24 +538,35 @@ def _source_mask(src, device):
     return st["mask"]
 
 
+def compact_bytes(rows: int, dim: int, scan_dtype: str) -> int:
+    """Device bytes of the sub-corpus `_gather_compact` makes of `rows` rows
+    (what the device budget charges it)."""
+    return rows * (2 * dim + 8 + 4 + (4 * dim if scan_dtype == "f32" else 0))
+
+
+def _gather_compact(dev, rows_elig, scan_dtype: str) -> dict:
+    """The compact-gather sub-corpus: the eligible rows' segment row ids
+    (int64), their bf16 rows and their norms (f32), and under the f32 scan
+    profile their f32 rows (`compact_bytes` counts each)."""
+    cc = dict(rows=rows_elig, x16=dev["vectors"][rows_elig].to(torch.bfloat16),
+              rn=dev["rnorm2"][rows_elig])
+    if scan_dtype == "f32":
+        cc["x32"] = dev["vectors"][rows_elig]
+    return cc
+
+
 def _compact_search(src, qd, kk: int, metric: Metric, scan_dtype: str):
     """Low-selectivity filter on a flat segment: the eligible rows are
     gathered once per plan into a dense sub-corpus (kept on the plan's source),
     so the scan costs O(selectivity * N) and carries no mask."""
     seg = src.source
-    dev = seg.device_state(qd.device)
     cc = _plan_state(src)
     if "rows" not in cc:
         rows_elig = torch.from_numpy(np.flatnonzero(src.mask)).to(qd.device)
-        cc.update(
-            rows=rows_elig,
-            x16=dev["vectors"][rows_elig].to(torch.bfloat16),
-            rn=dev["rnorm2"][rows_elig],
-        )
+        cc.update(_gather_compact(seg.device_state(qd.device), rows_elig, scan_dtype))
     if scan_dtype == "f32":
-        # Exact sub-corpus scan; the f32 gather exists only for this profile.
-        if "x32" not in cc:
-            cc["x32"] = dev["vectors"][cc["rows"]]
+        # The f32 sub-corpus scan (on the card the f32 product: split
+        # precision, fp32-class, on the tensor cores).
         d, lrows = T.blockwise_topk_search(
             qd, cc["x32"], kk, metric=metric, x_norms_sq=cc["rn"], x_normalized=True,
         )
@@ -658,6 +710,12 @@ def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=Non
         plan = _plan_snapshot(snap, opts, options, device_budget)
         if cache_key is not None:
             plan_cache.put(cache_key, plan)
+    gather_budget = getattr(options, "plan_gather_budget_bytes", 2 << 30)
+    left = device_left(device_budget)
+    if plan_cache is not None and left is not None:
+        # Make room for this plan's gathers before they are allocated.
+        plan_cache.sweep_gathered(gather_budget, left, keep=plan, reserve=_gather_need(
+            plan, getattr(options, "flat_scan_dtype", "bf16")))
     t_plan = time.perf_counter()
 
     # Every dirty (multi-version) id can put one stale row per source into
@@ -680,8 +738,8 @@ def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=Non
         done.record(torch.cuda.current_stream(qd.device))
     if plan_cache is not None:
         # Compact-gather sub-corpora attach at first dispatch; hold the plan
-        # cache to its device budget now.
-        plan_cache.sweep_gathered(getattr(options, "plan_gather_budget_bytes", 2 << 30))
+        # cache to its own budget and to what the device budget has left.
+        plan_cache.sweep_gathered(gather_budget, device_left(device_budget), keep=plan)
     return _PendingBatch(plan, chunks, done, [s.seg_id for s in plan.sources], b,
                          dist_comps, stats, t0, t_plan, time.perf_counter())
 

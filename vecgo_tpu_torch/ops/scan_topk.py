@@ -7,11 +7,13 @@ selection: unsorted candidate pools in a global scratch, compacted by radix
 selection, and a finishing kernel that selects and sorts each query's k).
 On a CUDA tensor it launches `csrc/scan_topk.cu` (or raises); on a CPU
 tensor it runs `scan_topk_reference`, the plain PyTorch version it is
-tested against. The library's plan picks one of four products by the
+tested against. The library's plan picks one of five products by the
 table's type, depth, k and alignment (`PRODUCTS`): the short bf16 product
 (rows TMA can read, d up to 256: resident queries, a TMA ring, `wgmma` in
 turns), the bf16 tile product (rows TMA cannot read), the deep bf16
-product (past d 256) and the f32 product (FMA units);
+product (past d 256), the f32 product (rows TMA can read: a split-precision
+fp32 product, three tf32 passes on `wgmma`) and the FMA f32 product (f32
+rows TMA cannot read);
 `scan_topk.last_product` names the last launch's.
 """
 
@@ -36,10 +38,16 @@ _MAX_POOL_WIDTH = 65536
 # A split scans at least this many tiles, so the compactions that fill its
 # pools stay a small part of its work.
 _MIN_TILES_PER_SPLIT = 32
-# The f32 product's tiles (128 x 128) are 4x the tile product's work, and the
-# memtable's 8,192-row chunks are only 64 of them: 16 tiles a split (four
-# splits, one wave of 128 blocks, measured fastest there; PERF.md).
-_MIN_TILES_F32 = 16
+# The FMA f32 product's tiles (128 x 128) are 4x the tile product's work,
+# and the memtable's 8,192-row chunks are only 64 of them: 16 tiles a split
+# (four splits, one wave of 128 blocks, measured fastest there; PERF.md).
+_MIN_TILES_FMA = 16
+# The split f32 product's units (64 queries over a split of 128-row tiles)
+# walk persistent blocks as the short product's, with a bound each query's
+# splits share, and split as it does (8 tiles a split: a memtable chunk at
+# a pool of 82 reads within 3% from 4 to 32 tiles, at 308 is 17% slower at
+# 32; PERF.md, `scripts/torch_scan_ab.py --sweep`).
+_MIN_TILES_F32 = 8
 # The short product's tiles are 128 rows and its query tiles 128-192
 # queries, so a small scan (a probed partition: a few hundred queries over a
 # few thousand rows) gets few units at 32 tiles a split; it splits rows down
@@ -52,7 +60,7 @@ _MAX_SPLITS_SHORT = 32
 # The grid's last wave should be at least this full.
 _WAVE_FILL = 0.9
 # The plan's product codes (csrc/scan_topk.cu `Product`).
-PRODUCTS = ("tile", "deep", "f32", "short")
+PRODUCTS = ("tile", "deep", "f32-fma", "short", "f32")
 # (device, bf16, d, k, rows 16-byte aligned) -> Plan
 _plans: dict = {}
 
@@ -76,12 +84,12 @@ class Plan(NamedTuple):
 
     @property
     def min_tiles(self) -> int:
-        return {"f32": _MIN_TILES_F32, "short": _MIN_TILES_SHORT}.get(self.product,
-                                                                      _MIN_TILES_PER_SPLIT)
+        return {"f32-fma": _MIN_TILES_FMA, "f32": _MIN_TILES_F32,
+                "short": _MIN_TILES_SHORT}.get(self.product, _MIN_TILES_PER_SPLIT)
 
     @property
     def max_splits(self) -> int:
-        return _MAX_SPLITS_SHORT if self.product == "short" else _MAX_POOL_WIDTH
+        return _MAX_SPLITS_SHORT if self.product in ("short", "f32") else _MAX_POOL_WIDTH
 
 
 def metric_code(metric) -> int:
@@ -123,9 +131,10 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     q [B, d] f32; x [N, d] f32 or bf16; xnorm2 [N] f32 (l2 only; may be None
     otherwise); mask [N] bool/uint8 or None (False = row excluded). On the
     card each call also allocates the kernel's candidate pools (about 16 k
-    bytes a query per row split, 1.25 KB at least), and for the short, deep
-    and f32 products |q|^2 (the short product also a shared bound per
-    query) and (short, deep) the queries rounded to bf16.
+    bytes a query per row split, 1.25 KB at least), and for every product
+    but the tile one |q|^2 (the short and f32 products also a shared bound
+    per query), and the queries rounded to bf16 (short, deep) or split in
+    two tf32 parts (f32).
     Returns sorted (d [B, k] f32, i [B, k] int32) with (+inf, -1) where fewer
     than k rows are eligible; ties go to the lower row id.
     """
@@ -161,11 +170,13 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     pool = scratch(blocks * tq * plan.pool, torch.int64)
     pool_n = scratch(blocks * tq, torch.int32)
     if plan.product != "tile":
-        # |q|^2; the short product keeps each query's bound shared by its
-        # splits behind it.
-        qn = scratch(2 * b if plan.product == "short" else b)
+        # |q|^2; the short and f32 products keep each query's bound shared by
+        # its splits behind it.
+        qn = scratch(2 * b if plan.product in ("short", "f32") else b)
     if plan.product in ("deep", "short"):
         qb = scratch(b * (-(-d // 16) * 16), torch.bfloat16)
+    elif plan.product == "f32":  # the queries' tf32 high and low parts
+        qb = scratch(2 * b * (-(-d // 32) * 32))
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
