@@ -149,10 +149,14 @@ once on one CUDA card.
    RRF mass within 1e-6) and compared with the snapshot's batch; 1,000
    deletes and 1,000 inserts, after which the next batch rebuilds the
    snapshot by itself (timed), no deleted id is returned and a new doc is
-   found by its term; then `scan_topk` at the sweep's shape (B 4096, N
-   1,048,576, H 4096 bf16, dot, the alive mask, k 36; the deep product)
-   against its plain version, its time beside its dense bound and the
-   bound of the data's nonzeros, and the route.
+   found by its term; then the sweep at its shape (B 4096, N 1,048,576,
+   H 4096 bf16, the alive mask, k 36): `scan_topk_columns` (the lexical
+   path's sweep, the "columns" product: the table read once, each query's
+   own columns summed) against its plain version and against the dense
+   function (scan_topk's plain version on the multi-hot query), its time
+   beside its bound (the table's bytes), the plain version and the route;
+   and the dense deep product at the same shape against its plain version
+   ("hybrid-bm25-dense"), beside its dense bound.
 
 9. The device grid (vecgo_tpu_torch.parallel), four shards laid over the
    cards present round-robin (cuda:0 four times on one card): ShardedFlat
@@ -2286,68 +2290,101 @@ def lexical_check(idx, snap, texts, card):
     return float(np.mean(overlaps))
 
 
-def hybrid_kernel_case(snap, texts, k, card):
-    """`scan_topk` at the device BM25 sweep's shape, held to its plain
-    version: the snapshot's bf16 table (N = n_slots, H padded to 64), the
-    multi-hot queries of these texts, metric dot, the alive mask. Scores
-    agree within REL_TOL of the score itself (f32 sums of the same exact
-    products in another order); ids agree except where the kernel's row
-    ties the plain version's exactly within that. Prints the time beside
-    the dense bound (2 B N H operations at the bf16 peak) and beside the
-    bound of the data's nonzeros (the table's bytes; the product of the
-    <= 16 columns each query holds), the plain version, the JAX route in
-    torch ops (`route_ms`) and torch.mm. The deep product must run."""
-    from vecgo_tpu_torch.model import Metric
-    from vecgo_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
-
-    w, alive = snap._device()
-    c, q = snap.multi_hot(snap.encode_queries(texts)[0])
-    args = (q, w, None, k, Metric.DOT, alive)
-    d_k, i_k = scan_topk(*args)
-    ran = scan_topk.last_product
-    check(ran == "deep", f"bm25 sweep: the {ran} product ran, not deep")
-    d_r, i_r = scan_topk_reference(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), "bm25 sweep: +inf slots differ")
+def sweep_agree(name, q, w, alive, got, want):
+    """Hold one BM25 sweep's answer to another's: the same +inf slots,
+    scores within REL_TOL of the score itself (f32 sums of the same exact
+    products in another order), ids equal except where the two rows'
+    exact (f64) scores tie within that, no dead slot. q is the multi-hot
+    query. Returns (max abs error, max relative error, tie swaps)."""
+    (d_k, i_k), (d_r, i_r) = got, want
+    check(torch.equal(torch.isfinite(d_k), torch.isfinite(d_r)), f"{name}: +inf slots differ")
     fin = torch.isfinite(d_r)
     tol = REL_TOL * d_r.abs()
     err = float((d_k - d_r).abs()[fin].max())
     rel = float(((d_k - d_r).abs() / d_r.abs().clamp_min(1e-30))[fin].max())
-    check(bool(((d_k - d_r).abs() <= tol)[fin].all()), f"bm25 sweep: relative error {rel}")
+    check(bool(((d_k - d_r).abs() <= tol)[fin].all()), f"{name}: relative error {rel}")
     bad = (i_k != i_r) & fin
     if bad.any():
         bq, bj = bad.nonzero(as_tuple=True)
         exact = -(q[bq].double() * w[i_k[bq, bj].long()].double()).sum(1)
         gap = (exact - d_r[bq, bj].double()).abs()
         check(bool((gap <= 2 * tol[bq, bj]).all()),
-              f"bm25 sweep: {int(bad.sum())} ids differ beyond exact ties")
-    check(bool(alive[i_k[fin].long()].all()), "bm25 sweep: a dead slot was returned")
-    ms = cuda_ms(lambda: scan_topk(*args), reps=3)
-    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), reps=1)
-    route = route_ms(*args)
-    mm = mm_ms(q, w)
+              f"{name}: {int(bad.sum())} ids differ beyond exact ties")
+    check(bool(alive[i_k[fin].long()].all()), f"{name}: a dead slot was returned")
+    return err, rel, int(bad.sum())
+
+
+def hybrid_kernel_case(snap, texts, k, card):
+    """The device BM25 sweep at its shape: the snapshot's bf16 table (N =
+    n_slots, H padded to 64), these texts' hot columns, the alive mask.
+    `scan_topk_columns` (the "columns" product must run) is held to its
+    plain version and to the dense function (scan_topk's plain version on
+    the multi-hot query), and timed beside its bound (the table's bytes
+    read once, against the query columns' f32 additions at the FMA peak),
+    its plain version and the JAX route in torch ops (`route_ms`, on the
+    multi-hot query). The dense deep product at the same shape, held to its
+    plain version, is timed beside it as "hybrid-bm25-dense". Returns both
+    cases."""
+    from vecgo_tpu_torch.model import Metric
+    from vecgo_tpu_torch.ops.scan_topk import (scan_topk, scan_topk_columns,
+                                               scan_topk_columns_reference, scan_topk_reference)
+
+    w, alive = snap._device()
+    cols, q = snap.multi_hot(snap.encode_queries(texts)[0])
+    got = scan_topk_columns(cols, w, k, alive)
+    ran = scan_topk.last_product
+    check(ran == "columns", f"bm25 sweep: the {ran} product ran, not columns")
+    plain = scan_topk_columns_reference(cols, w, k, alive)
+    dense_args = (q, w, None, k, Metric.DOT, alive)
+    dense_plain = scan_topk_reference(*dense_args)
+    torch.cuda.synchronize()
+    err, rel, swaps = sweep_agree("bm25 sweep vs its plain version", q, w, alive, got, plain)
+    err_d, rel_d, swaps_d = sweep_agree("bm25 sweep vs the dense function", q, w, alive, got,
+                                        dense_plain)
+    ms = cuda_ms(lambda: scan_topk_columns(cols, w, k, alive), reps=5)
+    plain_ms = cuda_ms(lambda: scan_topk_columns_reference(cols, w, k, alive), reps=1)
+    route = route_ms(*dense_args)
     (b, h), n = q.shape, w.shape[0]
-    nbytes = b * h * 4 + n * h * 2 + n + b * k * 8
-    bound_ms, bound_by = bound(2.0 * b * n * h, nbytes, True)
-    nnz = int((c >= 0).sum())
-    sparse_ms, sparse_by = bound(2.0 * nnz * n, nbytes, True)
+    nnz = int((cols >= 0).sum())
+    nbytes = n * h * 2 + n + cols.numel() * cols.element_size() + b * k * 8
+    bound_ms, bound_by = bound(float(nnz) * n, nbytes, False)
     print(f"kernel hybrid-bm25: B={b} N={n} H={len(snap.hot)} (width {h}) k={k} bf16 dot mask "
-          f"{1 - float(alive.float().mean()):.3%} out: {ran} product {ms:.3f} ms, dense bound "
-          f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.1%}; the data's nonzeros "
-          f"({nnz} query columns) bound {sparse_ms:.3f} ms ({sparse_by}), share "
-          f"{sparse_ms / ms:.1%}; plain {plain_ms:.3f} ms, route (torch.mm + torch.topk) "
-          f"{route:.3f} ms, torch.mm product alone {mm:.3f} ms, "
-          f"max_abs_err {err:.3g}, max relative {rel:.3g} (tol {REL_TOL:g}), tie swaps "
-          f"{int(bad.sum())} [{card}]", flush=True)
-    return {"name": "hybrid-bm25", "product": ran, "err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
-            "route_ms": route, "mm_ms": mm, "sparse_bound_ms": sparse_ms}
+          f"{1 - float(alive.float().mean()):.3%} out, {nnz} query columns: {ran} product "
+          f"{ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: the table read once), share "
+          f"{bound_ms / ms:.1%}; plain {plain_ms:.3f} ms, route (torch.mm + torch.topk on the "
+          f"multi-hot query) {route:.3f} ms; max_abs_err {err:.3g}, max relative {rel:.3g} "
+          f"against the plain version, {err_d:.3g} / {rel_d:.3g} against the dense function "
+          f"(tol {REL_TOL:g}), tie swaps {swaps} / {swaps_d} [{card}]", flush=True)
+    columns = {"name": "hybrid-bm25", "product": ran, "err": max(err, err_d), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "share": bound_ms / ms, "route_ms": route}
+
+    d_k, i_k = scan_topk(*dense_args)
+    ran = scan_topk.last_product
+    check(ran == "deep", f"bm25 dense sweep: the {ran} product ran, not deep")
+    torch.cuda.synchronize()
+    err, rel, swaps = sweep_agree("bm25 dense sweep", q, w, alive, (d_k, i_k), dense_plain)
+    ms = cuda_ms(lambda: scan_topk(*dense_args), reps=3)
+    plain_ms = cuda_ms(lambda: scan_topk_reference(*dense_args), reps=1)
+    mm = mm_ms(q, w)
+    nbytes = b * h * 4 + n * h * 2 + n + b * k * 8
+    dense_ms, dense_by = bound(2.0 * b * n * h, nbytes, True)
+    print(f"kernel hybrid-bm25-dense: the same sweep through scan_topk on the multi-hot [B, "
+          f"{h}] query: {ran} product {ms:.3f} ms, dense bound {dense_ms:.3f} ms ({dense_by}), "
+          f"share {dense_ms / ms:.1%}; plain {plain_ms:.3f} ms, torch.mm product alone "
+          f"{mm:.3f} ms, max_abs_err {err:.3g}, max relative {rel:.3g} (tol {REL_TOL:g}), tie "
+          f"swaps {swaps} [{card}]", flush=True)
+    dense = {"name": "hybrid-bm25-dense", "product": ran, "err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": dense_ms, "bound_by": dense_by,
+             "share": dense_ms / ms, "route_ms": route, "mm_ms": mm}
+    return [columns, dense]
 
 
 def hybrid_phase(st, card):
     """Phase 8: BM25 and hybrid search over the flat phase's rows with
     bench.py's text model. Returns scan_topk's launches on the hybrid path
-    and the kernel case at the sweep's shape."""
+    and the kernel cases at the sweep's shape (the columns product and the
+    dense deep product)."""
     import gc
 
     import vecgo_tpu_torch as vg
@@ -2426,6 +2463,7 @@ def hybrid_phase(st, card):
     _, rare = snap.encode_queries(q_txt)
     rare_share = sum(1 for r_ in rare if r_) / BATCH
     qps, lo, hi = timed_qps(lambda: snap.search_batch_arrays(q_txt, K), BATCH)
+    check(scan_topk.last_product == "columns", "the lexical sweep ran on the columns product")
     print(f"lexical-only search_batch_arrays(k={K}): {qps:.0f} QPS (B={BATCH}; median of "
           f"{TIER_WINDOWS} windows, range {lo:.0f}-{hi:.0f}); {rare_share:.2%} of the queries take "
           f"the rare merge [{card}]", flush=True)
@@ -2441,6 +2479,8 @@ def hybrid_phase(st, card):
     lexical_launches = (mid - before) - (scan_topk.launches - mid)
     check(got.shape == (BATCH, K) and np.isfinite(sc).all(), "hybrid: shape/finite")
     check(lexical_launches > 0, "the lexical half launched scan_topk")
+    db.hybrid_search_batch(q_vec, q_txt, k=K)
+    check(scan_topk.last_product == "columns", "the hybrid batch swept on the columns product")
     h_qps, h_lo, h_hi = timed_qps(lambda: db.hybrid_search_batch(q_vec, q_txt, k=K), BATCH)
     agree = np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, (b >= 0).sum())
                      for a, b in zip(got[:HYBRID_CHECK], off)])
@@ -2483,13 +2523,13 @@ def hybrid_phase(st, card):
           f"rebuilt the snapshot by itself: {rebuild_s:.3f} s with the rebuild, {steady_s:.3f} s "
           f"after it; no deleted id returned, the new doc found by its term [{card}]", flush=True)
     launches = scan_topk.launches
-    case = hybrid_kernel_case(snap2, q_txt, min(HYBRID_POOL + snap2.pool_margin, snap2.n_slots),
-                              card)
+    cases = hybrid_kernel_case(snap2, q_txt, min(HYBRID_POOL + snap2.pool_margin, snap2.n_slots),
+                               card)
     db.close()
     del db, eng, snap2, idx
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, case
+    return launches, cases
 
 
 # Phase 9: the device grid. Four shards laid over the cards present,
@@ -2919,8 +2959,8 @@ def main() -> int:
     beam_launches, beam_case = beam_phase(st, card)
     coded.append(beam_case)
     torch.cuda.empty_cache()
-    hybrid_launches, hybrid_case = hybrid_phase(st, card)
-    cases.append(hybrid_case)
+    hybrid_launches, hybrid_cases = hybrid_phase(st, card)
+    cases += hybrid_cases
     add_launches(grid_launches, grid_build_phase(st, card))
 
     print(json.dumps({"kernels": [{
@@ -2946,7 +2986,7 @@ def main() -> int:
         "library_ms": None,
         "cases": {c["name"]: {k: c[k] for k in ("product", "ms", "bound_ms", "bound_by", "share",
                                                  "plain_ms", "route_ms", "mm_ms",
-                                                 "sparse_bound_ms", "fma_bound_ms") if k in c}
+                                                 "fma_bound_ms") if k in c}
                   for c in cases},
     }, {
         "name": "coded_group_scan",

@@ -17,7 +17,10 @@ with 30% masked and k 82), f32 cos at d 768, the f32 scan over 1M x 128
 that ShardedFlat splits (k 10), the deep bf16 shapes (262,144 x 3,072 l2
 k 10; 1M x 1,536 cos k 100) and the BM25 sweep (4096 x 1,049,576 x 4096,
 sparse BM25-like rows of 12 weights, multi-hot queries of 3 columns, dot,
-0.1% of rows dead, k 36); then pools past 256: k 1000
+0.1% of rows dead, k 36) through the dense product, and the same sweep as
+each tree's DeviceBM25 runs it ("bm25-columns": 3 zipf-drawn columns a
+query, padded to 16 with -1, through `scan_topk_columns` where the tree has
+it, else its multi-hot query through `scan_topk`); then pools past 256: k 1000
 over the segment and over one 131,072-row block, k 4096 over 65,536 rows
 (10% masked) and a memtable chunk at the pool of a k = 300 query (f32,
 8,192 rows, k 308).
@@ -61,6 +64,7 @@ CASES = {
     "deep-d3072": (262144, 3072, 10, "bf16", "l2", 0.0, "clustered"),
     "deep-d1536-k100": (1_000_000, 1536, 100, "bf16", "cos", 0.0, "clustered"),
     "bm25-sweep": (1_049_576, 4096, 36, "bf16", "dot", 0.001, "bm25"),
+    "bm25-columns": (1_049_576, 4096, 36, "bf16", "dot", 0.001, "bm25-columns"),
     "segment-k1000": (1 << 20, 128, 1000, "bf16", "l2", 0.0, "clustered"),
     "block-k1000": (131072, 128, 1000, "bf16", "l2", 0.0, "clustered"),
     "k4096": (65536, 128, 4096, "bf16", "l2", 0.1, "clustered"),
@@ -68,18 +72,33 @@ CASES = {
 }
 
 
+def query_columns(torch, seed, h, b=B, words=3, t=16):
+    """[b, t] int64 hot-term columns on the card as the device BM25
+    snapshot encodes 3-word queries: `words` zipf(1.3) columns (hot columns
+    are ordered by document frequency), -1 pads."""
+    import numpy as np
+
+    cols = np.full((b, t), -1, np.int64)
+    cols[:, :words] = np.minimum(np.random.default_rng(seed).zipf(1.3, (b, words)) - 1, h - 1)
+    return torch.from_numpy(cols).cuda()
+
+
 def make(torch, seed, n, d, dtype, metric, masked, kind):
     """The case's inputs on the card: rows around 1,024 random centres
-    (sigma 0.35, chip_smoke.py's generator), or BM25-like sparse rows."""
+    (sigma 0.35, chip_smoke.py's generator), or BM25-like sparse rows (with
+    multi-hot queries, or for "bm25-columns" the queries' columns as q)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    if kind == "bm25":
+    if kind.startswith("bm25"):
         x = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
         cols = torch.randint(0, d, (n, 12), generator=g, device=dev)
         vals = (torch.rand((n, 12), generator=g, device=dev) * 3).to(torch.bfloat16)
         x.scatter_(1, cols, vals)
-        q = torch.zeros((B, d), device=dev)
-        q.scatter_(1, torch.randint(0, d, (B, 3), generator=g, device=dev), 1.0)
+        if kind == "bm25":
+            q = torch.zeros((B, d), device=dev)
+            q.scatter_(1, torch.randint(0, d, (B, 3), generator=g, device=dev), 1.0)
+        else:
+            q = query_columns(torch, seed, d)
         xn = None
     else:
         centres = torch.randn((1024, d), generator=g, device=dev)
@@ -119,7 +138,18 @@ def worker(root, seed, reps, sweep):
     for i, (name, (n, d, k, tt, metric, masked, kind)) in enumerate(CASES.items()):
         dtype = torch.bfloat16 if tt == "bf16" else torch.float32
         q, x, xn, mask = make(torch, seed + i, n, d, dtype, metric, masked, kind)
-        ms = time_ms(torch, lambda: st.scan_topk(q, x, xn, k, metric, mask), reps)
+        if kind == "bm25-columns" and hasattr(st, "scan_topk_columns"):
+            def run():
+                return st.scan_topk_columns(q, x, k, mask)
+        else:
+            if kind == "bm25-columns":  # a tree from before the sparse product: its multi-hot sweep
+                c = q
+                q = torch.zeros((c.shape[0], d), device=c.device)
+                q.scatter_add_(1, c.clamp_min(0), (c >= 0).float())
+
+            def run():
+                return st.scan_topk(q, x, xn, k, metric, mask)
+        ms = time_ms(torch, run, reps)
         out[name] = {"ms": ms, "product": getattr(st.scan_topk, "last_product", None)}
         del q, x, xn, mask
         torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where `scan_topk`'s short product (or, with --f32, its split f32 product)
+"""Where `scan_topk`'s short product (or, with --f32, its split f32 product;
+with --columns the BM25 sweep's sparse product, `scan_topk_columns`)
 spends its time, on one CUDA card, by instrumented builds of this tree's
 kernel.
 
-    python3 scripts/torch_scan_profile.py [--seed 0] [--reps 5] [--variants a,b] [--f32]
+    python3 scripts/torch_scan_profile.py [--seed 0] [--reps 5] [--variants a,b] [--f32 | --columns]
 
 The card's profilers (ncu, nsys) are not available to this repository's
 runs, so the short product is taken apart by builds: each variant is a copy
@@ -34,11 +35,29 @@ With --f32 the split f32 product's variants (F32_VARIANTS):
 - big-only: the two small passes skipped (one tf32 pass, the product of a
   1xTF32 scan).
 
+With --columns the sparse product's variants (COLUMN_VARIANTS; its own
+counters: warp slots whose vote found a survivor, and compactions):
+
+- built: as it is;
+- no-score: the scoring skipped (the ring, the transposition, the barrier);
+- no-transpose: the transposition skipped (the scoring reads whatever the
+  column-major buffer holds);
+- no-conflict: each lane reads the column position of its lane number, not
+  its query's (consecutive chunks: no bank conflict; the cost of the
+  conflicts is the difference);
+- fast-only: the fast test and the vote run, the rare path never does;
+- ring-only: the ring alone (no transposition, no scoring, no bound reads:
+  the rate at which the producer's bulk copies stream the table);
+- no-bound: the shared bounds never read (each split its own).
+
 Shapes: 4096 clustered queries over clustered l2 rows (1,048,576 rows, or
 524,288 at d 256; chip_smoke.py's generator, made on the card from
 --seed) at (d, k) in SHAPES; with --f32 the f32 cases of chip_smoke.py
 (F32_SHAPES: the 1M x 128 scan ShardedFlat splits, cos rows at d 768, the
-memtable chunk at pools 82 and 308). Each prints its time (CUDA events over --reps
+memtable chunk at pools 82 and 308); with --columns the sweep of
+`scripts/torch_scan_ab.py`'s "bm25-columns" case (4096 queries of 3
+zipf-drawn columns over 1,049,576 BM25-like rows x 4096, 0.1% dead, k 36),
+and the same with 3 uniformly drawn columns a query. Each prints its time (CUDA events over --reps
 launches after a warm-up), the rare passes (and their share of all warp
 passes), the compactions and the device time of each kernel
 (torch.profiler over two launches), with the card's name and power limit,
@@ -106,18 +125,54 @@ F32_VARIANTS = {
 }
 
 
-def make_tree(name: str, f32: bool = False) -> str:
+_COLUMN_COUNT = [
+    ("namespace {\n\nconstexpr unsigned FULL",
+     "namespace {\n__device__ unsigned long long g_rare = 0, g_comp = 0;\nconstexpr unsigned FULL"),
+    ("          if (!__any_sync(FULL, pass[i])) continue;\n",
+     "          if (!__any_sync(FULL, pass[i])) continue;\n"
+     "          if (lane == 0) atomicAdd(&g_rare, 1ull);\n"),
+    ("  Compacted c;\n  float thr;\n",
+     "  Compacted c;\n  float thr;\n  if (lane == 0) atomicAdd(&g_comp, 1ull);\n"),
+    _COUNT[-1],
+]
+COLUMN_VARIANTS = {
+    "built": [],
+    "no-score": [("        if (ga + w + s0 * NCW >= gb) break;\n        float a[4][R];",
+                  "        if (ga + w + s0 * NCW >= gb || N > 0) break;\n        float a[4][R];")],
+    "no-transpose": [("      transpose_stage<R>(ring + ring_at.s * rp,",
+                      "      if (N < 0) transpose_stage<R>(ring + ring_at.s * rp,")],
+    "no-conflict": [("sub_column<R>(a[i], tb, j < m[i] ? e[i][32 * j] : zp);",
+                     "sub_column<R>(a[i], tb, (j < m[i] ? e[i][32 * j] & 0 : 0) | lane);")],
+    "fast-only": [("pass[0] || pass[1] || pass[2] || pass[3])) continue;",
+                   "pass[0] || pass[1] || pass[2] || pass[3]) || N > 0) continue;")],
+    "ring-only": [("        if (ga + w + s0 * NCW >= gb) break;\n        float a[4][R];",
+                   "        if (ga + w + s0 * NCW >= gb || N > 0) break;\n        float a[4][R];"),
+                  ("      transpose_stage<R>(ring + ring_at.s * rp,",
+                   "      if (N < 0) transpose_stage<R>(ring + ring_at.s * rp,"),
+                  ("      if (t > 0 && (t % REFRESH == 0 ||", "      if (N < 0 && (t % REFRESH == 0 ||")],
+    "no-bound": [("      if (t > 0 && (t % REFRESH == 0 ||", "      if (N < 0 && (t % REFRESH == 0 ||"),
+                 ("      atomicMin(qbound, c.top);", "      if (k < 0) atomicMin(qbound, c.top);")],
+}
+# mode -> (source, variants, counters)
+MODES = {"short": ("scan_topk.cu", VARIANTS, _COUNT),
+         "f32": ("scan_topk.cu", F32_VARIANTS, _COUNT),
+         "columns": ("scan_columns.cu", COLUMN_VARIANTS, _COLUMN_COUNT)}
+
+
+def make_tree(name: str, mode: str = "short") -> str:
     """This tree's package with the variant's replacements (and the
     counters) under build/scan_profile/<name>/."""
-    dst = os.path.join(HERE, "build", "scan_profile", ("f32-" if f32 else "") + name)
+    source, variants, count = MODES[mode]
+    tag = "" if mode == "short" else mode + "-"
+    dst = os.path.join(HERE, "build", "scan_profile", tag + name)
     if os.path.exists(dst):
         shutil.rmtree(dst)
     shutil.copytree(os.path.join(HERE, "vecgo_tpu_torch"), os.path.join(dst, "vecgo_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = os.path.join(dst, "vecgo_tpu_torch", "csrc", "scan_topk.cu")
+    src = os.path.join(dst, "vecgo_tpu_torch", "csrc", source)
     with open(src) as f:
         text = f.read()
-    for old, new in _COUNT + (F32_VARIANTS if f32 else VARIANTS)[name]:
+    for old, new in count + variants[name]:
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: {old[:60]!r} matches {text.count(old)} times")
         text = text.replace(old, new)
@@ -142,6 +197,21 @@ def f32_shapes(torch, seed):
         yield name, q, x, (x * x).sum(1), k, metric
 
 
+def column_shapes(torch, seed):
+    """(name, cols, x, None, k, mask) of the BM25 sweep: torch_scan_ab.py's
+    "bm25-columns" inputs, and the same table with uniformly drawn columns."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from torch_scan_ab import CASES, make, query_columns
+
+    n, h, k, _, metric, masked, kind = CASES["bm25-columns"]
+    cols, x, _, mask = make(torch, seed, n, h, torch.bfloat16, metric, masked, kind)
+    yield "sweep", cols, x, None, k, mask
+    uniform = query_columns(torch, seed, h)
+    g = torch.Generator(device=uniform.device).manual_seed(seed)
+    uniform[:, :3] = torch.randint(0, h, (uniform.shape[0], 3), generator=g, device=uniform.device)
+    yield "sweep-uniform", uniform, x, None, k, mask
+
+
 def bf16_shapes(torch, seed):
     """(name, q, x, xn, k, metric) of each SHAPES case (bf16 rows), made on
     the card."""
@@ -158,7 +228,7 @@ def bf16_shapes(torch, seed):
         yield f"d{d} k{k}", q, x.bfloat16(), xn, k, "l2"
 
 
-def worker(root: str, seed: int, reps: int, f32: bool = False) -> None:
+def worker(root: str, seed: int, reps: int, mode: str = "short") -> None:
     sys.path.insert(0, root)
     import ctypes
 
@@ -173,10 +243,13 @@ def worker(root: str, seed: int, reps: int, f32: bool = False) -> None:
     lib.vecgo_profile_count.argtypes = [ctypes.c_int]
     dev = torch.device("cuda")
     out = {}
-    for name, q, xb, xn, k, metric in (f32_shapes if f32 else bf16_shapes)(torch, seed):
+    shapes = {"short": bf16_shapes, "f32": f32_shapes, "columns": column_shapes}[mode]
+    for name, q, xb, xn, k, metric in shapes(torch, seed):
         n = xb.shape[0]
 
         def run():
+            if mode == "columns":  # q: the columns, metric: the mask
+                return st.scan_topk_columns(q, xb, k, metric)
             return st.scan_topk(q, xb, xn, k, metric)
 
         run()
@@ -200,9 +273,11 @@ def worker(root: str, seed: int, reps: int, f32: bool = False) -> None:
         kernels = {re.sub(r"^void |\(anonymous namespace\)::", "", ev.key)
                    .split("(")[0].split("<")[0].split("::")[-1][:32]: ev.device_time_total / 2e3
                    for ev in prof.key_averages() if ev.device_time_total > 0}
+        # warp passes: 16 queries x 64 rows (short, f32); 32 queries x 4 rows (columns)
+        passes = (B // 32) * (n // 4) if mode == "columns" else (B // 16) * (n // 64)
         out[name] = {"n": n, "ms": ms, "product": st.scan_topk.last_product,
-                             "rare_passes": rare, "rare_share": rare / ((B // 16) * (n // 64)),
-                             "compactions": comp, "kernels_ms": kernels}
+                     "rare_passes": rare, "rare_share": rare / passes,
+                     "compactions": comp, "kernels_ms": kernels}
         del q, xb, xn
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -214,10 +289,13 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--variants", help="comma-separated (default: every variant)")
     ap.add_argument("--f32", action="store_true", help="the split f32 product's variants")
+    ap.add_argument("--columns", action="store_true",
+                    help="the BM25 sweep's sparse product's variants")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    mode = "columns" if args.columns else "f32" if args.f32 else "short"
     if args.worker:
-        worker(args.worker, args.seed, args.reps, args.f32)
+        worker(args.worker, args.seed, args.reps, mode)
         return 0
     import torch
 
@@ -226,13 +304,13 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    names = (args.variants or ",".join(F32_VARIANTS if args.f32 else VARIANTS)).split(",")
-    trees = {name: make_tree(name, args.f32) for name in names}
+    names = (args.variants or ",".join(MODES[mode][1])).split(",")
+    trees = {name: make_tree(name, mode) for name in names}
     result = {"card": card, "variants": {}}
     for name, root in trees.items():
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
                                "--seed", str(args.seed), "--reps", str(args.reps)]
-                              + (["--f32"] if args.f32 else []),
+                              + ({"f32": ["--f32"], "columns": ["--columns"]}.get(mode, [])),
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

@@ -136,6 +136,108 @@ def test_gathers_stay_within_the_budget_while_they_are_allocated(corpus, monkeyp
     assert max(peaks) <= budget
 
 
+def _watch_gathers(monkeypatch, db):
+    """Resident bytes plus every gather held, read at each gather's
+    allocation: the plan cache's plans and the plans of the batches in flight
+    (dispatched, not yet drained), each plan once, whether or not the cache
+    still has it. Returns the list the peaks go to."""
+    inflight, peaks = {}, []
+    dispatch, drain, gather = S._dispatch_batch, S._drain_batch, S._gather_compact
+
+    def dispatched(*a, **kw):
+        pending = dispatch(*a, **kw)
+        inflight[id(pending)] = pending
+        return pending
+
+    def drained(pending, *a, **kw):
+        out = drain(pending, *a, **kw)
+        inflight.pop(id(pending))
+        return out
+
+    def watched(*a):
+        cc = gather(*a)
+        plans = {id(p): p for p in db.engine._plan_cache._d.values()}
+        plans.update((id(p.plan), p.plan) for p in inflight.values())
+        held = sum(S.PlanCache._gathered_bytes(p) for p in plans.values())
+        new = sum(int(v.nbytes) for v in cc.values())
+        peaks.append(db.stats()["hbm"]["used_bytes"] + held + new)
+        return cc
+
+    monkeypatch.setattr(S, "_dispatch_batch", dispatched)
+    monkeypatch.setattr(S, "_drain_batch", drained)
+    monkeypatch.setattr(S, "_gather_compact", watched)
+    return peaks
+
+
+def _assert_batches_match(got, want):
+    """Stream results against search_arrays' batch by batch: the same ids,
+    and distances within the exact f32 rerank's rounding (a gathered and a
+    masked plan rerank the same rows)."""
+    assert len(got) == len(want)
+    for (ids, d), (ids_w, d_w) in zip(got, want):
+        np.testing.assert_array_equal(ids, ids_w)
+        np.testing.assert_allclose(d, d_w, rtol=1e-5, atol=1e-4)
+
+
+def test_gathers_of_batches_in_flight_stay_within_the_budget(corpus, monkeypatch):
+    """Six streams with distinct 10% filters, three batches each, advanced
+    in turns through search_arrays_stream(depth=3) under a budget that holds
+    the resident segment plus about one gather. A stream's batches in
+    flight hold their plan's gather whether or not the plan cache still has
+    the plan, so a later filter gathers only beside them (else it rides the
+    masked scan): resident bytes plus the gathers of the cache and of the
+    batches in flight stay within the budget at every gather's allocation,
+    and every batch returns what search_arrays returns for it."""
+    backend, db0, x, u, q, seg_bytes = corpus
+    budget = seg_bytes + int(1.5 * _sub_bytes(u, 0, 10))
+    db = _reopen(backend, budget)
+    peaks = _watch_gathers(monkeypatch, db)
+    filters = [pmd.isin("u", range(10 * i, 10 * i + 10)) for i in range(6)]
+    batches = [q[16 * j : 16 * j + 16] for j in range(3)]
+    streams = [db.search_arrays_stream(iter(batches), k=10, depth=3, filter=f) for f in filters]
+    got = [[] for _ in filters]
+    live = list(range(len(streams)))
+    while live:
+        for i in list(live):
+            try:
+                got[i].append(next(streams[i]))
+            except StopIteration:
+                live.remove(i)
+    assert peaks and max(peaks) <= budget
+    assert not db.engine._plan_cache._held
+    for f, g in zip(filters, got):
+        _assert_batches_match(g, [db.search_arrays(b, k=10, filter=f) for b in batches])
+
+
+def test_a_stream_drains_its_own_batches_before_it_gathers_again(corpus, monkeypatch):
+    """A commit clears the plan cache while a stream (depth 3) has batches
+    in flight on its snapshot: its next batch plans its filter again and
+    needs the gather that its own batches in flight still hold. It drains
+    them first, so the new gather fits beside nothing else and the filter
+    keeps its compact gather; results are the snapshot's, batch by batch."""
+    backend, db0, x, u, q, seg_bytes = corpus
+    store = vg.Memory()
+    db = vg.Open(store, vg.Create(dim=D, device="cpu"))
+    db.insert_batch(x, [{"u": int(v)} for v in _rows(u)])
+    db.commit()
+    db.close()
+    db = _reopen(store, seg_bytes + int(1.5 * _sub_bytes(u, 0, 10)))
+    f = pmd.lt("u", 10)
+    batches = [q[8 * j : 8 * j + 8] for j in range(8)]
+    want = [db.search_arrays(b, k=10, filter=f) for b in batches]
+    peaks = _watch_gathers(monkeypatch, db)
+    stream = db.search_arrays_stream(iter(batches), k=10, depth=3, filter=f)
+    got = [next(stream)]
+    db.insert_batch(x[:1], [{"u": 200}])
+    db.commit()
+    assert not db.engine._plan_cache._d
+    got += list(stream)
+    assert peaks and max(peaks) <= db.stats()["hbm"]["budget_bytes"]
+    assert ["flat_compact"] in _kinds(db)
+    assert not db.engine._plan_cache._held
+    _assert_batches_match(got, want)
+
+
 @pytest.mark.parametrize("scan_dtype", ["bf16", "f32"])
 def test_compact_bytes_is_what_the_gather_holds(corpus, scan_dtype):
     """The budget charges a gather `compact_bytes`, which is what the

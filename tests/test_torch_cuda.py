@@ -1542,6 +1542,101 @@ def test_kernel_dot_over_bm25_tables(cuda, b, n, d, k):
     assert int(swapped.sum()) < int(fin.sum())  # ties, not a different answer
 
 
+# ---- the BM25 sweep as a sparse product: scan_topk_columns ----
+# Tolerance: the kernel adds a query's columns in f32 in the order the
+# plain version does, so its scores agree with it within 1e-6 of the score
+# (bit for bit, but for the sign of a zero), and with the dense function's
+# (the multi-hot query through scan_topk's plain version, which sums in
+# another order) within the same; ids agree except among exact ties.
+REL_COLUMNS = 1e-6
+
+
+def _bm25_columns(cuda, b, n, h, seed, t=16, mask_frac=0.1, full=False):
+    """A BM25-like table (`_bm25_like`'s rows), [b, t] int32 query columns
+    (zipf-drawn, a random count of -1 pads, or all t columns with `full`,
+    repeats included) and a mask."""
+    r = np.random.default_rng(seed)
+    _, x, mask = _bm25_like(cuda, 1, n, h, seed, mask_frac=mask_frac)
+    cols = np.minimum(r.zipf(1.3, (b, t)) - 1, h - 1).astype(np.int32)
+    if not full:
+        cols[np.arange(t)[None, :] >= r.integers(1, t + 1, b)[:, None]] = -1
+    return torch.from_numpy(cols).to(cuda), x, mask
+
+
+def _multi_hot_of(cols, h):
+    c = cols.long()
+    q = torch.zeros((c.shape[0], h), dtype=torch.float32, device=c.device)
+    return q.scatter_add_(1, c.clamp_min(0), (c >= 0).float())
+
+
+def _check_columns(cols, x, mask, got, want):
+    (d_k, i_k), (d_r, i_r) = got, want
+    assert torch.equal(torch.isfinite(d_k), torch.isfinite(d_r))
+    assert torch.equal(i_k < 0, i_r < 0)
+    fin = torch.isfinite(d_r)
+    assert bool(((d_k - d_r).abs() <= REL_COLUMNS * d_r.abs())[fin].all())
+    swapped = (i_k != i_r) & fin
+    if swapped.any():  # exact ties only: the two rows score the same
+        c = cols.long()
+
+        def exact(rows):
+            w = x[rows.clamp_min(0).long()].double()
+            g = torch.gather(w, 2, c.clamp_min(0)[:, None, :].expand(-1, rows.shape[1], -1))
+            return -torch.where((c >= 0)[:, None, :], g, 0.0).sum(-1)
+
+        e_k, e_r = exact(i_k), exact(i_r)
+        assert bool(((e_k - e_r).abs() <= REL_COLUMNS * e_r.abs())[swapped].all())
+    if mask is not None:
+        assert bool(mask[i_k[fin].long()].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,k,case", [
+    (300, 6000, 2048, 36, ""), (257, 5000, 4096, 36, ""), (200, 4000, 2917, 20, ""),
+    (64, 3000, 4096, 256, ""),
+    (300, 5001, 4096, 36, ""),           # N not a multiple of the row tile
+    (4200, 2003, 4096, 36, ""),          # B past one query tile, not a multiple of 32
+    (4096, 1500, 4096, 36, "full"),      # 16 columns a query: tiles by shared memory
+    (96, 3000, 4096, 36, "masked-tile"),  # a wholly masked stretch of rows
+    (64, 3000, 4096, 1500, ""),          # k past 1,024
+    (128, 2000, 8192, 36, ""), (64, 1000, 16000, 20, ""),  # 2 and 1 rows a stage
+    (128, 3000, 4096, 36, "view"),       # rows that start mid-word: ragged ends
+])
+def test_kernel_columns_over_bm25_tables(cuda, b, n, h, k, case):
+    """scan_topk_columns on the card against its plain version and against
+    the dense function, at the BM25 tables' shapes and their edges."""
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk_columns, scan_topk_columns_reference
+
+    cols, x, mask = _bm25_columns(cuda, b, n, h, seed=h + k + b, full=case == "full")
+    if case == "masked-tile":
+        mask[64:200] = False
+    if case == "view":  # the table one element into its buffer: no 16-byte aligned row
+        buf = torch.empty(n * h + 1, dtype=torch.bfloat16, device=cuda)
+        buf[1:].view(n, h).copy_(x)
+        x = buf[1:].view(n, h)
+    before = scan_topk.launches
+    got = scan_topk_columns(cols, x, k, mask)
+    assert scan_topk.launches == before + 1 and scan_topk.last_product == "columns"
+    plain = scan_topk_columns_reference(cols, x, k, mask)
+    dense = scan_topk_reference(_multi_hot_of(cols, h), x, None, k, "dot", mask)
+    torch.cuda.synchronize()
+    _check_columns(cols, x, mask, got, plain)
+    _check_columns(cols, x, mask, got, dense)
+    assert int((got[1] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_columns_int64_and_without_a_mask(cuda):
+    """int64 columns (DeviceBM25's) and no mask give the int32 answer."""
+    from vecgo_tpu_torch.ops.scan_topk import scan_topk_columns, scan_topk_columns_reference
+
+    cols, x, _ = _bm25_columns(cuda, 200, 3000, 4096, seed=5)
+    got = scan_topk_columns(cols.long(), x, 36)
+    torch.cuda.synchronize()
+    _check_columns(cols, x, None, got, scan_topk_columns(cols, x, 36))
+    _check_columns(cols, x, None, got, scan_topk_columns_reference(cols, x, 36))
+
+
 def _zipf_texts(r, n, n_words=3000, length=12):
     words = [f"word{i}" for i in range(n_words)]
     return [" ".join(words[min(int(w) - 1, n_words - 1)] for w in r.zipf(1.3, length))
@@ -1563,7 +1658,7 @@ def _lexical_corpus(n_docs=20_000, seed=3):
 @pytest.mark.cuda
 def test_device_bm25_on_card_matches_cpu(cuda, monkeypatch):
     """The same snapshot on the card and on the CPU: the same table bit for
-    bit, the sweep through the kernel (never the plain version), ids equal
+    bit, the sweep through the columns kernel (never a plain version), ids equal
     except among exact-score ties, scores within 1e-5 relative."""
     from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
     from vecgo_tpu_torch.ops import scan_topk as st
@@ -1576,11 +1671,12 @@ def test_device_bm25_on_card_matches_cpu(cuda, monkeypatch):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(st, "scan_topk_reference", boom)
+    monkeypatch.setattr(st, "scan_topk_columns_reference", boom)
     dev = DeviceBM25(idx, max_hot_terms=2048, min_df=8, device=cuda)
     assert dev._w.is_cuda and torch.equal(dev._w.cpu(), cpu._w)
     before = scan_topk.launches
     gi, gs = dev.search_batch_arrays(queries, 20)
-    assert scan_topk.launches == before + 1
+    assert scan_topk.launches == before + 1 and scan_topk.last_product == "columns"
     np.testing.assert_array_equal(gi < 0, ci < 0)
     np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=0)
     for r in np.nonzero((gi != ci).any(1))[0]:

@@ -30,7 +30,6 @@ from vecgo_tpu_torch.engine import Engine, EngineOptions
 from vecgo_tpu_torch.engine import engine as engine_mod
 from vecgo_tpu_torch.lexical.bm25 import BM25Index, tokenize
 from vecgo_tpu_torch.lexical.device_bm25 import DeviceBM25
-from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops import scan_topk as scan_mod
 
 torch.set_num_threads(1)
@@ -363,23 +362,25 @@ def test_auto_device_snapshot_and_its_invalidation(monkeypatch):
 
 
 def test_hybrid_batch_through_snapshot_launches_the_sweep(monkeypatch):
-    """The device snapshot's sweep goes through ops/scan_topk.scan_topk
-    (on a CPU tensor its plain version) with metric dot, the bf16 table and
-    the alive mask, at kk = min(pool + margin, n_slots)."""
+    """The device snapshot's sweep goes through
+    ops/scan_topk.scan_topk_columns (on a CPU tensor its plain version) with
+    the queries' [B, 16] hot columns, the bf16 table and the alive mask, at
+    kk = min(pool + margin, n_slots)."""
     calls = []
-    real = scan_mod.scan_topk
+    real = scan_mod.scan_topk_columns
 
-    def spy(q, x, xn, k, metric="l2", mask=None):
-        calls.append((tuple(q.shape), x.dtype, k, metric, None if mask is None else mask.dtype))
-        return real(q, x, xn, k, metric=metric, mask=mask)
+    def spy(cols, x, k, mask=None):
+        calls.append((tuple(cols.shape), x.dtype, tuple(x.shape), k,
+                      None if mask is None else mask.dtype))
+        return real(cols, x, k, mask=mask)
 
     import vecgo_tpu_torch.lexical.device_bm25 as dbm
-    monkeypatch.setattr(dbm, "scan_topk", spy)
+    monkeypatch.setattr(dbm, "scan_topk_columns", spy)
     eng = new_engine(lexical=True)
     ids, queries, qtexts = _hybrid_fixture(eng)
-    eng.enable_device_lexical(max_hot_terms=64, min_df=2)
+    snap = eng.enable_device_lexical(max_hot_terms=64, min_df=2)
     eng.hybrid_search_batch(queries, qtexts, k=10)
-    assert calls == [((3, 64), torch.bfloat16, 36, Metric.DOT, torch.bool)]
+    assert calls == [((3, 16), torch.bfloat16, (snap.n_slots, 64), 36, torch.bool)]
 
 
 # ---- databases across the packages ----

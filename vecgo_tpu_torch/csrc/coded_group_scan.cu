@@ -965,7 +965,7 @@ int vecgo_coded_group_scan_pooled(const void* q, const void* qtab, const void* c
       d, kk, L, pl, pn, cap, nullptr, nullptr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  wsel::finish_rows<<<(unsigned)K * qcap, wsel::FIN_THREADS, wsel::fin_smem(kk), st>>>(
+  wsel::finish_rows<<<(unsigned)K * qcap, wsel::FIN_THREADS, wsel::fin_smem(kk, 1), st>>>(
       pl, pn, K * qcap, 1, cap, kk, static_cast<float*>(out_d), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

@@ -2057,7 +2057,7 @@ int vecgo_scan_topk(const void* q, const void* x, const void* xnorm2, const void
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  wsel::finish_rows<<<B, wsel::FIN_THREADS, wsel::fin_smem(k), st>>>(
+  wsel::finish_rows<<<B, wsel::FIN_THREADS, wsel::fin_smem(k, splits), st>>>(
       pl, pn, grid.x * plan[P_TQ], splits, pcap, k, static_cast<float*>(out_d),
       static_cast<int*>(out_i));
   return (int)cudaGetLastError();

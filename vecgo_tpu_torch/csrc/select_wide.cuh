@@ -56,10 +56,12 @@ __host__ __device__ constexpr int pool_cap(int k) {
 // lands between k and this, or the exact select keeps k.
 __host__ __device__ constexpr int fin_limit(int k) { return k + k / 4 + 32; }
 
-// Dynamic shared memory of a finishing block for a row of k (its sort
-// buffer holds fin_limit(k) entries, at most FIN_SMEM_ENTRIES).
-__host__ __device__ constexpr size_t fin_smem(int k) {
+// Dynamic shared memory of a finishing block for a row of k over `splits`
+// pools (their offsets, and a sort buffer of fin_limit(k) entries, at most
+// FIN_SMEM_ENTRIES).
+__host__ __device__ constexpr size_t fin_smem(int k, int splits) {
   return (size_t)BINS * 4 + (size_t)(2 * FIN_WARPS + 4) * 8 + (size_t)FIN_WARPS * 4 +
+         (size_t)(splits + 2) / 2 * 8 +
          (size_t)(fin_limit(k) < FIN_SMEM_ENTRIES ? fin_limit(k) : FIN_SMEM_ENTRIES) * 8;
 }
 
@@ -302,8 +304,8 @@ __device__ __forceinline__ int warp_compact(unsigned long long* pool, int n,
 
 // One warp shrinks a full pool of n > limit entries (limit = (k + cap) / 2)
 // to between k and limit of its best, in place; returns the new count and
-// sets thr to the score a later candidate must beat: the greatest kept
-// entry's, not the bound's (a bin's edge can lie far above the k-th score
+// sets top to the greatest kept entry and thr to the score a later
+// candidate must beat: that entry's, not the bound's (a bin's edge can lie far above the k-th score
 // where scores are few and far apart, as BM25's are). From GUESS_MIN
 // entries up, first a guess from SAMPLES evenly spaced entries (the score
 // key that should keep about a third of the way from k to limit), checked
@@ -311,7 +313,8 @@ __device__ __forceinline__ int warp_compact(unsigned long long* pool, int n,
 // limit] (ties, or a sample far off), the radix select. sk: the warp's 256
 // words of shared memory.
 __device__ __forceinline__ int warp_compact_pool(unsigned long long* pool, int n, int k, int cap,
-                                                 unsigned* sk, int lane, float& thr) {
+                                                 unsigned* sk, int lane, float& thr,
+                                                 unsigned long long& top) {
   const int limit = (k + cap) / 2, target = k + (limit - k) / 3;
   unsigned long long upper = 0;
   bool guessed = false;
@@ -334,10 +337,15 @@ __device__ __forceinline__ int warp_compact_pool(unsigned long long* pool, int n
     upper = select_bound(WarpGroup{sk, lane},
                          [&](auto f) { warp_pass(pool, n, lane, f); }, (unsigned)k,
                          (unsigned)limit);
-  unsigned long long top;
   const int kept = warp_compact(pool, n, upper, lane, top);
   thr = bound_score(top);
   return kept;
+}
+
+__device__ __forceinline__ int warp_compact_pool(unsigned long long* pool, int n, int k, int cap,
+                                                 unsigned* sk, int lane, float& thr) {
+  unsigned long long top;
+  return warp_compact_pool(pool, n, k, cap, sk, lane, thr, top);
 }
 
 // Block-wide ascending sort of buf[0, m) (shared or global memory): a
@@ -373,7 +381,11 @@ __device__ __forceinline__ void block_sort(unsigned long long* buf, int m) {
 // One block per output row r < out_rows: the candidates of pools (split s,
 // row r) at pool + (s * rows + r) * cap, counts at pool_n[s * rows + r];
 // writes the sorted best k as out_d / out_i [out_rows, k], (+inf, -1) past
-// the candidates. FIN_THREADS threads, fin_smem(k) bytes of shared memory.
+// the candidates. FIN_THREADS threads, fin_smem(k, splits) bytes of shared
+// memory. The splits' counts are read at once and their prefix kept in
+// shared memory, so every pass reads all pools as one range of candidates
+// (a thread finds an entry's pool by a binary search of the prefix), not
+// pool after pool.
 // From GUESS_MIN candidates up, the bound is guessed from SAMPLES of them
 // as in warp_compact_pool and checked by a count (between k and
 // fin_limit(k) kept); otherwise the exact radix select keeps k. The kept
@@ -386,10 +398,29 @@ finish_rows(unsigned long long* __restrict__ pool, const int* __restrict__ pool_
   unsigned* hist = reinterpret_cast<unsigned*>(fsm);
   unsigned long long* red = reinterpret_cast<unsigned long long*>(hist + BINS);
   unsigned* wcnt = reinterpret_cast<unsigned*>(red + 2 * FIN_WARPS + 4);
-  unsigned long long* sbuf = reinterpret_cast<unsigned long long*>(wcnt + FIN_WARPS);
+  int* off = reinterpret_cast<int*>(wcnt + FIN_WARPS);  // [splits + 1] pool offsets
+  unsigned long long* sbuf = reinterpret_cast<unsigned long long*>(off) + (splits + 2) / 2;
   const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  int n = 0;
-  for (int s = 0; s < splits; ++s) n += pool_n[(size_t)s * rows + r];
+  // off[s] = the candidates of splits before s: a block scan of the counts,
+  // FIN_THREADS at a time.
+  for (int base = 0; base < splits; base += FIN_THREADS) {
+    const int s = base + tid;
+    const int c = s < splits ? pool_n[(size_t)s * rows + r] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(WFULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) wcnt[w] = incl;
+    __syncthreads();
+    int before = base == 0 ? 0 : off[base];
+    for (int i = 0; i < w; ++i) before += (int)wcnt[i];
+    if (s < splits) off[s + 1] = before + incl;
+    if (base == 0 && tid == 0) off[0] = 0;
+    __syncthreads();
+  }
+  const int n = off[splits];
   const int mk = min(n, k);
   float* od = out_d + (size_t)r * k;
   int* oi = out_i + (size_t)r * k;
@@ -398,23 +429,34 @@ finish_rows(unsigned long long* __restrict__ pool, const int* __restrict__ pool_
     oi[j] = -1;
   }
   if (mk == 0) return;
-  // f(key) on this thread's share of every split's pool, PASS_U loads in
-  // flight; chunk(base, v, ok) on each chunk of FIN_THREADS * PASS_U.
+  // The split s >= lo of candidate e (0 <= e < n): off[s] <= e < off[s + 1],
+  // by a binary search; the candidate is entry e - off[s] of its pool.
+  auto split_of = [&](int e, int lo) {
+    int hi = splits;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (off[mid] <= e) lo = mid; else hi = mid;
+    }
+    return lo;
+  };
+  auto at = [&](int e, int s) { return pool[((size_t)s * rows + r) * cap + (e - off[s])]; };
+  // f(key) on this thread's share of the row's candidates, PASS_U loads in
+  // flight; chunk(v, ok) on each chunk of FIN_THREADS * PASS_U. A thread's
+  // candidates come in ascending order, so it searches for a split only
+  // when a candidate lies past its current one.
   auto chunks = [&](auto chunk) {
-    for (int s = 0; s < splits; ++s) {
-      const unsigned long long* p = pool + ((size_t)s * rows + r) * cap;
-      const int ns = pool_n[(size_t)s * rows + r];
-      for (int base = 0; base < ns; base += FIN_THREADS * PASS_U) {
-        unsigned long long v[PASS_U];
-        bool ok[PASS_U];
+    int s = 0;
+    for (int base = 0; base < n; base += FIN_THREADS * PASS_U) {
+      unsigned long long v[PASS_U];
+      bool ok[PASS_U];
 #pragma unroll
-        for (int u = 0; u < PASS_U; ++u) {
-          const int e = base + u * FIN_THREADS + tid;
-          ok[u] = e < ns;
-          v[u] = ok[u] ? p[e] : ~0ull;
-        }
-        chunk(v, ok);
+      for (int u = 0; u < PASS_U; ++u) {
+        const int e = base + u * FIN_THREADS + tid;
+        ok[u] = e < n;
+        if (ok[u] && off[s + 1] <= e) s = split_of(e, s + 1);
+        v[u] = ok[u] ? at(e, s) : ~0ull;
       }
+      chunk(v, ok);
     }
   };
   auto each = [&](auto f) {
@@ -430,11 +472,9 @@ finish_rows(unsigned long long* __restrict__ pool, const int* __restrict__ pool_
     const int flim = fin_limit(k), target = k + (flim - k) / 3;
     bool guessed = false;
     if (n >= GUESS_MIN) {
-      for (int i = tid; i < SAMPLES; i += FIN_THREADS) {
-        int at = (int)((long long)i * n / SAMPLES), s = 0;
-        while (at >= pool_n[(size_t)s * rows + r]) at -= pool_n[(size_t)(s++) * rows + r];
-        hist[i] = (unsigned)(pool[((size_t)s * rows + r) * cap + at] >> 32);
-      }
+      for (int i = tid; i < SAMPLES; i += FIN_THREADS)
+        hist[i] = (unsigned)(at((int)((long long)i * n / SAMPLES),
+                                split_of((int)((long long)i * n / SAMPLES), 0)) >> 32);
       unsigned* guess = wcnt;  // scratch until the compaction below
       if (tid == 0) *guess = 0;
       __syncthreads();

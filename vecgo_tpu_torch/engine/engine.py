@@ -785,7 +785,8 @@ class Engine:
     def enable_device_lexical(self, max_hot_terms: int = 4096, min_df: int = 8):
         """Build the device-resident BM25 serving snapshot (lexical/device_bm25):
         hot-vocabulary BM25 weights as an [n_docs, H] bf16 table on the
-        options' device, swept by `scan_topk`, with an exact-f32 pool rescore.
+        options' device, swept by `scan_topk_columns`, with an exact-f32 pool
+        rescore.
         Used automatically by hybrid_search_batch while the engine version is
         unchanged; call again after writes to refresh. Returns the DeviceBM25."""
         if self._lexical is None:
@@ -827,9 +828,9 @@ class Engine:
             self.enable_device_lexical()
             dev = self._lexical_dev
         if dev is not None and dev[0] == (self._version, self._lsn):
-            # Device-resident BM25 (enable_device_lexical): one scan_topk sweep
-            # + exact rescore; rare-term queries merge host-side inside. Array
-            # contract — no per-hit python.
+            # Device-resident BM25 (enable_device_lexical): one
+            # scan_topk_columns sweep + exact rescore; rare-term queries
+            # merge host-side inside. Array contract — no per-hit python.
             lids, _ = dev[1].search_batch_arrays(list(texts), pool)
             if lids.shape[1] < pool:
                 lids = np.pad(

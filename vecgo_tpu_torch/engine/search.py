@@ -18,7 +18,7 @@ from __future__ import annotations
 import math
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
@@ -147,6 +147,9 @@ class PlanCache:
         self._d: "OrderedDict[tuple, _Plan]" = OrderedDict()
         self._cap = cap
         self._lock = threading.Lock()
+        # id(plan) -> [plan, holds]: the plans that batches in flight hold
+        # (enqueued, results unread), with or without a place in the cache.
+        self._held: dict = {}
 
     def get(self, key):
         with self._lock:
@@ -171,30 +174,56 @@ class PlanCache:
                 total += sum(int(getattr(v, "nbytes", 0)) for v in c.values())
         return total
 
+    def hold(self, plan):
+        """A batch in flight holds `plan` (and its gathers) until `release`."""
+        with self._lock:
+            self._held.setdefault(id(plan), [plan, 0])[1] += 1
+
+    def release(self, plan):
+        with self._lock:
+            entry = self._held[id(plan)]
+            entry[1] -= 1
+            if entry[1] == 0:
+                del self._held[id(plan)]
+
+    def held_bytes(self, mine=None) -> int:
+        """Gathered bytes of the plans that batches in flight hold, each plan
+        once. A plan that only the batches counted in `mine` (id(plan) ->
+        holds) hold is left out: their owner can drain them."""
+        mine = mine or {}
+        with self._lock:
+            return sum(self._gathered_bytes(p) for pid, (p, n) in self._held.items()
+                       if n > mine.get(pid, 0))
+
     def sweep_gathered(self, budget_bytes: int, device_left: Optional[int] = None,
                        reserve: int = 0, keep=None):
         """Evict LRU plans until cached compact-gather sub-corpora, plus
-        `reserve` bytes about to be gathered, fit the smaller of
-        `budget_bytes` (0 = no limit of its own) and, under a device budget,
-        `device_left`, what that budget has left after the resident
-        segments. The newest plan and `keep` stay. Under a device budget
-        this runs before a dispatch gathers (`reserve`: what the plan will
-        gather), so the gathers never hold more than the room; it also runs
-        after every dispatch, since gathers and masks attach lazily there (a
+        `reserve` bytes about to be gathered, fit `budget_bytes` (0 = no
+        limit of its own) and, under a device budget, until they and the
+        gathers of every plan a batch in flight holds fit `device_left`, what
+        that budget has left after the resident segments. The newest plan and
+        `keep` stay, and under a device budget so do held plans: evicting one
+        frees nothing while a batch holds it. Under a device budget this runs
+        before a dispatch gathers (`reserve`: what the plan will gather), so
+        the gathers never hold more than the room; it also runs after every
+        dispatch, since gathers and masks attach lazily there (a
         50%-selectivity filter at 1M x 128 holds a ~128 MB bf16 sub-corpus
         per plan)."""
-        limit = budget_bytes if budget_bytes > 0 else None
-        if device_left is not None:
-            limit = device_left if limit is None else min(limit, device_left)
-        if limit is None:
+        if budget_bytes <= 0 and device_left is None:
             return
         with self._lock:
-            total = reserve + sum(self._gathered_bytes(p) for p in self._d.values())
+            cached = reserve + sum(self._gathered_bytes(p) for p in self._d.values())
+            in_cache = {id(p) for p in self._d.values()}
+            held_apart = 0 if device_left is None else sum(
+                self._gathered_bytes(p) for pid, (p, _) in self._held.items()
+                if pid not in in_cache)
             for key in list(self._d)[:-1]:
-                if total <= limit:
+                if not ((budget_bytes > 0 and cached > budget_bytes) or
+                        (device_left is not None and cached + held_apart > device_left)):
                     break
-                if self._d[key] is not keep:
-                    total -= self._gathered_bytes(self._d.pop(key))
+                plan = self._d[key]
+                if plan is not keep and (device_left is None or id(plan) not in self._held):
+                    cached -= self._gathered_bytes(self._d.pop(key))
 
     def clear(self):
         with self._lock:
@@ -244,12 +273,13 @@ def device_left(device_budget) -> Optional[int]:
     return max(0, device_budget.budget - device_budget.used)
 
 
-def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
+def _plan_snapshot(snap, opts, options, device_budget, held: int = 0) -> _Plan:
     """Per-snapshot strategy selection + mask construction (chunk-invariant).
 
     Under a device budget a low-selectivity filter on a flat segment gathers
     its sub-corpus only where it fits what the budget has left after the
-    resident segments; otherwise it rides the full scan as a row mask."""
+    resident segments and `held` bytes (the gathers that batches in flight
+    hold); otherwise it rides the full scan as a row mask."""
     plan = _Plan()
     compact = []  # flat sources whose filter would gather, in plan order
     fs = as_filterset(opts.filter)
@@ -361,6 +391,8 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
             _Source(seg.seg_id, seg, kind, mask, rows_c, seg.n)
         )
     left = device_left(device_budget)
+    if left is not None:
+        left = max(0, left - held)
     scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     for i in compact:
         src = plan.sources[i]
@@ -370,6 +402,16 @@ def _plan_snapshot(snap, opts, options, device_budget) -> _Plan:
             if left is not None:
                 left -= need
     return plan
+
+
+def _gather_room(device_budget, plan_cache) -> Optional[int]:
+    """What a device budget has left for new gathers after the resident
+    segments and the gathers of every plan that a batch in flight holds,
+    cached or evicted (None without a budget)."""
+    left = device_left(device_budget)
+    if left is None or plan_cache is None:
+        return left
+    return max(0, left - plan_cache.held_bytes())
 
 
 def _gather_need(plan, scan_dtype: str) -> int:
@@ -662,6 +704,13 @@ class _PendingBatch:
     t0: float
     t_plan: float
     t_score: float
+    holder: Optional[PlanCache] = None  # the plan cache that counts this batch's hold
+
+    def release(self):
+        """Drop the batch's hold on its plan (once)."""
+        if self.holder is not None:
+            self.holder.release(self.plan)
+            self.holder = None
 
 
 def _to_host_async(t: torch.Tensor) -> torch.Tensor:
@@ -687,13 +736,10 @@ def _query_tensor(q, device, metric: Metric):
     return D.normalize(qd) if metric == Metric.COSINE else qd
 
 
-def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=None,
-                    plan_cache: Optional[PlanCache] = None) -> _PendingBatch:
-    t0 = time.perf_counter()
-    stats = QueryStats() if opts.with_stats else None
-    qd = _query_tensor(q, options.device, options.metric)
-    b = qd.shape[0]
-
+def _batch_plan(snap, opts, options, device_budget, plan_cache, mine=None):
+    """The batch's plan: the plan cache's, or a new one (then cached) whose
+    compact gathers fit beside those that batches in flight hold, leaving
+    out plans that only the batches counted in `mine` hold."""
     plan = cache_key = None
     if plan_cache is not None:
         fkey = _plan_filter_key(opts.filter)
@@ -707,9 +753,25 @@ def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=Non
             if plan is not None and not _plan_still_resident(plan, device_budget):
                 plan = None
     if plan is None:
-        plan = _plan_snapshot(snap, opts, options, device_budget)
+        held = plan_cache.held_bytes(mine) if plan_cache is not None else 0
+        plan = _plan_snapshot(snap, opts, options, device_budget, held)
         if cache_key is not None:
             plan_cache.put(cache_key, plan)
+    return plan
+
+
+def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=None,
+                    plan_cache: Optional[PlanCache] = None, plan=None,
+                    t0: Optional[float] = None) -> _PendingBatch:
+    """Enqueue one batch: its plan (`plan`, or the batch's own, planned
+    beside the gathers that batches in flight hold), the plan cache's hold
+    on it until the batch drains, its scans, merge and result copies."""
+    t0 = time.perf_counter() if t0 is None else t0
+    stats = QueryStats() if opts.with_stats else None
+    qd = _query_tensor(q, options.device, options.metric)
+    b = qd.shape[0]
+    if plan is None:
+        plan = _batch_plan(snap, opts, options, device_budget, plan_cache)
     gather_budget = getattr(options, "plan_gather_budget_bytes", 2 << 30)
     left = device_left(device_budget)
     if plan_cache is not None and left is not None:
@@ -740,8 +802,9 @@ def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=Non
         # Compact-gather sub-corpora attach at first dispatch; hold the plan
         # cache to its own budget and to what the device budget has left.
         plan_cache.sweep_gathered(gather_budget, device_left(device_budget), keep=plan)
+        plan_cache.hold(plan)  # until the batch drains
     return _PendingBatch(plan, chunks, done, [s.seg_id for s in plan.sources], b,
-                         dist_comps, stats, t0, t_plan, time.perf_counter())
+                         dist_comps, stats, t0, t_plan, time.perf_counter(), plan_cache)
 
 
 def _drain_batch(pending: _PendingBatch, snap, pk, opts, need_locations: bool = True):
@@ -750,8 +813,11 @@ def _drain_batch(pending: _PendingBatch, snap, pk, opts, need_locations: bool = 
     out_ids = np.full((b, k), -1, np.int64)
     out_d = np.full((b, k), np.inf, np.float32)
     out_loc: List[List] = [[] for _ in range(b)] if not plan.sources else []
-    if pending.done is not None:
-        pending.done.synchronize()
+    try:
+        if pending.done is not None:
+            pending.done.synchronize()  # its kernels are done with its plan's gathers
+    finally:
+        pending.release()
     t_rerank = time.perf_counter()
     for ci, (d, code) in enumerate(pending.chunks):
         ids_c, d_c, loc_c = _finish(d.numpy(), code.numpy(), pending.slot_seg_ids,
@@ -800,15 +866,32 @@ def search_snapshot_stream(snap, pk, batches, opts: SearchOptions, options,
                            depth: int = 3, plan_cache: Optional[PlanCache] = None):
     """Serve a stream of query batches over one snapshot, keeping up to
     `depth` batches enqueued on the device; yields (ids, dists, locs, stats)
-    per batch in input order."""
+    per batch in input order.
+
+    Under a device budget a batch in flight holds its plan's gathers until
+    it drains, whether or not the plan cache still has the plan. A new plan
+    is planned beside the gathers that other batches in flight hold; where
+    its gathers do not fit beside this stream's own as well, the stream
+    first drains its oldest batches, which frees theirs."""
     inflight: "deque[_PendingBatch]" = deque()
-    for q in batches:
-        inflight.append(_dispatch_batch(snap, pk, q, opts, options, device_budget,
-                                        plan_cache))
-        if len(inflight) >= depth:
+    scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
+    try:
+        for q in batches:
+            t0 = time.perf_counter()
+            mine = Counter(id(pending.plan) for pending in inflight)
+            plan = _batch_plan(snap, opts, options, device_budget, plan_cache, mine)
+            need = _gather_need(plan, scan_dtype)
+            while need and inflight and need > _gather_room(device_budget, plan_cache):
+                yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
+            inflight.append(_dispatch_batch(snap, pk, q, opts, options, device_budget,
+                                            plan_cache, plan=plan, t0=t0))
+            if len(inflight) >= depth:
+                yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
+        while inflight:
             yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
-    while inflight:
-        yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
+    finally:
+        for pending in inflight:  # a stream closed early
+            pending.release()
 
 
 def _loc_lists(sel_seg, sel_row, got):

@@ -53,6 +53,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vecgo_scan_topk.restype = i
     lib.vecgo_scan_topk_plan.argtypes = [i, i, i, i, p]
     lib.vecgo_scan_topk_plan.restype = i
+    lib.vecgo_scan_columns.argtypes = [p, i, i, i, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p,
+                                       p, p]
+    lib.vecgo_scan_columns.restype = i
+    lib.vecgo_scan_columns_plan.argtypes = [i, i, p]
+    lib.vecgo_scan_columns_plan.restype = i
     lib.vecgo_coded_group_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.vecgo_coded_group_scan.restype = i
     lib.vecgo_coded_group_scan_pooled.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,

@@ -23,11 +23,13 @@ JAX class's; the pool holds the same rows) in PyTorch's idiom:
   array exists on the host (at 1M docs x 4096 terms the JAX class's f32 host
   matrix is 17.2 GB). Its width is padded with zero columns to a multiple
   of 64, which changes no score and keeps the kernel on 16-byte loads;
-- per batch only the [B, 16] int32 term columns go up; the multi-hot query
-  is scattered on the device;
-- the sweep is `ops/scan_topk.scan_topk` with metric dot over the bf16
-  table, the dead slots as its mask (on a CUDA tensor the kernel, on a CPU
-  tensor its plain version). It is the only product on the path;
+- per batch only the [B, 16] int32 term columns go up;
+- the sweep is `ops/scan_topk.scan_topk_columns` over the bf16 table, the
+  dead slots as its mask (on a CUDA tensor the kernel, on a CPU tensor its
+  plain version): each slot's score is the f32 sum of the query's own
+  columns, the function of the JAX class's dense product of the multi-hot
+  query (whose other terms are exact zeros), from the table read once.
+  No multi-hot query is built on the path;
 - the rescore gathers each query's <= 16 hot columns of its pool rows, a
   [B, kk, 16] tensor, and sums them in IEEE f32; a stable sort by (-score,
   pool position) follows, as `jax.lax.sort(..., num_keys=1)` does;
@@ -47,8 +49,7 @@ import numpy as np
 import torch
 
 from vecgo_tpu_torch.lexical.bm25 import BM25Index, tokenize
-from vecgo_tpu_torch.model import Metric
-from vecgo_tpu_torch.ops.scan_topk import scan_topk
+from vecgo_tpu_torch.ops.scan_topk import scan_topk_columns
 from vecgo_tpu_torch.utils.tensors import checked_device
 
 _TMAX = 16  # max hot terms per query on the device path
@@ -200,8 +201,9 @@ class DeviceBM25:
 
     def multi_hot(self, cols: np.ndarray):
         """(cols [B, T] int64, the multi-hot [B, width] f32 query) on the
-        device from encode_queries' columns: the [B, T] int32 upload is the
-        batch's only one, and -1 pads scatter nothing."""
+        device from encode_queries' columns, -1 pads scattering nothing: the
+        JAX class's query, the input of the dense function that the sweep
+        computes from the columns (the card's checks hold it to that)."""
         cols_d = torch.from_numpy(cols).to(self.device).long()
         qd = torch.zeros((len(cols), self.width), dtype=torch.float32, device=self.device)
         qd.scatter_add_(1, cols_d.clamp_min(0), (cols_d >= 0).float())
@@ -210,7 +212,7 @@ class DeviceBM25:
     def search_batch_arrays(
         self, queries: List[str], k: int = 10
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Device-batch BM25: one `scan_topk` sweep + exact-f32 pool rescore
+        """Device-batch BM25: one `scan_topk_columns` sweep + exact-f32 pool rescore
         + exact host merge of rare-term contributions. Returns (ids [B, k]
         int64 with -1 padding, scores [B, k] f32)."""
         b = len(queries)
@@ -226,10 +228,10 @@ class DeviceBM25:
         cols, rare = self.encode_queries(queries)
         w, alive = self._device()
         kk = min(k + self.pool_margin, self.n_slots)
-        cols_d, qd = self.multi_hot(cols)
+        cols_d = torch.from_numpy(cols).to(self.device).long()
         used = cols_d >= 0
         safe_cols = cols_d.clamp_min(0)
-        _, rows = scan_topk(qd, w, None, kk, metric=Metric.DOT, mask=alive)
+        _, rows = scan_topk_columns(cols_d, w, kk, mask=alive)
         # Exact rescore over each query's own hot columns of its pool rows.
         picked = w[rows.long().clamp_min(0)[:, :, None], safe_cols[:, None, :]].float()
         s = torch.where(used[:, None, :], picked, 0.0).sum(-1)

@@ -15,6 +15,12 @@ product (past d 256), the f32 product (rows TMA can read: a split-precision
 fp32 product, three tf32 passes on `wgmma`) and the FMA f32 product (f32
 rows TMA cannot read);
 `scan_topk.last_product` names the last launch's.
+
+`scan_topk_columns` is the sixth product, for queries that are lists of at
+most 16 columns of a bf16 table (the device BM25 sweep): each row's score
+is the sum of the query's own columns, and the table is read once
+(`csrc/scan_columns.cu`); it counts in `scan_topk.launches` and names its
+launches "columns". `scan_topk_columns_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -63,6 +69,10 @@ _WAVE_FILL = 0.9
 PRODUCTS = ("tile", "deep", "f32-fma", "short", "f32")
 # (device, bf16, d, k, rows 16-byte aligned) -> Plan
 _plans: dict = {}
+# Columns a query of the sparse product takes.
+COLUMNS_MAX = 16
+# (device, width, k) -> ColumnPlan
+_column_plans: dict = {}
 
 
 class Plan(NamedTuple):
@@ -90,6 +100,21 @@ class Plan(NamedTuple):
     @property
     def max_splits(self) -> int:
         return _MAX_SPLITS_SHORT if self.product in ("short", "f32") else _MAX_POOL_WIDTH
+
+
+class ColumnPlan(NamedTuple):
+    """The library's plan of the sparse product for one (device, width, k):
+    rows a stage, dynamic shared memory, packed column entries a query tile
+    holds, blocks an SM holds, pool entries per (query, split), the SM
+    count, and the int array the launch takes."""
+
+    rows: int
+    smem: int
+    emax: int
+    bps: int
+    pool: int
+    sms: int
+    raw: object
 
 
 def metric_code(metric) -> int:
@@ -265,21 +290,157 @@ def scan_topk_reference(q, x, xnorm2, k: int, metric="l2", mask=None):
             sc = -prod
         else:
             sc = 1.0 - prod
-        ok = torch.isfinite(sc)
-        if mask is not None:
-            ok &= mask[s:e].bool()[None, :]
-        sc = torch.where(ok, sc, math.inf)
-        ids = torch.arange(s, e, device=dev).expand(b, -1)
-        # Stable sort: the running list (lower ids, already (d, id)-ordered)
-        # precedes the block's rows in id order, so equal scores keep the
-        # lower id first.
-        cd = torch.cat([best_d, sc], 1)
-        ci = torch.cat([best_i, ids], 1)
-        cd, order = torch.sort(cd, dim=1, stable=True)
-        best_d = cd[:, :k].contiguous()
-        best_i = torch.gather(ci, 1, order[:, :k])
+        best_d, best_i = _merge_block(best_d, best_i, sc, s, mask, k)
+    return _found(best_d, best_i)
+
+
+def _merge_block(best_d, best_i, sc, s: int, mask, k: int):
+    """The running top-k after the scores sc [B, e - s] of rows s .. e - 1:
+    masked and non-finite scores excluded, ties to the lower id."""
+    e = s + sc.shape[1]
+    ok = torch.isfinite(sc)
+    if mask is not None:
+        ok &= mask[s:e].bool()[None, :]
+    sc = torch.where(ok, sc, math.inf)
+    ids = torch.arange(s, e, device=sc.device).expand(sc.shape[0], -1)
+    # Stable sort: the running list (lower ids, already (d, id)-ordered)
+    # precedes the block's rows in id order, so equal scores keep the
+    # lower id first.
+    cd, order = torch.sort(torch.cat([best_d, sc], 1), dim=1, stable=True)
+    return cd[:, :k].contiguous(), torch.gather(torch.cat([best_i, ids], 1), 1, order[:, :k])
+
+
+def _found(best_d, best_i):
     found = torch.isfinite(best_d)
     return (
         torch.where(found, best_d, math.inf),
         torch.where(found, best_i, -1).to(torch.int32),
     )
+
+
+def _check_columns(cols, x, k, mask):
+    if k < 1:
+        raise ValueError(f"scan_topk_columns needs k >= 1, got k={k}")
+    if cols.dim() != 2 or cols.dtype not in (torch.int32, torch.int64):
+        raise ValueError(
+            f"cols must be [B, T] int32 or int64, got {tuple(cols.shape)} {cols.dtype}")
+    if cols.shape[1] > COLUMNS_MAX:
+        raise ValueError(f"at most {COLUMNS_MAX} columns a query, got {cols.shape[1]}")
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(f"x must be [N, H] bfloat16, got {tuple(x.shape)} {x.dtype}")
+    tensors = [cols, x]
+    if mask is not None:
+        if mask.shape != (x.shape[0],) or mask.dtype not in (torch.bool, torch.uint8):
+            raise ValueError("mask must be [N] bool or uint8")
+        tensors.append(mask)
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"all inputs must be on {x.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def scan_topk_columns(cols, x, k: int, mask=None):
+    """Top-k of each query's sum of its own columns of each row: the device
+    BM25 sweep. cols [B, T] int32 or int64, T <= 16, -1 pads (a repeated
+    column counts each time); x [N, H] bf16; mask [N] bool/uint8 or None.
+
+    The same function as `scan_topk(q, x, None, k, "dot", mask)` with q the
+    multi-hot [B, H] query of cols (scatter-added counts), up to f32
+    summation order: (d [B, k] f32 negated scores ascending, i [B, k] int32),
+    ties to the lower row, (+inf, -1) past the live rows. On the card it
+    also allocates the packed columns (2 T bytes a query), a bound and k
+    shared best keys a query (8 + 8 k bytes) and the candidate pools (about
+    16 k bytes a query per split of the rows: one split an SM). Columns
+    outside [0, H) other than the pads raise on the CPU; the kernel reads
+    them as pads.
+    """
+    _check_columns(cols, x, k, mask)
+    if x.device.type == "cpu":
+        return scan_topk_columns_reference(cols, x, k, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"scan_topk_columns runs on cpu or cuda, not {x.device}")
+    from vecgo_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    (b, t), (n, h) = cols.shape, x.shape
+    dev = x.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_i
+    if n == 0:
+        return out_d.fill_(math.inf), out_i.fill_(-1)
+    plan = _column_plan(lib, dev, h, k)
+    splits = max(1, min(plan.bps * plan.sms, -(-n // plan.rows), _MAX_POOL_WIDTH // plan.pool))
+    rows_per_split = -(-(-(-n // splits)) // plan.rows) * plan.rows
+    splits = -(-n // rows_per_split)
+    groups = -(-b // 32)
+
+    def scratch(count, dtype):
+        return torch.empty(count, dtype=dtype, device=dev)
+
+    gstart = scratch(groups + 1, torch.int32)
+    gcols = scratch(groups * 32 * max(t, 1), torch.int16)
+    bound = scratch(b, torch.int64)
+    best = scratch(b * k if splits >= k else 1, torch.int64)  # the splits' shared buckets
+    pool = scratch(splits * b * plan.pool, torch.int64)
+    pool_n = scratch(splits * b, torch.int32)
+    with torch.cuda.device(dev):  # the C launch uses the current device
+        rc = lib.vecgo_scan_columns(
+            cols.data_ptr(), int(cols.dtype == torch.int64), b, t, x.data_ptr(),
+            mask.data_ptr() if mask is not None else None, n, h, k, rows_per_split, splits,
+            ctypes.addressof(plan.raw), gstart.data_ptr(), gcols.data_ptr(), bound.data_ptr(),
+            best.data_ptr(), pool.data_ptr(), pool_n.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "scan_topk_columns launch")
+    scan_topk.launches += 1
+    scan_topk.last_product = "columns"
+    return out_d, out_i
+
+
+def _column_plan(lib, device, h: int, k: int) -> ColumnPlan:
+    """The sparse product's launch plan, asked of the library once per
+    (device, width, k)."""
+    key = (device.index, h, k)
+    if key not in _column_plans:
+        from vecgo_tpu_torch.kernels import _build
+
+        raw = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            rc = lib.vecgo_scan_columns_plan(h, k, ctypes.addressof(raw))
+        _build.check(rc, f"scan_topk_columns plan (width {h}, k {k})")
+        rows, smem, emax, bps, pool = raw
+        if bps < 1:
+            raise RuntimeError(f"scan_topk_columns: no block fits one SM (width {h}, k {k})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _column_plans[key] = ColumnPlan(rows, smem, emax, bps, pool, sms, raw)
+    return _column_plans[key]
+
+
+def scan_topk_columns_reference(cols, x, k: int, mask=None):
+    """Plain PyTorch version of `scan_topk_columns`, in blocks of rows: each
+    query's columns in ascending order (the pads first, adding 0), the rows'
+    weights at each gathered and added in f32 (the kernel's order, so its
+    sums are these bit for bit), negated, masked, then the running top-k.
+    Same contract, same tie order; it raises on a column outside [0, H)
+    other than the -1 pads."""
+    _check_columns(cols, x, k, mask)
+    (b, t), (n, h) = cols.shape, x.shape
+    c = cols.long()
+    if c.numel() and (int(c.min()) < -1 or int(c.max()) >= h):
+        raise ValueError(f"columns must lie in [0, {h}) or be -1")
+    c = torch.sort(c, dim=1).values
+    used, c = c >= 0, c.clamp_min(0)
+    dev = x.device
+    best_d = torch.full((b, k), math.inf, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    block = max(_TN, _REF_BLOCK_ELEMS // max(b, 1))
+    for s in range(0, n, block):
+        xs = x[s : min(n, s + block)]
+        acc = torch.zeros((b, xs.shape[0]), dtype=torch.float32, device=dev)
+        for j in range(t):
+            acc += torch.where(used[:, j : j + 1], xs[:, c[:, j]].T.float(), 0.0)
+        best_d, best_i = _merge_block(best_d, best_i, -acc, s, mask, k)
+    return _found(best_d, best_i)
