@@ -688,6 +688,7 @@ class Engine:
         """Bulk search returning (ids [B, k] int64, dists [B, k] f32) arrays;
         accepts numpy arrays or tensors (device-resident queries stay there)."""
         opts = self._search_options(k, kw)
+        opts.with_stats = False  # arrays only: no QueryStats to build
         ids, dists, _, _ = self._snapshot_search(self._queries(qs), opts, False)
         return ids, dists
 
@@ -724,6 +725,7 @@ class Engine:
         enqueued on the device; yields (ids, dists) per batch in input order.
         The snapshot stays registered until the generator finishes or closes."""
         opts = self._search_options(k, kw)
+        opts.with_stats = False  # arrays only: no QueryStats to build
         snap = self.snapshot()
         self._tracker.register(snap)
 

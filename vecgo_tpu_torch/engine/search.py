@@ -11,13 +11,17 @@ Kernel launches and the result copies are asynchronous, so
 `search_snapshot_stream` keeps several batches in flight: batch i+1 is
 enqueued before batch i's results are read, and the host's visibility pass
 over batch i runs while the card scans batch i+1.
+
+Each batch carries a trace context (`engine/tracing.py`): its spans (plan,
+dispatch, upload, each source, merge, wait, finish and its steps) and
+counters share one batch id, and reach a recorder, `torch.profiler` or the
+batch's own `QueryStats` where one of them asks; otherwise they cost nothing.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-import time
 from collections import Counter, OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
@@ -25,6 +29,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from vecgo_tpu_torch.engine import tracing
 from vecgo_tpu_torch.engine.pk import DELETED
 from vecgo_tpu_torch.index.flat import FlatSegment, bloom_may_contain
 from vecgo_tpu_torch.metadata import Op, as_filterset
@@ -48,6 +53,14 @@ CHUNK_B = 4096
 
 # Merge codes carry the source slot above the row: slot << 32 | row (int64).
 _ROW_BITS = 32
+
+# A planned source's kind -> the name of its span (`source.<name>`) and device
+# timer (`device_ms.source.<name>`).
+_SOURCE_NAME = {
+    "mem": "memtable", "flat": "flat", "flat_compact": "flat_compact", "graph": "graph",
+    "brute_masked": "graph", "flat_stream": "stream", "graph_stream": "stream",
+    "graph_cached": "cached",
+}
 
 __all__ = ["PlanCache", "search_snapshot", "search_snapshot_stream"]
 
@@ -421,7 +434,7 @@ def _gather_need(plan, scan_dtype: str) -> int:
                if s.kind == "flat_compact" and "rows" not in (s.compact or {}))
 
 
-def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
+def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0, batch=None):
     """Score one query chunk against every planned source, on the device and
     without a host sync. Returns ([(seg_id, d [B,w], rows [B,w])], dist_comps)."""
     b = qd.shape[0]
@@ -435,35 +448,42 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0):
     out = []
     dist_comps = 0
     for src in plan.sources:
-        if src.kind in ("graph", "brute_masked"):
-            d, rows, comps = _graph_source(src, qd, min(fetch_k, src.n), opts, options)
-            dist_comps += comps + b * rows.shape[1]
-            out.append((src.seg_id, d, rows))
-            continue
-        if src.kind == "mem":
-            kk = min(exact_k, src.n)
-            d, rows = src.source.search(qd, kk, src.n, _source_mask(src, qd.device))
-        elif src.kind == "flat":
-            seg = src.source
-            quantized = seg.quant.kind != "none"
-            # A quantized scan is approximate: it keeps the refine_factor pool
-            # (at least the churn margin's width) and the pool is reranked
-            # exactly from the host's rows.
-            kk = min(max(fetch_k, exact_k) if quantized else exact_k, src.n)
-            d, rows = seg.search(qd, kk, mask=_source_mask(src, qd.device),
-                                 nprobes=opts.nprobes, scan_dtype=scan_dtype)
-            if quantized:
-                d = seg.rerank(qd, rows)
-        elif src.kind == "flat_compact":
-            d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
-                                      options.metric, scan_dtype)
-        elif src.kind in ("flat_stream", "graph_stream"):
-            d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
-        else:  # graph_cached
-            d, rows = _cached_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
-        dist_comps += b * src.rows_considered + b * rows.shape[1]
+        name = _SOURCE_NAME[src.kind]
+        with tracing.span("source." + name, batch), \
+                tracing.device_timer("device_ms.source." + name, batch, qd.device):
+            d, rows, comps = _score_source(src, qd, opts, options, fetch_k, exact_k, scan_dtype)
+        dist_comps += comps + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
+
+
+def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype: str):
+    """One planned source's candidates for a query chunk. Returns (d, rows,
+    distance computations before the candidates' own)."""
+    if src.kind in ("graph", "brute_masked"):
+        return _graph_source(src, qd, min(fetch_k, src.n), opts, options)
+    if src.kind == "mem":
+        kk = min(exact_k, src.n)
+        d, rows = src.source.search(qd, kk, src.n, _source_mask(src, qd.device))
+    elif src.kind == "flat":
+        seg = src.source
+        quantized = seg.quant.kind != "none"
+        # A quantized scan is approximate: it keeps the refine_factor pool
+        # (at least the churn margin's width) and the pool is reranked
+        # exactly from the host's rows.
+        kk = min(max(fetch_k, exact_k) if quantized else exact_k, src.n)
+        d, rows = seg.search(qd, kk, mask=_source_mask(src, qd.device),
+                             nprobes=opts.nprobes, scan_dtype=scan_dtype)
+        if quantized:
+            d = seg.rerank(qd, rows)
+    elif src.kind == "flat_compact":
+        d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
+                                  options.metric, scan_dtype)
+    elif src.kind in ("flat_stream", "graph_stream"):
+        d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
+    else:  # graph_cached
+        d, rows = _cached_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
+    return d, rows, qd.shape[0] * src.rows_considered
 
 
 def _stream_source(src, qd, kk: int, opts, options):
@@ -637,10 +657,42 @@ def _merge_device(parts, width: int):
     return d, torch.gather(torch.cat(codes, 1), 1, pos)
 
 
-def _finish(d: np.ndarray, code: np.ndarray, slot_seg_ids, snap, pk, opts):
+def _finish(d: np.ndarray, code: np.ndarray, slot_seg_ids, snap, pk, opts, batch=None):
     """Decode merged candidates, drop rows invisible at the snapshot (MVCC)
     and duplicate ids, and compact the first k survivors per query (host)."""
-    k = opts.k
+    with tracing.span("planner.finish", batch):
+        with tracing.span("finish.decode", batch):
+            ids, lsns, valid, seg, row = _decode(d, code, slot_seg_ids, snap)
+
+        # Ids with one version are visible by construction; only multi-version
+        # ("dirty") ids need the PK chain, and only they can repeat in a row.
+        dirty = pk.dirty_sorted()
+        flagged = None
+        if len(dirty):
+            with tracing.span("finish.visibility", batch):
+                flagged = valid & np.isin(ids, dirty)
+                for bi, j in zip(*np.nonzero(flagged)):
+                    ent = pk.get_entry(int(ids[bi, j]), snap.lsn)
+                    if ent is None or ent[1] == DELETED or ent[0] != int(lsns[bi, j]):
+                        valid[bi, j] = False
+            with tracing.span("finish.dedup", batch):
+                for bi in np.flatnonzero(flagged.any(axis=1)):
+                    seen = set()
+                    for j in np.flatnonzero(valid[bi]):
+                        if ids[bi, j] in seen:
+                            valid[bi, j] = False
+                        else:
+                            seen.add(ids[bi, j])
+        tracing.count("finish.flagged", lambda: 0 if flagged is None else
+                      int(np.count_nonzero(flagged)), batch)
+
+        with tracing.span("finish.compact", batch):
+            return _compact(d, ids, valid, seg, row, opts.k)
+
+
+def _decode(d: np.ndarray, code: np.ndarray, slot_seg_ids, snap):
+    """Merged candidates' (ids, lsns, valid, segment ids, rows), each [B, W]:
+    the slot and row of each merge code looked up in its source."""
     b, w = d.shape
     valid = np.isfinite(d) & (code >= 0)
     slot = np.where(valid, code >> _ROW_BITS, 0)
@@ -661,24 +713,13 @@ def _finish(d: np.ndarray, code: np.ndarray, slot_seg_ids, snap, pk, opts):
             ids_src, lsns_src = segmap[int(seg_id)].ids, segmap[int(seg_id)].lsns
         ids[m] = np.asarray(ids_src)[row[m]].astype(np.int64)
         lsns[m] = np.asarray(lsns_src)[row[m]]
+    return ids, lsns, valid, seg, row
 
-    # Ids with one version are visible by construction; only multi-version
-    # ("dirty") ids need the PK chain, and only they can repeat in a row.
-    dirty = pk.dirty_sorted()
-    if len(dirty):
-        flagged = valid & np.isin(ids, dirty)
-        for bi, j in zip(*np.nonzero(flagged)):
-            ent = pk.get_entry(int(ids[bi, j]), snap.lsn)
-            if ent is None or ent[1] == DELETED or ent[0] != int(lsns[bi, j]):
-                valid[bi, j] = False
-        for bi in np.flatnonzero(flagged.any(axis=1)):
-            seen = set()
-            for j in np.flatnonzero(valid[bi]):
-                if ids[bi, j] in seen:
-                    valid[bi, j] = False
-                else:
-                    seen.add(ids[bi, j])
 
+def _compact(d, ids, valid, seg, row, k: int):
+    """The first k valid candidates of each row: (ids [B, k] (-1 pad),
+    dists [B, k] (inf pad), (segment ids, rows, found) [B, <=k])."""
+    b = d.shape[0]
     sel = np.argsort(~valid, axis=1, kind="stable")[:, :k]
     kk = sel.shape[1]
     got = np.take_along_axis(valid, sel, axis=1)
@@ -700,10 +741,7 @@ class _PendingBatch:
     slot_seg_ids: list
     b: int
     dist_comps: int
-    stats: Any
-    t0: float
-    t_plan: float
-    t_score: float
+    trace: tracing.Batch
     holder: Optional[PlanCache] = None  # the plan cache that counts this batch's hold
 
     def release(self):
@@ -736,119 +774,135 @@ def _query_tensor(q, device, metric: Metric):
     return D.normalize(qd) if metric == Metric.COSINE else qd
 
 
-def _batch_plan(snap, opts, options, device_budget, plan_cache, mine=None):
+def _batch_plan(snap, opts, options, device_budget, plan_cache, mine=None, batch=None):
     """The batch's plan: the plan cache's, or a new one (then cached) whose
     compact gathers fit beside those that batches in flight hold, leaving
     out plans that only the batches counted in `mine` hold."""
-    plan = cache_key = None
-    if plan_cache is not None:
-        fkey = _plan_filter_key(opts.filter)
-        if fkey is not None:
-            cache_key = (
-                snap.lsn, snap.version, snap.mem_rows,
-                tuple(h.seg_id for h in snap.segments),
-                fkey, opts.selectivity_cutoff, opts.prefilter,
-            )
-            plan = plan_cache.get(cache_key)
-            if plan is not None and not _plan_still_resident(plan, device_budget):
-                plan = None
-    if plan is None:
-        held = plan_cache.held_bytes(mine) if plan_cache is not None else 0
-        plan = _plan_snapshot(snap, opts, options, device_budget, held)
-        if cache_key is not None:
-            plan_cache.put(cache_key, plan)
+    with tracing.span("planner.plan", batch):
+        plan = cache_key = None
+        if plan_cache is not None:
+            fkey = _plan_filter_key(opts.filter)
+            if fkey is not None:
+                cache_key = (
+                    snap.lsn, snap.version, snap.mem_rows,
+                    tuple(h.seg_id for h in snap.segments),
+                    fkey, opts.selectivity_cutoff, opts.prefilter,
+                )
+                plan = plan_cache.get(cache_key)
+                if plan is not None and not _plan_still_resident(plan, device_budget):
+                    plan = None
+        if plan is None:
+            held = plan_cache.held_bytes(mine) if plan_cache is not None else 0
+            plan = _plan_snapshot(snap, opts, options, device_budget, held)
+            if cache_key is not None:
+                plan_cache.put(cache_key, plan)
     return plan
 
 
 def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=None,
                     plan_cache: Optional[PlanCache] = None, plan=None,
-                    t0: Optional[float] = None) -> _PendingBatch:
+                    batch: Optional[tracing.Batch] = None) -> _PendingBatch:
     """Enqueue one batch: its plan (`plan`, or the batch's own, planned
     beside the gathers that batches in flight hold), the plan cache's hold
-    on it until the batch drains, its scans, merge and result copies."""
-    t0 = time.perf_counter() if t0 is None else t0
-    stats = QueryStats() if opts.with_stats else None
-    qd = _query_tensor(q, options.device, options.metric)
-    b = qd.shape[0]
-    if plan is None:
-        plan = _batch_plan(snap, opts, options, device_budget, plan_cache)
-    gather_budget = getattr(options, "plan_gather_budget_bytes", 2 << 30)
-    left = device_left(device_budget)
-    if plan_cache is not None and left is not None:
-        # Make room for this plan's gathers before they are allocated.
-        plan_cache.sweep_gathered(gather_budget, left, keep=plan, reserve=_gather_need(
-            plan, getattr(options, "flat_scan_dtype", "bf16")))
-    t_plan = time.perf_counter()
+    on it until the batch drains, its scans, merge and result copies.
+    `batch` is its trace context (a new one if None)."""
+    if batch is None:
+        batch = tracing.Batch(opts.with_stats)
+    with tracing.span("planner.dispatch", batch):
+        with tracing.span("planner.upload", batch):
+            qd = _query_tensor(q, options.device, options.metric)
+        b = qd.shape[0]
+        if plan is None:
+            plan = _batch_plan(snap, opts, options, device_budget, plan_cache, batch=batch)
+        gather_budget = getattr(options, "plan_gather_budget_bytes", 2 << 30)
+        left = device_left(device_budget)
+        if plan_cache is not None and left is not None:
+            # Make room for this plan's gathers before they are allocated.
+            plan_cache.sweep_gathered(gather_budget, left, keep=plan, reserve=_gather_need(
+                plan, getattr(options, "flat_scan_dtype", "bf16")))
 
-    # Every dirty (multi-version) id can put one stale row per source into
-    # the merge window, so the margin grows with the dirty count; a clean
-    # snapshot needs none. Past the cap the merge keeps every candidate.
-    dirty_n = len(pk.dirty_sorted())
-    margin = 0 if dirty_n == 0 else max(_VIS_MARGIN, min(dirty_n, _VIS_MARGIN_CAP))
-    chunks = []
-    dist_comps = 0
-    for c0 in range(0, b if plan.sources else 0, CHUNK_B):
-        parts, dc = _dispatch_chunk(plan, qd[c0 : c0 + CHUNK_B], opts, options,
-                                    exact_k=opts.k + margin)
-        dist_comps += dc
-        total = sum(p[2].shape[1] for p in parts)
-        width = total if dirty_n > _VIS_MARGIN_CAP else min(total, opts.k + margin)
-        chunks.append(tuple(map(_to_host_async, _merge_device(parts, width))))
-    done = None
-    if qd.device.type == "cuda":
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(qd.device))
-    if plan_cache is not None:
-        # Compact-gather sub-corpora attach at first dispatch; hold the plan
-        # cache to its own budget and to what the device budget has left.
-        plan_cache.sweep_gathered(gather_budget, device_left(device_budget), keep=plan)
-        plan_cache.hold(plan)  # until the batch drains
+        # Every dirty (multi-version) id can put one stale row per source into
+        # the merge window, so the margin grows with the dirty count; a clean
+        # snapshot needs none. Past the cap the merge keeps every candidate.
+        dirty_n = len(pk.dirty_sorted())
+        margin = 0 if dirty_n == 0 else max(_VIS_MARGIN, min(dirty_n, _VIS_MARGIN_CAP))
+        chunks = []
+        dist_comps = 0
+        for c0 in range(0, b if plan.sources else 0, CHUNK_B):
+            parts, dc = _dispatch_chunk(plan, qd[c0 : c0 + CHUNK_B], opts, options,
+                                        exact_k=opts.k + margin, batch=batch)
+            dist_comps += dc
+            total = sum(p[2].shape[1] for p in parts)
+            width = total if dirty_n > _VIS_MARGIN_CAP else min(total, opts.k + margin)
+            with tracing.span("planner.merge", batch):
+                chunks.append(tuple(map(_to_host_async, _merge_device(parts, width))))
+            tracing.count("merge.width", width, batch)
+        done = None
+        if qd.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(qd.device))
+        if plan_cache is not None:
+            # Compact-gather sub-corpora attach at first dispatch; hold the plan
+            # cache to its own budget and to what the device budget has left.
+            plan_cache.sweep_gathered(gather_budget, device_left(device_budget), keep=plan)
+            plan_cache.hold(plan)  # until the batch drains
     return _PendingBatch(plan, chunks, done, [s.seg_id for s in plan.sources], b,
-                         dist_comps, stats, t0, t_plan, time.perf_counter(), plan_cache)
+                         dist_comps, batch, plan_cache)
 
 
 def _drain_batch(pending: _PendingBatch, snap, pk, opts, need_locations: bool = True):
     k = opts.k
-    plan, b, stats = pending.plan, pending.b, pending.stats
+    plan, b, batch = pending.plan, pending.b, pending.trace
     out_ids = np.full((b, k), -1, np.int64)
     out_d = np.full((b, k), np.inf, np.float32)
     out_loc: List[List] = [[] for _ in range(b)] if not plan.sources else []
     try:
-        if pending.done is not None:
-            pending.done.synchronize()  # its kernels are done with its plan's gathers
+        with tracing.span("planner.wait", batch):
+            if pending.done is not None:
+                pending.done.synchronize()  # its kernels are done with its plan's gathers
     finally:
         pending.release()
-    t_rerank = time.perf_counter()
+    tracing.read_device(batch)  # the batch's timers are behind its done event
     for ci, (d, code) in enumerate(pending.chunks):
         ids_c, d_c, loc_c = _finish(d.numpy(), code.numpy(), pending.slot_seg_ids,
-                                    snap, pk, opts)
+                                    snap, pk, opts, batch=batch)
         s = ci * CHUNK_B
         out_ids[s : s + ids_c.shape[0]] = ids_c
         out_d[s : s + ids_c.shape[0]] = d_c
         if need_locations:
             out_loc.extend(_loc_lists(*loc_c))
-    if stats:
-        t_end = time.perf_counter()
-        stats.planning_time_s = pending.t_plan - pending.t0
-        stats.scoring_time_s = pending.t_score - pending.t_plan
-        stats.rerank_time_s = t_rerank - pending.t_score
-        stats.materialize_time_s = t_end - t_rerank
-        stats.total_time_s = t_end - pending.t0
-        stats.segments_total = plan.segments_total
-        stats.segments_pruned = plan.n_pruned
-        stats.segments_brute_force = plan.n_brute
-        stats.segments_graph = plan.n_graph
-        stats.rows_considered = plan.rows_considered
-        stats.rows_filtered_out = plan.rows_filtered_out
-        stats.distance_computations = pending.dist_comps
-        if plan.filtered:
-            stats.selectivity = plan.rows_considered / max(plan.total_rows, 1)
-        stats.strategy = (
-            "empty" if not plan.sources else
-            f"brute={plan.n_brute} graph={plan.n_graph} pruned={plan.n_pruned}"
-            + (" filtered" if plan.filtered else "")
-        )
+    stats = _query_stats(plan, pending.dist_comps, batch) if batch.spans is not None else None
     return out_ids, out_d, out_loc, stats
+
+
+def _query_stats(plan, dist_comps: int, batch: tracing.Batch) -> QueryStats:
+    """A batch's QueryStats from its spans: the plan, the scans' device time
+    (the sources' host spans off the card), the wait on the device, `_finish`,
+    and the first span's start to the last one's end."""
+    sp, ct = batch.spans, batch.counts
+    scan_ms = [v for n, v in ct.items() if n.startswith("device_ms.source.")]
+    stats = QueryStats()
+    stats.planning_time_s = sp.get("planner.plan", 0) / 1e9
+    stats.scoring_time_s = (sum(scan_ms) / 1e3 if scan_ms else
+                            sum(v for n, v in sp.items() if n.startswith("source.")) / 1e9)
+    stats.rerank_time_s = sp.get("planner.wait", 0) / 1e9
+    stats.materialize_time_s = sp.get("planner.finish", 0) / 1e9
+    stats.total_time_s = (batch.t1_ns - batch.t0_ns) / 1e9
+    stats.segments_total = plan.segments_total
+    stats.segments_pruned = plan.n_pruned
+    stats.segments_brute_force = plan.n_brute
+    stats.segments_graph = plan.n_graph
+    stats.rows_considered = plan.rows_considered
+    stats.rows_filtered_out = plan.rows_filtered_out
+    stats.distance_computations = dist_comps
+    if plan.filtered:
+        stats.selectivity = plan.rows_considered / max(plan.total_rows, 1)
+    stats.strategy = (
+        "empty" if not plan.sources else
+        f"brute={plan.n_brute} graph={plan.n_graph} pruned={plan.n_pruned}"
+        + (" filtered" if plan.filtered else "")
+    )
+    return stats
 
 
 def search_snapshot(snap, pk, q, opts: SearchOptions, options, device_budget=None,
@@ -857,7 +911,8 @@ def search_snapshot(snap, pk, q, opts: SearchOptions, options, device_budget=Non
 
     Returns (ids [B, k] int64 (-1 pad), dists [B, k] f32, per-query
     [(seg_id, row), ...] lists when need_locations, stats or None)."""
-    pending = _dispatch_batch(snap, pk, q, opts, options, device_budget, plan_cache)
+    pending = _dispatch_batch(snap, pk, q, opts, options, device_budget, plan_cache,
+                              batch=tracing.Batch(opts.with_stats))
     return _drain_batch(pending, snap, pk, opts, need_locations)
 
 
@@ -877,14 +932,14 @@ def search_snapshot_stream(snap, pk, batches, opts: SearchOptions, options,
     scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     try:
         for q in batches:
-            t0 = time.perf_counter()
+            batch = tracing.Batch(opts.with_stats)
             mine = Counter(id(pending.plan) for pending in inflight)
-            plan = _batch_plan(snap, opts, options, device_budget, plan_cache, mine)
+            plan = _batch_plan(snap, opts, options, device_budget, plan_cache, mine, batch)
             need = _gather_need(plan, scan_dtype)
             while need and inflight and need > _gather_room(device_budget, plan_cache):
                 yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
             inflight.append(_dispatch_batch(snap, pk, q, opts, options, device_budget,
-                                            plan_cache, plan=plan, t0=t0))
+                                            plan_cache, plan=plan, batch=batch))
             if len(inflight) >= depth:
                 yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
         while inflight:

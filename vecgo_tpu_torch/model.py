@@ -7,7 +7,6 @@ works in dense row space [0, N) per segment; the host maps rows <-> user IDs.
 from __future__ import annotations
 
 import enum
-import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -156,16 +155,3 @@ class SearchResult:
 
     def __getitem__(self, i):
         return self.candidates[i]
-
-
-class Timer:
-    """Tiny scope timer used to populate QueryStats."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        dt = now - self.t0
-        self.t0 = now
-        return dt
