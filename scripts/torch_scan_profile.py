@@ -33,7 +33,12 @@ With --f32 the split f32 product's variants (F32_VARIANTS):
 - no-split: the splitter warps write no low parts (they only wait and
   release), so the low-part pass multiplies whatever the buffer holds;
 - big-only: the two small passes skipped (one tf32 pass, the product of a
-  1xTF32 scan).
+  1xTF32 scan);
+- one-wg: the second consumer warpgroup multiplies and scores nothing (it
+  releases each stage as it lands), so each staged chunk serves 64 queries,
+  the reuse of a one-warpgroup design; half the queries come back empty;
+- ring-only: no products, no low parts, no score pass: the TMA ring and
+  the splitters' and the consumers' barriers alone (the feed's own rate).
 
 With --columns the sparse product's variants (COLUMN_VARIANTS; its own
 counters: warp slots whose vote found a survivor, and compactions):
@@ -54,7 +59,9 @@ Shapes: 4096 clustered queries over clustered l2 rows (1,048,576 rows, or
 524,288 at d 256; chip_smoke.py's generator, made on the card from
 --seed) at (d, k) in SHAPES; with --f32 the f32 cases of chip_smoke.py
 (F32_SHAPES: the 1M x 128 scan ShardedFlat splits, cos rows at d 768, the
-memtable chunk at pools 82 and 308); with --columns the sweep of
+memtable chunk at pools 82 and 308) and the flat segment's scan of
+benchport's exact cell (9,990,000 x 96 cos rows at a pool of 116); with
+--columns the sweep of
 `scripts/torch_scan_ab.py`'s "bm25-columns" case (4096 queries of 3
 zipf-drawn columns over 1,049,576 BM25-like rows x 4096, 0.1% dead, k 36),
 and the same with 3 uniformly drawn columns a query. Each prints its time (CUDA events over --reps
@@ -108,12 +115,15 @@ VARIANTS = {
 
 
 F32_SHAPES = {"f32-1M": (1 << 20, 128, 10, "l2"), "wide-d768": (65536, 768, 10, "cos"),
-              "chunk-pool82": (8192, 128, 82, "l2"), "chunk-k308": (8192, 128, 308, "l2")}
+              "chunk-pool82": (8192, 128, 82, "l2"), "chunk-k308": (8192, 128, 308, "l2"),
+              "exact-d96": (9_990_000, 96, 116, "cos")}
+_F32_NO_SCORE = ("short_score(L, tot, terms + (tiles % XSTERMS)",
+                 "if (pm < 0.f) short_score(L, tot, terms + (tiles % XSTERMS)")
+_F32_NO_SPLIT = ("          lo[e] = make_float4(", "          if (N < 0) lo[e] = make_float4(")
 F32_VARIANTS = {
     "built": [],
-    "no-score": [("short_score(L, acc, terms + (tiles % XSTERMS)",
-                  "if (pm < 0.f) short_score(L, acc, terms + (tiles % XSTERMS)")],
-    "no-split": [("          lo[e] = make_float4(", "          if (N < 0) lo[e] = make_float4(")],
+    "no-score": [_F32_NO_SCORE],
+    "no-split": [_F32_NO_SPLIT],
     "big-only": [
         ("    wgmma_m64n128k8_tf32(acc, sw128_desc(ql + kk * 32), sw128_desc(raw + kk * 32), kk > 0);",
          "    ;"),
@@ -122,6 +132,14 @@ F32_VARIANTS = {
         ("    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), 1);",
          "    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), kk > 0);"),
     ],
+    "one-wg": [
+        ("      if (qw0 >= B) {  // no live query: release each stage once it landed\n",
+         "      if (qw0 >= B || cw == 1) {\n"
+         "        if (lane < 16 && qw0 < B) pool_n[((size_t)u * 2 + cw) * 64 + 16 * w + lane] = 0;\n"),
+    ],
+    "ring-only": [_F32_NO_SCORE, _F32_NO_SPLIT,
+                  ("        split_issue(dst, qh, ql, sb, sb + XCHUNK);",
+                   "        if (N < 0) split_issue(dst, qh, ql, sb, sb + XCHUNK);")],
 }
 
 

@@ -354,14 +354,16 @@ def test_kernel_f32_product_reads_raw_rows_as_their_tf32_high_part(cuda):
     x - trunc(x) beside it. Rows of values with 21 significant bits (their
     low part exact in tf32), most with bits below tf32's, against one-hot
     queries: every dot score is a row's value exactly, as the plain
-    version's; tensor cores that rounded would miss by up to 2^-11 of it."""
+    version's; tensor cores that rounded would miss by up to 2^-11 of it.
+    The one-hot queries repeat four times, so both warpgroups of a unit
+    multiply them."""
     r = np.random.default_rng(3)
     n, d = 4096, 32
     mant = r.integers(1 << 20, 1 << 21, size=(n, d)).astype(np.float64)
     x = mant * 2.0 ** -20 * r.choice([-1.0, 1.0], size=(n, d)) * 2.0 ** r.integers(-3, 4, (n, d))
     x = torch.from_numpy(x.astype(np.float32)).to(cuda)
     assert bool(((x.view(torch.int32) & 0x1FFF) != 0).float().mean() > 0.9)
-    q = torch.eye(d, device=cuda)
+    q = torch.eye(d, device=cuda).repeat(4, 1)
     d_k, i_k = scan_topk(q, x, None, 16, "dot")
     assert scan_topk.last_product == "f32"
     d_r, i_r = scan_topk_reference(q, x, None, 16, "dot")
@@ -421,6 +423,46 @@ def test_kernel_f32_product_is_fp32_class(cuda, b, n, d, k, metric):
           f"{kernel:.3g}, plain {plain:.3g} ({kernel / plain:.2f}x); max |score - exact| "
           f"kernel {kernel_max:.3g}, plain {plain_max:.3g} [{torch.cuda.get_device_name(0)}]")
     assert kernel <= 8 * plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "dot", "cos"])
+@pytest.mark.parametrize("b,n,d", [(4096, 20_000, 96), (4096, 6000, 1536), (100, 20_000, 96),
+                                   (100, 6000, 1536)],
+                         ids=["paired-resident", "paired-streamed", "partial-resident",
+                              "partial-streamed"])
+def test_kernel_f32_product_paired_and_single_warpgroup_units_agree(cuda, b, n, d, metric):
+    """The split product's units of 128 queries: the queries scanned at
+    once (both warpgroups of a unit live; at B 100 the second holds 36) and
+    as 64-query slices (the second warpgroup idle) give bit-identical
+    distances and the same ids, with queries resident (d 96) and streamed
+    (d 1536), under a mask; the counters read every unit paired at once at
+    B 4096 and 100, and none in the slices."""
+    from vecgo_tpu_torch.engine import tracing
+
+    r = np.random.default_rng(b + n + d)
+    x = r.standard_normal((n, d)).astype(np.float32)
+    q = r.standard_normal((b, d)).astype(np.float32)
+    if metric != "l2":
+        x, q = _unit_rows(r, n, d), _unit_rows(r, b, d)
+    x, q = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
+    xn = (x * x).sum(1)
+    mask = torch.from_numpy(r.random(n) >= 0.2).to(cuda)
+    with tracing.recording() as rec:
+        d_k, i_k = scan_topk(q, x, xn, 100, metric, mask)
+        assert scan_topk.last_product == "f32"
+        torch.cuda.synchronize()
+    counts = {c.name: c.n for c in rec.counts()}
+    assert counts["scan_topk.split_paired_units"] == counts["scan_topk.split_units"] > 0
+    with tracing.recording() as rec:
+        parts = [scan_topk(q[s:s + 64], x, xn, 100, metric, mask) for s in range(0, b, 64)]
+        torch.cuda.synchronize()
+    assert sum(c.n for c in rec.counts("scan_topk.split_paired_units")) == 0
+    assert torch.equal(d_k, torch.cat([p[0] for p in parts]))
+    assert torch.equal(i_k, torch.cat([p[1] for p in parts]))
+    d_r, i_r = scan_topk_reference(q, x, xn, 100, metric, mask)
+    torch.cuda.synchronize()
+    _check_against_plain(q, x, xn, 100, metric, mask, d_k, i_k, d_r, i_r)
 
 
 @pytest.mark.cuda

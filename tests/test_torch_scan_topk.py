@@ -294,8 +294,8 @@ def test_reference_matches_jax_route_at_deep_d(d, metric):
     ("deep", 128, 256, 32, 1_049_576, 36),   # the BM25 sweep
     ("deep", 128, 256, 32, 262_144, 10),     # 3,072-d rows
     ("deep", 128, 256, 32, 1_000_000, 100),  # dbpedia-openai-1M at a pool of 100
-    ("f32", 64, 128, 8, 1 << 20, 10),        # the one-device scan ShardedFlat splits
-    ("f32", 64, 128, 8, 8192, 82),           # a memtable chunk
+    ("f32", 128, 128, 8, 1 << 20, 10),       # the one-device scan ShardedFlat splits
+    ("f32", 128, 128, 8, 8192, 82),          # a memtable chunk
     ("f32-fma", 128, 128, 16, 8192, 1000),   # a memtable chunk at a pool of 1,000, unaligned
     ("f32-fma", 128, 128, 16, 1 << 20, 10),  # rows TMA cannot read
     ("short", 192, 128, 8, 1 << 20, 18),     # the flat segment's pool scan (three warpgroups)
@@ -306,10 +306,10 @@ def test_reference_matches_jax_route_at_deep_d(d, metric):
 ])
 def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, n, k):
     """The deep product's 128 x 256 tiles, the FMA f32 product's 128 x 128
-    tiles, the split f32 product's 64 queries x 128 rows and the short
+    tiles, the split f32 product's 128 queries x 128 rows and the short
     product's 192 or 128 queries x 128 rows (one block an SM; the short and
     split products' persistent blocks walk the same units): 4096 queries
-    are 22-64 query tiles, so the rows are split; each split keeps its
+    are 22-32 query tiles, so the rows are split; each split keeps its
     minimum of tiles (the f32 and short products' lower ones, st._MIN_TILES_*;
     the short and split products at most st._MAX_SPLITS_SHORT splits), the
     finishing kernel's reads stay bounded, the splits cover the rows once,
@@ -334,6 +334,41 @@ def test_split_plan_fills_the_card_at_the_new_tiles(product, tq, tn, min_tiles, 
     if n >= 1 << 20:
         waves = q_tiles * splits / slots
         assert waves / np.ceil(waves) >= st._WAVE_FILL
+
+
+def test_split_plan_at_the_exact_cells_segment_scan():
+    """The flat segment's f32 scan of the exact deployment (4096 queries
+    over 9,990,000 x 96 rows at a pool of 116, so 256 pool entries; 132 SMs,
+    one block each): 32 query tiles of 128 over 8 splits of 1,248,768 rows,
+    256 units, the last wave 97% full, and the candidate pools' scratch at
+    most 64 MiB (67.1 MB)."""
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    n, pool = 9_990_000, _pool_cap(116)
+    assert pool == 256
+    splits, rows = st.split_plan(4096, n, 128, 132, pool, 128, st._MIN_TILES_F32,
+                                 st._MAX_SPLITS_SHORT)
+    assert (splits, rows) == (8, 1_248_768)
+    assert (splits - 1) * rows < n <= splits * rows
+    blocks = -(-4096 // 128) * splits
+    assert blocks / (2 * 132) >= st._WAVE_FILL
+    assert blocks * 128 * pool * 8 <= 64 << 20
+
+
+@pytest.mark.parametrize("b,units,paired", [(4096, 32, 32), (100, 1, 1), (64, 1, 0), (1, 1, 0),
+                                            (4160, 33, 32), (4200, 33, 33)])
+def test_split_units_count_the_paired_ones(b, units, paired):
+    """The split f32 product's counters: its units (query tiles of 128 times
+    splits) and those whose second warpgroup of 64 has a live query (the
+    tile holds more than 64 of the B queries), recorded per launch."""
+    from vecgo_tpu_torch.engine import tracing
+    from vecgo_tpu_torch.ops import scan_topk as st
+
+    with tracing.recording() as rec:
+        st.count_split_units(b, 8, 128)
+    got = {c.name: c.n for c in rec.counts()}
+    assert got == {"scan_topk.split_units": 8 * units, "scan_topk.split_paired_units": 8 * paired}
+    st.count_split_units(b, 8, 128)  # nothing recorded, nothing raised, with no recorder
 
 
 # The split f32 product's arithmetic (the CUDA kernel's f32 product on tables

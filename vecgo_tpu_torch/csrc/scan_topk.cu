@@ -78,16 +78,17 @@
 //   cores truncate their f32 sums at each step, so each 32-deep chunk's sum
 //   starts from zero and joins the tile's total in registers (round to
 //   nearest): the scores land nearer the float64 answer than an IEEE fp32
-//   sum's (PERF.md). One warpgroup multiplies 64 queries (resident, or
-//   streamed chunk by chunk past d 160) by 128-row tiles that come chunk by
-//   chunk through a TMA ring fed by one producer warp; a second warpgroup
-//   scores each tile as the short product does (fast test, vote, a bound
-//   the splits share, persistent blocks) while the next one multiplies.
-//   Measured, it runs nearly as fast with the score pass skipped: the
-//   products bound it, through shared memory (the operands' reads, the
-//   split's and TMA's writes) and the turn per chunk from issue to add
-//   (384 threads leave 168 registers a thread, no room for a second
-//   accumulator set; PERF.md).
+//   sum's (PERF.md). What a staged chunk costs (its TMA landing, its split
+//   into low parts, a multiplier's turn from issue to add) is about three
+//   times its tensor work for 64 queries (PERF.md), so each staged chunk
+//   and its low parts serve 128 queries: two consumer
+//   warpgroups of 64 (resident, or streamed chunk by chunk past d 96) read
+//   every stage of 128-row tiles that come chunk by chunk through a TMA ring
+//   fed by one producer warp, and each scores its own tile from registers
+//   as the short product does (fast test, vote, a bound the splits share,
+//   persistent blocks) while the other's products run. A warpgroup whose queries all lie past
+//   B multiplies nothing. The producer's warpgroup gives the consumers
+//   registers (setmaxnreg: 56 and 224 a thread, no spill at either).
 // * The FMA f32 product (f32 tables TMA cannot read: d % 4 != 0, such as
 //   GloVe's 25 and 50, or a view that starts mid-row). IEEE fp32 on the
 //   FMA units: the 128-query tile stays resident in shared memory for the
@@ -200,29 +201,29 @@ constexpr int FK = 32;
 constexpr int FLD = FK + 4;  // padded stage row (floats): conflict-free 16-byte reads
 constexpr int FSTAGES = 3;
 
-// Split f32 product: 64 queries x 128 rows a tile; a ring stage is one
-// 32-deep chunk of the tile (128 bytes of f32 a row: one 128-byte swizzled
-// row), its raw rows and their low parts, plus (queries streamed) the
-// chunk's query high and low parts. The queries and the ring share XBUF
-// bytes; a tile's sums go to the scorer through XSCORE bytes.
-constexpr int XQ = 64;
+// Split f32 product: 128 queries (two consumer warpgroups of 64) x 128 rows
+// a tile; a ring stage is one 32-deep chunk of the tile (128 bytes of f32 a
+// row: one 128-byte swizzled row), its raw rows and their low parts, plus
+// (queries streamed) the chunk's query high and low parts. The queries and
+// the ring share XBUF bytes.
+constexpr int XQ = 128;
 constexpr int XN = 128;
 constexpr int XK = 32;
-// Warpgroup 0 multiplies, 1 scores, 2 is the producer warp and 3 splitter
-// warps.
+// Warpgroups 0 and 1 multiply and score, 2 is the producer warp and 3
+// splitter warps.
 constexpr int XTHREADS = 384;
 constexpr int XSPLITTERS = 3;
-constexpr int XQCHUNK = XQ * XK * 4;        // 8 KB: one part of 64 queries x 32
+constexpr int XQCHUNK = XQ * XK * 4;        // 16 KB: one part of 128 queries x 32
 constexpr int XCHUNK = XN * XK * 4;         // 16 KB: 128 rows x 32
-constexpr int XSCORE = XQ * XN * 4;         // 32 KB: a tile's sums
-constexpr int XBUF = 184 * 1024;
+constexpr int XBUF = 208 * 1024;
 constexpr int XMAX_STAGES = 5;
 // Row-term slots: the producer runs up to `stages` chunks ahead of the
-// multiplier, which runs up to two tiles ahead of the scorer.
+// oldest stage a warpgroup has not released, and a warpgroup releases the
+// next tile's first chunk only after scoring its tile.
 constexpr int XSTERMS = 8;
-static_assert(XSTERMS >= XMAX_STAGES + 3, "row terms outlive their tile's scoring");
+static_assert(XSTERMS >= XMAX_STAGES + 2, "row terms outlive their tile's scoring");
 // Ring stages beside the queries: resident (both parts of every chunk of
-// the 64-query tile, nch chunks) while three stages fit, else streamed.
+// the 128-query tile, nch chunks) while three stages fit, else streamed.
 __host__ __device__ constexpr int split_stages(int nch, int resident) {
   return resident ? ((XBUF - 2 * nch * XQCHUNK) / (2 * XCHUNK) < XMAX_STAGES
                          ? (XBUF - 2 * nch * XQCHUNK) / (2 * XCHUNK)
@@ -1585,39 +1586,44 @@ __device__ __forceinline__ void split_issue(float (&acc)[64], uint32_t qh, uint3
   wgmma_commit();
 }
 
-// tot (+)= acc once acc's products retired.
-__device__ __forceinline__ void split_add(float (&tot)[64], float (&acc)[64], bool first) {
+// tot += acc once acc's products retired.
+__device__ __forceinline__ void split_add(float (&tot)[64], float (&acc)[64]) {
   fence_operand(acc);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) tot[i] = first ? acc[i] : tot[i] + acc[i];
+  for (int i = 0; i < 64; ++i) tot[i] += acc[i];
 }
 
 // Shared memory of the split product: the queries and the ring in XBUF
-// bytes (chunks of 128 bytes a row, 128-byte swizzled), a tile's sums, the
-// row terms, the barriers and the scorer's selection state, plus 1 KB to
-// align the chunks to the swizzle's 1024 bytes. One size for every depth.
-constexpr size_t SPLIT_SMEM = 1024 + (size_t)XBUF + (size_t)XSCORE + (size_t)XSTERMS * XN * 4 +
-                              (size_t)(3 * XMAX_STAGES + 4) * 8 + pools_bytes(64, 4);
+// bytes (chunks of 128 bytes a row, 128-byte swizzled), the row terms, the
+// barriers and two warpgroups' selection state, plus 1 KB to align the
+// chunks to the swizzle's 1024 bytes. One size for every depth.
+constexpr size_t SPLIT_SMEM = 1024 + (size_t)XBUF + (size_t)XSTERMS * XN * 4 +
+                              (size_t)(3 * XMAX_STAGES + 2) * 8 + 2 * pools_bytes(64, 4);
 
 // Persistent blocks over (query tile, split) units as the short product's,
-// 64 queries a unit, in three warpgroups (168 registers a thread). Warp 8
-// produces: per unit
-// the query tile's hi and lo chunks (resident: by TMA once the previous
-// unit's products retired), per ring stage one 32-deep chunk of a 128-row
-// tile (and, streamed, the chunk's query parts), and per tile the row
-// terms, which its lanes load a tile ahead into slot (tile count %
-// XSTERMS). Warps 9-11 split: once a stage landed they write its rows' low
-// parts beside them and fence them for the tensor cores. Warpgroup 0
-// multiplies: per chunk the three products on wgmma m64n128k8 (tf32) into
-// one accumulator set, whose sum joins the tile's total (a second set) as
-// soon as they retire, which frees the stage; the total goes to shared
-// memory for the scorer, and the next tile's products start. Warpgroup 1
-// scores each tile from there as the short product does (fast test, vote,
-// exact score, pools, the shared bound) while the tensor cores run the
-// next, so the score pass leaves the product's path. (A third accumulator
-// set, to overlap one chunk's sum with the next chunk's products, spills:
-// 384 threads leave 168 registers, and setmaxnreg does not raise what
-// ptxas allocates.)
+// 128 queries a unit. Warpgroup 2 runs at 56 registers a thread and gives the
+// two consumer warpgroups 224 (setmaxnreg; they fit in 168 too, without a
+// spill, and measured 1.4-2.0% slower there on the long scans, PERF.md; at 40
+// the producer spills). Warp 8 produces: per unit the query tile's hi and lo
+// chunks (resident: by TMA once the previous unit's products retired), per
+// ring stage one 32-deep chunk of a 128-row tile (and, streamed, the chunk's
+// query parts for all 128 queries), and per tile the row terms, which its
+// lanes load a tile ahead into slot (tile count % XSTERMS). Warps 9-11 split:
+// once a stage landed they write its rows' low parts beside them, once for
+// both consumers, and fence them for the tensor cores. Warpgroups 0 and 1
+// each multiply 64 of the unit's queries by every stage: per chunk the three
+// products on wgmma m64n128k8 (tf32), the first chunk's into the tile's total
+// and each later one's into a second accumulator set that joins the total as
+// soon as its products retire, which frees the stage (its empty barrier
+// counts the warps of both). Each issues as soon as its stage is ready, so
+// the tensor cores run one's products while the other adds, waits or scores
+// (named barriers that made them alternate chunk by chunk, as the short
+// product's warpgroups do tile by tile, measured the same, PERF.md); after a
+// tile's last chunk each scores its own total from registers as the short
+// product does (fast test, vote, exact score, its own pools, the shared
+// bound). A warpgroup whose 64 queries all lie past B multiplies nothing and
+// scores nothing: it releases each stage once it landed, and the other
+// multiplies alone.
 __global__ void __launch_bounds__(XTHREADS, 1)
 scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
                   const __grid_constant__ CUtensorMap qlmap,
@@ -1635,33 +1641,29 @@ scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
   const uint32_t ring = qres + ring_off;
   // A stage: the raw rows, their low parts, then (streamed) the query chunk's two parts.
   const uint32_t stage_bytes = 2 * XCHUNK + (resident ? 0 : 2 * XQCHUNK);
-  float4* sums = reinterpret_cast<float4*>(smem + XBUF);  // [16][128 threads] float4
-  float* terms = reinterpret_cast<float*>(smem + XBUF + XSCORE);  // [XSTERMS][XN]
+  float* terms = reinterpret_cast<float*>(smem + XBUF);  // [XSTERMS][XN]
   uint64_t* full = reinterpret_cast<uint64_t*>(terms + XSTERMS * XN);
   uint64_t* split = full + XMAX_STAGES;
   uint64_t* empty = split + XMAX_STAGES;
   uint64_t* qfull = empty + XMAX_STAGES;
   uint64_t* qempty = qfull + 1;
-  uint64_t* sfull = qempty + 1;  // a tile's sums are in `sums`
-  uint64_t* sempty = sfull + 1;  // the scorer has taken them
-  char* pools_p = reinterpret_cast<char*>(sempty + 1);
+  char* pools_p = reinterpret_cast<char*>(qempty + 1);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(smem_u32(full + s), 1);
       mbar_init(smem_u32(split + s), XSPLITTERS);
-      mbar_init(smem_u32(empty + s), 4);  // every multiplying warp
+      mbar_init(smem_u32(empty + s), 8);  // every consumer warp
     }
     mbar_init(smem_u32(qfull), 1);
-    mbar_init(smem_u32(qempty), 4);
-    mbar_init(smem_u32(sfull), 4);
-    mbar_init(smem_u32(sempty), 4);
+    mbar_init(smem_u32(qempty), 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     if (warp == 8) {
       const float base_term = metric == kCos ? 1.f : 0.f;
       Ring r{0, 0, 0u, stages};
@@ -1730,57 +1732,34 @@ scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
         }
       }
     }
-  } else if (wg == 0) {
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int cw = wg, w = (tid & 127) >> 5, g = lane >> 2, tg = lane & 3;
+    const float pm = metric == kL2 ? 2.f : 1.f;
+    const uint32_t q_off = cw * 64 * 128;  // this warpgroup's 64 query rows of a chunk
+    char* lp = pools_p + cw * pools_bytes(64, 4);
     Ring r{0, 0, 0u, stages};
-    int j = 0;
-    uint32_t sph = 0;
+    int tiles = 0, j = 0;
     float acc[64], tot[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
     for (int u = blockIdx.x; u < units; u += gridDim.x, ++j) {
+      const int q0 = (u % q_tiles) * XQ, qw0 = q0 + 64 * cw;
       const int r_begin = (u / q_tiles) * rows_per_split;
       const int r_end = min(N, r_begin + rows_per_split);
       const int n_tiles = (r_end - r_begin + XN - 1) / XN;
-      if (resident) mbar_wait(smem_u32(qfull), j & 1);
-#pragma unroll 1
-      for (int t = 0; t < n_tiles; ++t) {
-#pragma unroll 1
-        for (int c = 0; c < nch; ++c) {
+      if (qw0 >= B) {  // no live query: release each stage once it landed
+        for (int i = 0; i < n_tiles * nch; ++i) {
           mbar_wait(smem_u32(full + r.s), r.ph);
-          mbar_wait(smem_u32(split + r.s), r.ph);
-          const uint32_t sb = ring + r.s * stage_bytes;
-          const uint32_t qh = resident ? qres + c * XQCHUNK : sb + 2 * XCHUNK;
-          const uint32_t ql = resident ? qres + (nch + c) * XQCHUNK : sb + 2 * XCHUNK + XQCHUNK;
-          split_issue(acc, qh, ql, sb, sb + XCHUNK);
-          wgmma_wait<0>();
-          split_add(tot, acc, c == 0);
           __syncwarp();
           if (lane == 0) mbar_arrive(smem_u32(empty + r.s));
           r.next();
         }
-        if (lane == 0 && resident && t + 1 == n_tiles) mbar_arrive(smem_u32(qempty));
-        // The tile's sums to the scorer, in the accumulators' own layout.
-        mbar_wait(smem_u32(sempty), sph ^ 1);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          sums[i * 128 + tid] = make_float4(tot[4 * i], tot[4 * i + 1], tot[4 * i + 2],
-                                            tot[4 * i + 3]);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(smem_u32(sfull));
-        sph ^= 1;
+        if (resident && lane == 0) mbar_arrive(smem_u32(qempty));
+        tiles += n_tiles;
+        continue;
       }
-    }
-  } else {
-    const int ctid = tid - 128, w = ctid >> 5, g = lane >> 2, tg = lane & 3;
-    const float pm = metric == kL2 ? 2.f : 1.f;
-    int tiles = 0;
-    uint32_t sph = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const int q0 = (u % q_tiles) * XQ;
-      const int r_begin = (u / q_tiles) * rows_per_split;
-      const int r_end = min(N, r_begin + rows_per_split);
-      const int n_tiles = (r_end - r_begin + XN - 1) / XN;
-      auto L = carve_pools<64>(pools_p, k, (size_t)u, pool, pool_n, pool_cap);
+      auto L = carve_pools<64>(lp, k, (size_t)u * 2 + cw, pool, pool_n, pool_cap);
       if (lane < 16) {  // each warp keeps the state of its own 16 queries
         L.thr[16 * w + lane] = INFINITY;
         L.cnt[16 * w + lane] = 0;
@@ -1791,7 +1770,7 @@ scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
       bool live[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        qi[h] = q0 + 16 * w + g + 8 * h;
+        qi[h] = qw0 + 16 * w + g + 8 * h;
         live[h] = qi[h] < B;
         qa[h] = metric == kL2 && live[h] ? qn_g[qi[h]] : 0.f;
         own[h] = live[h] ? INFINITY : -INFINITY;
@@ -1801,26 +1780,40 @@ scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         next_key[h] = live[h] ? __ldcg(bound + qi[h]) : wsel::fkey(INFINITY);
+      if (resident) mbar_wait(smem_u32(qfull), j & 1);
+      // Chunk c's three products into dst, retired.
+      auto chunk = [&](int c, float(&dst)[64]) {
+        mbar_wait(smem_u32(full + r.s), r.ph);
+        mbar_wait(smem_u32(split + r.s), r.ph);
+        const uint32_t sb = ring + r.s * stage_bytes;
+        const uint32_t qh = (resident ? qres + c * XQCHUNK : sb + 2 * XCHUNK) + q_off;
+        const uint32_t ql =
+            (resident ? qres + (nch + c) * XQCHUNK : sb + 2 * XCHUNK + XQCHUNK) + q_off;
+        split_issue(dst, qh, ql, sb, sb + XCHUNK);
+        wgmma_wait<0>();
+      };
+      auto release = [&]() {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(empty + r.s));
+        r.next();
+      };
 #pragma unroll 1
       for (int t = 0; t < n_tiles; ++t, ++tiles) {
         next_bounds(key, next_key, live, qi, bound);
-        float acc[64];
-        mbar_wait(smem_u32(sfull), sph);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float4 v = sums[i * 128 + ctid];
-          acc[4 * i] = v.x;
-          acc[4 * i + 1] = v.y;
-          acc[4 * i + 2] = v.z;
-          acc[4 * i + 3] = v.w;
+        chunk(0, tot);  // the first chunk's sums are the tile's total
+        fence_operand(tot);
+        release();
+#pragma unroll 1
+        for (int c = 1; c < nch; ++c) {
+          chunk(c, acc);
+          split_add(tot, acc);
+          release();
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(smem_u32(sempty));
-        sph ^= 1;
+        if (resident && lane == 0 && t + 1 == n_tiles) mbar_arrive(smem_u32(qempty));
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));
-        short_score(L, acc, terms + (tiles % XSTERMS) * XN, r_begin + t * XN, w, g, tg, lane, qa,
+        short_score(L, tot, terms + (tiles % XSTERMS) * XN, r_begin + t * XN, w, g, tg, lane, qa,
                     live, qi, own, th, pm, bound);
       }
       __syncwarp();

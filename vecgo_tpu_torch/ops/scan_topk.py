@@ -48,11 +48,11 @@ _MIN_TILES_PER_SPLIT = 32
 # and the memtable's 8,192-row chunks are only 64 of them: 16 tiles a split
 # (four splits, one wave of 128 blocks, measured fastest there; PERF.md).
 _MIN_TILES_FMA = 16
-# The split f32 product's units (64 queries over a split of 128-row tiles)
+# The split f32 product's units (128 queries over a split of 128-row tiles)
 # walk persistent blocks as the short product's, with a bound each query's
-# splits share, and split as it does (8 tiles a split: a memtable chunk at
-# a pool of 82 reads within 3% from 4 to 32 tiles, at 308 is 17% slower at
-# 32; PERF.md, `scripts/torch_scan_ab.py --sweep`).
+# splits share, and split as it does (8 tiles a split: the memtable's
+# 8,192-row chunks at d 96-1,536 and pools 74-1,000 read within 1.2% at 4
+# tiles, 4-29% slower at 16 and 39-82% at 32; PERF.md).
 _MIN_TILES_F32 = 8
 # The short product's tiles are 128 rows and its query tiles 128-192
 # queries, so a small scan (a probed partition: a few hundred queries over a
@@ -216,11 +216,24 @@ def scan_topk(q, x, xnorm2, k: int, metric="l2", mask=None):
     _build.check(rc, "scan_topk launch")
     scan_topk.launches += 1
     scan_topk.last_product = plan.product
+    if plan.product == "f32":
+        count_split_units(b, splits, tq)
     return out_d, out_i
 
 
 scan_topk.launches = 0
 scan_topk.last_product = None
+
+
+def count_split_units(b: int, splits: int, tq: int) -> None:
+    """Count a split f32 launch's units (`scan_topk.split_units`: query
+    tiles of tq times splits) and those whose second consumer warpgroup has
+    live queries (`scan_topk.split_paired_units`: the tile holds more than
+    tq / 2 of the B queries), where a tracing recorder takes them."""
+    from vecgo_tpu_torch.engine import tracing
+
+    tracing.count("scan_topk.split_units", -(-b // tq) * splits)
+    tracing.count("scan_topk.split_paired_units", (b // tq + (b % tq > tq // 2)) * splits)
 
 
 def _plan(lib, device, bf16: int, d: int, k: int, aligned: int = 1) -> Plan:
