@@ -7,7 +7,12 @@ the planner and `_finish`, and what recording costs.
         [--overhead PAIRS] [--no-trace] [--out DIR]
 
 It builds and warms the cell's deployment as `benchport/run.py` does
-(`benchport.drive`), then:
+(`benchport.drive`), the warm-up under a `tracing.recording()` of its own:
+that is where a filtered plan builds its filter masks and gathers its
+compact sub-corpus, which the plan cache then serves to the window. From it,
+the plan's numbers: its sources' kinds, `filter.rows_admitted` of
+`filter.rows_total`, `gather.rows` and `gather.bytes`, and the
+`planner.filter` and `planner.gather` spans' ms. Then:
 
 - the traced window (unless `--no-trace`): `torch.profiler`, benchport's
   `Probe` and a `tracing.recording()` at once. Prints the device's idle time
@@ -15,7 +20,8 @@ It builds and warms the cell's deployment as `benchport/run.py` does
   the probe's spans (benchport's own reduction), and from the recorder each
   span's and counter's mean a batch and the batch timeline:
   `queue_ms` (a batch's `planner.wait` start minus its `planner.dispatch`
-  end), `wait_ms`, `decode_ms`, `compact_ms`, `merge_width`;
+  end), `wait_ms`, `decode_ms`, `compact_ms`, `merge_width`, and a masked
+  memtable scan's `memtable.rows_scanned` and `memtable.rows_admitted`;
 - `--overhead PAIRS`: untraced windows without and with a recorder
   installed, in turns (off, on, on, off, ...), each window's `qps` and
   `p95_batch_ms` as the benchmark reads them.
@@ -95,6 +101,22 @@ def batch_numbers(rec) -> dict:
     }
 
 
+PLAN_COUNTS = ("filter.rows_admitted", "filter.rows_total", "gather.rows", "gather.bytes")
+
+
+def plan_numbers(rec) -> dict:
+    """What the plans built under `rec` did: the kinds of source they
+    scanned, the filter's admitted and total rows, the gathered rows and
+    bytes (each summed over the plans), and the `planner.filter` and
+    `planner.gather` spans' ms in all."""
+    out = {name: sum(c.n for c in rec.counts(name)) if rec.counts(name) else None
+           for name in PLAN_COUNTS}
+    out["sources"] = sorted({s.name for s in rec.spans() if s.name.startswith("source.")})
+    for name in ("planner.filter", "planner.gather"):
+        out[name + "_ms"] = sum((s.t1_ns - s.t0_ns) / 1e6 for s in rec.spans(name))
+    return out
+
+
 def window_numbers(win) -> dict:
     from benchport import timeline
 
@@ -132,10 +154,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     inputs = gen.make(cfg, traffic, args.seed, "cuda").to_host()
     db, _ = drive.open_db(cfg, inputs, "cuda")
-    drive.warm(db, traffic, inputs.queries, "cuda")
+    with tracing.recording() as rec:
+        drive.warm(db, traffic, inputs.queries, "cuda")
+    out["plan"] = plan_numbers(rec)
+    del rec
     gc.collect()
     gc.freeze()
     out["setup_s"] = time.perf_counter() - t0
+    print(f"plan (warm-up): {json.dumps(out['plan'])}", file=sys.stderr, flush=True)
 
     if not args.no_trace:
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -155,7 +181,9 @@ def main(argv=None) -> int:
         print(f"traced: {t['batches']} batches, qps {t['qps']:.1f}, busy {t['busy_s']:.3f} of "
               f"{t['window_s']:.3f} s; queue {t['queue_ms']:.3f} ms, wait {t['wait_ms']:.3f}, "
               f"decode {t['decode_ms']:.3f}, compact {t['compact_ms']:.3f}, "
-              f"width {t['merge_width']}", file=sys.stderr)
+              f"width {t['merge_width']}; masked memtable rows scanned "
+              f"{t['count'].get('memtable.rows_scanned')}, admitted "
+              f"{t['count'].get('memtable.rows_admitted')}", file=sys.stderr)
         for name, s in t["idle_gaps"][:14]:
             print(f"  idle {name}: {s:.3f} s", file=sys.stderr)
         for name, ms in t["span_ms"].items():

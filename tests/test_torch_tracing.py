@@ -7,7 +7,8 @@ with what the planner computed and with a brute count over the merged
 arrays, answers do not change with recording on, and with tracing off the
 path builds no span, enters no `record_function`, records no CUDA event and
 makes no counting pass. Under `torch.profiler` the spans are `vecgo.*`
-ranges of the trace.
+ranges of the trace. A filtered stream adds the plan's filter masks, the
+compact gather and the masked memtable scan's counts.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 import vecgo_tpu_torch as vg
+from vecgo_tpu_torch import metadata as vmeta
 from vecgo_tpu_torch.engine import search as S
 from vecgo_tpu_torch.engine import tracing
 from vecgo_tpu_torch.engine.pk import DELETED
@@ -307,6 +309,119 @@ def test_recorder_counts_every_record_across_threads(monkeypatch):
     for r in rec.records:
         i = r.name[5:] if r.name.startswith("inner") else None
         assert r.parent == (None if i is None else f"outer{i}")
+
+# ---- the filtered path: filter masks, the compact gather, the masked memtable ----
+
+FN, FTAIL = 3000, 400  # u = id % 100: u < 10 admits 300 committed rows, 40 in the memtable
+
+
+@pytest.fixture
+def filtered():
+    """A fresh deployment (its plan cache empty) of committed rows and a
+    memtable tail, each row with metadata u = id % 100, and three batches."""
+    r = np.random.default_rng(11)
+    db = vg.Open(vg.Memory(), vg.Create(dim=D, device="cpu"))
+    db.insert_batch(r.standard_normal((FN, D)).astype(np.float32),
+                    [{"u": i % 100} for i in range(FN)], ids=np.arange(FN))
+    db.commit()
+    db.insert_batch(r.standard_normal((FTAIL, D)).astype(np.float32),
+                    [{"u": i % 100} for i in range(FN, FN + FTAIL)],
+                    ids=np.arange(FN, FN + FTAIL))
+    yield db, [r.standard_normal((16, D)).astype(np.float32) for _ in range(3)]
+    db.close()
+
+
+def _filtered_stream(db, batches, value=10):
+    return list(db.search_arrays_stream(iter(batches), k=K, depth=2,
+                                        filter=vmeta.lt("u", value)))
+
+
+def test_filter_spans_and_counters(filtered):
+    """The plan's filter masks (one `planner.filter` a source, under
+    `planner.plan`) and the compact gather (`planner.gather` under
+    `source.flat_compact`) belong to the first batch, which plans and
+    gathers; the plan cache serves the others. Every batch counts its masked
+    memtable scan."""
+    db, batches = filtered
+    with tracing.recording() as rec:
+        _filtered_stream(db, batches)
+    spans = _by_batch(rec.spans())
+    assert None not in spans and len(spans) == 3
+    first, *rest = sorted(spans)
+    by = {}
+    for s in spans[first]:
+        by.setdefault(s.name, []).append(s)
+    assert [s.parent for s in by["planner.filter"]] == ["planner.plan"] * 2
+    assert [s.parent for s in by["planner.gather"]] == ["source.flat_compact"]
+    plan, gather = by["planner.plan"][0], by["planner.gather"][0]
+    src = by["source.flat_compact"][0]
+    for s in by["planner.filter"]:
+        assert plan.t0_ns <= s.t0_ns <= s.t1_ns <= plan.t1_ns
+    assert src.t0_ns <= gather.t0_ns <= gather.t1_ns <= src.t1_ns
+    for b in rest:
+        names = {s.name for s in spans[b]}
+        assert "planner.filter" not in names and "planner.gather" not in names
+        assert {"planner.plan", "source.flat_compact", "source.memtable"} <= names
+
+    assert _counter(rec, "filter.rows_admitted", first) == 340
+    assert _counter(rec, "filter.rows_total", first) == FN + FTAIL
+    assert _counter(rec, "gather.rows", first) == 300
+    assert _counter(rec, "gather.bytes", first) == S.compact_bytes(300, D, "bf16")
+    for b in (first, *rest):
+        assert _counter(rec, "memtable.rows_scanned", b) == FTAIL
+        assert _counter(rec, "memtable.rows_admitted", b) == 40
+    for name in ("filter.rows_admitted", "filter.rows_total", "gather.rows", "gather.bytes"):
+        assert [c.batch for c in rec.counts(name)] == [first]
+
+
+def test_gather_bytes_are_what_the_gather_holds(filtered, monkeypatch):
+    """`gather.bytes` counts the device bytes of the sub-corpus the plan
+    keeps: its row ids, bf16 rows and norms."""
+    db, batches = filtered
+    plans = []
+    real = S._gather_compact
+
+    def watched(dev, rows_elig, scan_dtype):
+        plans.append(real(dev, rows_elig, scan_dtype))
+        return plans[-1]
+
+    monkeypatch.setattr(S, "_gather_compact", watched)
+    with tracing.recording() as rec:
+        _filtered_stream(db, batches)
+    assert len(plans) == 1
+    held = sum(int(v.nbytes) for v in plans[0].values())
+    assert [c.n for c in rec.counts("gather.bytes")] == [held]
+
+
+def test_filter_above_the_cutoff_rides_the_scan_as_a_mask(filtered):
+    """u < 60 admits 60% of the segment, past `compact_gather_cutoff`: the
+    segment scans with a mask and nothing is gathered."""
+    db, batches = filtered
+    with tracing.recording() as rec:
+        _filtered_stream(db, batches, value=60)
+    names = {s.name for s in rec.spans()}
+    assert "source.flat" in names and "planner.gather" not in names
+    assert not rec.counts("gather.rows")
+    assert [c.n for c in rec.counts("filter.rows_admitted")] == [0.6 * (FN + FTAIL)]
+
+
+def test_filtered_tracing_off_records_nothing(filtered, monkeypatch):
+    """Off, the filtered path builds no span, makes no counting pass (the
+    admitted rows are counted by `np.count_nonzero` only where the counter
+    goes), and answers as it does with recording on."""
+    db, batches = filtered
+    with tracing.recording():
+        want = _filtered_stream(db, batches)
+    db.engine._plan_cache.clear()
+    monkeypatch.setattr(tracing, "_Span", _raises)
+    monkeypatch.setattr(tracing.Recorder, "add", _raises)
+    monkeypatch.setattr(torch.profiler, "record_function", _raises)
+    monkeypatch.setattr(np, "count_nonzero", _raises)
+    got = _filtered_stream(db, batches)
+    for (ids0, d0), (ids1, d1) in zip(want, got):
+        np.testing.assert_array_equal(ids0, ids1)
+        assert d0.tobytes() == d1.tobytes()
+
 
 @pytest.fixture
 def cuda():

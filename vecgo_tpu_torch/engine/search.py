@@ -12,10 +12,11 @@ Kernel launches and the result copies are asynchronous, so
 enqueued before batch i's results are read, and the host's visibility pass
 over batch i runs while the card scans batch i+1.
 
-Each batch carries a trace context (`engine/tracing.py`): its spans (plan,
-dispatch, upload, each source, merge, wait, finish and its steps) and
-counters share one batch id, and reach a recorder, `torch.profiler` or the
-batch's own `QueryStats` where one of them asks; otherwise they cost nothing.
+Each batch carries a trace context (`engine/tracing.py`): its spans (plan
+and its filter masks, dispatch, upload, each source and a compact gather,
+merge, wait, finish and its steps) and counters share one batch id, and
+reach a recorder, `torch.profiler` or the batch's own `QueryStats` where one
+of them asks; otherwise they cost nothing.
 """
 
 from __future__ import annotations
@@ -286,17 +287,21 @@ def device_left(device_budget) -> Optional[int]:
     return max(0, device_budget.budget - device_budget.used)
 
 
-def _plan_snapshot(snap, opts, options, device_budget, held: int = 0) -> _Plan:
+def _plan_snapshot(snap, opts, options, device_budget, held: int = 0, batch=None) -> _Plan:
     """Per-snapshot strategy selection + mask construction (chunk-invariant).
 
     Under a device budget a low-selectivity filter on a flat segment gathers
     its sub-corpus only where it fits what the budget has left after the
     resident segments and `held` bytes (the gathers that batches in flight
-    hold); otherwise it rides the full scan as a row mask."""
+    hold); otherwise it rides the full scan as a row mask. Each filter mask
+    is a `planner.filter` span of `batch`; a filtered plan counts the rows
+    its filter admits (`filter.rows_admitted`) of all it holds
+    (`filter.rows_total`)."""
     plan = _Plan()
     compact = []  # flat sources whose filter would gather, in plan order
     fs = as_filterset(opts.filter)
     plan.filtered = fs is not None
+    admitted = []  # the filter masks, for the counter
 
     mem = snap.memtable
     n_vis = snap.mem_rows
@@ -304,7 +309,9 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0) -> _Plan:
     if n_vis:
         mask = None
         if fs is not None:
-            mask = mem.filter_mask(fs, n_vis)
+            with tracing.span("planner.filter", batch):
+                mask = mem.filter_mask(fs, n_vis)
+            admitted.append(mask)
         dead = mem.deleted_mask(n_vis, snap.lsn)
         if dead is not None:
             mask = ~dead if mask is None else (mask & ~dead)
@@ -324,7 +331,9 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0) -> _Plan:
         mask = None
         selectivity = 1.0
         if fs is not None:
-            mask = seg.filter_mask(fs)
+            with tracing.span("planner.filter", batch):
+                mask = seg.filter_mask(fs)
+            admitted.append(mask)
             selectivity = float(mask.mean())
             if selectivity == 0.0:
                 plan.n_pruned += 1
@@ -414,6 +423,10 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0) -> _Plan:
             src.kind = "flat_compact"
             if left is not None:
                 left -= need
+    if fs is not None:
+        tracing.count("filter.rows_admitted",
+                      lambda: sum(int(np.count_nonzero(m)) for m in admitted), batch)
+        tracing.count("filter.rows_total", plan.total_rows, batch)
     return plan
 
 
@@ -451,13 +464,15 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0, batch=None):
         name = _SOURCE_NAME[src.kind]
         with tracing.span("source." + name, batch), \
                 tracing.device_timer("device_ms.source." + name, batch, qd.device):
-            d, rows, comps = _score_source(src, qd, opts, options, fetch_k, exact_k, scan_dtype)
+            d, rows, comps = _score_source(src, qd, opts, options, fetch_k, exact_k, scan_dtype,
+                                           batch)
         dist_comps += comps + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
 
 
-def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype: str):
+def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype: str,
+                  batch=None):
     """One planned source's candidates for a query chunk. Returns (d, rows,
     distance computations before the candidates' own)."""
     if src.kind in ("graph", "brute_masked"):
@@ -465,6 +480,9 @@ def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype
     if src.kind == "mem":
         kk = min(exact_k, src.n)
         d, rows = src.source.search(qd, kk, src.n, _source_mask(src, qd.device))
+        if src.mask is not None:  # a masked scan reads every row for those it admits
+            tracing.count("memtable.rows_scanned", src.n, batch)
+            tracing.count("memtable.rows_admitted", src.rows_considered, batch)
     elif src.kind == "flat":
         seg = src.source
         quantized = seg.quant.kind != "none"
@@ -478,7 +496,7 @@ def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype
             d = seg.rerank(qd, rows)
     elif src.kind == "flat_compact":
         d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
-                                  options.metric, scan_dtype)
+                                  options.metric, scan_dtype, batch)
     elif src.kind in ("flat_stream", "graph_stream"):
         d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
     else:  # graph_cached
@@ -617,15 +635,22 @@ def _gather_compact(dev, rows_elig, scan_dtype: str) -> dict:
     return cc
 
 
-def _compact_search(src, qd, kk: int, metric: Metric, scan_dtype: str):
+def _compact_search(src, qd, kk: int, metric: Metric, scan_dtype: str, batch=None):
     """Low-selectivity filter on a flat segment: the eligible rows are
     gathered once per plan into a dense sub-corpus (kept on the plan's source),
-    so the scan costs O(selectivity * N) and carries no mask."""
+    so the scan costs O(selectivity * N) and carries no mask. The gather is
+    the `planner.gather` span of the batch that makes it, which counts its
+    rows (`gather.rows`) and device bytes (`gather.bytes`)."""
     seg = src.source
     cc = _plan_state(src)
     if "rows" not in cc:
-        rows_elig = torch.from_numpy(np.flatnonzero(src.mask)).to(qd.device)
-        cc.update(_gather_compact(seg.device_state(qd.device), rows_elig, scan_dtype))
+        dev = seg.device_state(qd.device)
+        with tracing.span("planner.gather", batch):
+            rows_elig = torch.from_numpy(np.flatnonzero(src.mask)).to(qd.device)
+            cc.update(_gather_compact(dev, rows_elig, scan_dtype))
+        n = int(rows_elig.shape[0])
+        tracing.count("gather.rows", n, batch)
+        tracing.count("gather.bytes", compact_bytes(n, seg.dim, scan_dtype), batch)
     if scan_dtype == "f32":
         # The f32 sub-corpus scan (on the card the f32 product: split
         # precision, fp32-class, on the tensor cores).
@@ -793,7 +818,7 @@ def _batch_plan(snap, opts, options, device_budget, plan_cache, mine=None, batch
                     plan = None
         if plan is None:
             held = plan_cache.held_bytes(mine) if plan_cache is not None else 0
-            plan = _plan_snapshot(snap, opts, options, device_budget, held)
+            plan = _plan_snapshot(snap, opts, options, device_budget, held, batch)
             if cache_key is not None:
                 plan_cache.put(cache_key, plan)
     return plan
