@@ -29,6 +29,8 @@ product: the short product's alone run in these shapes). Variants:
 With --f32 the split f32 product's variants (F32_VARIANTS):
 
 - built: as it is;
+- fast-only: the fast test and the vote run, the rare path never does (how
+  much of the score pass is the rare path);
 - no-score: the score pass skipped (the ring, the split, the three passes);
 - no-split: the splitter warps write no low parts (they only wait and
   release), so the low-part pass multiplies whatever the buffer holds;
@@ -122,15 +124,14 @@ _F32_NO_SCORE = ("short_score(L, tot, terms + (tiles % XSTERMS)",
 _F32_NO_SPLIT = ("          lo[e] = make_float4(", "          if (N < 0) lo[e] = make_float4(")
 F32_VARIANTS = {
     "built": [],
+    "fast-only": VARIANTS["fast-only"],
     "no-score": [_F32_NO_SCORE],
     "no-split": [_F32_NO_SPLIT],
     "big-only": [
-        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(ql + kk * 32), sw128_desc(raw + kk * 32), kk > 0);",
-         "    ;"),
-        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(lo + kk * 32), 1);",
-         "    ;"),
-        ("    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), 1);",
-         "    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), kk > 0);"),
+        ("    wgmma_m64n128k8_tf32(acc, dql + 2 * kk, dx + 2 * kk, kk > 0);", "    ;"),
+        ("    wgmma_m64n128k8_tf32(acc, dqh + 2 * kk, dlo + 2 * kk, 1);", "    ;"),
+        ("    wgmma_m64n128k8_tf32(acc, dqh + 2 * kk, dx + 2 * kk, 1);",
+         "    wgmma_m64n128k8_tf32(acc, dqh + 2 * kk, dx + 2 * kk, kk > 0);"),
     ],
     "one-wg": [
         ("      if (qw0 >= B) {  // no live query: release each stage once it landed\n",

@@ -465,6 +465,76 @@ def test_kernel_f32_product_paired_and_single_warpgroup_units_agree(cuda, b, n, 
     _check_against_plain(q, x, xn, 100, metric, mask, d_k, i_k, d_r, i_r)
 
 
+def _descending_rows(r, b, n, d, metric, order):
+    """Queries and rows whose scores fall row by row for every query, so
+    that each tile of a filling pool pushes and compacts: l2 rows of norm
+    40 down to 1 about queries near 0; dot and cos rows that turn towards
+    the queries' common direction (dot's also grow). "ties": the table's
+    second half repeats its first, exact ties across tiles and splits."""
+    if metric == "l2":
+        q = 0.01 * r.standard_normal((b, d))
+        x = r.standard_normal((n, d))
+        x *= (np.linspace(40, 1, n) / np.linalg.norm(x, axis=1))[:, None]
+    else:
+        u = r.standard_normal(d)
+        u /= np.linalg.norm(u)
+        q = u + 0.1 * r.standard_normal((b, d)) / np.sqrt(d)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        x = u + np.linspace(3, 0.05, n)[:, None] * r.standard_normal((n, d)) / np.sqrt(d)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        if metric == "dot":
+            x *= np.linspace(1, 2, n)[:, None]
+    if order == "ties":
+        x = x[np.arange(n) % -(-n // 2)]
+    return q.astype(np.float32), x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["descending", "ties"])
+@pytest.mark.parametrize("metric", ["l2", "dot", "cos"])
+@pytest.mark.parametrize("d", [96, 1536], ids=["resident-d96", "streamed-d1536"])
+@pytest.mark.parametrize("b", [100, 4096])
+@pytest.mark.parametrize("n", [128, 256, 20_000], ids=["1-tile", "2-tiles", "many-tiles"])
+def test_kernel_f32_product_on_rows_that_push_every_tile(cuda, n, b, d, metric, order):
+    """The split product where every tile pushes and the pools compact pass
+    after pass: units of one tile, two and many; B 100 (the second
+    warpgroup of the one unit holds 36 queries; at 4096 both are full);
+    queries resident (d 96) and streamed (d 1536); every metric; rows whose
+    scores fall row by row, with a 10% mask, and with exact ties. It
+    matches the plain version (ids, order, ties, masks, the 2e-5
+    tolerance)."""
+    r = np.random.default_rng(n + b + d + len(metric) + len(order))
+    q, x = _descending_rows(r, b, n, d, metric, order)
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    xn = (x * x).sum(1)
+    mask = torch.from_numpy(r.random(n) >= 0.1).to(cuda)
+    d_k, i_k = scan_topk(q, x, xn, 100, metric, mask)
+    assert scan_topk.last_product == "f32"
+    d_r, i_r = scan_topk_reference(q, x, xn, 100, metric, mask)
+    torch.cuda.synchronize()
+    _check_against_plain(q, x, xn, 100, metric, mask, d_k, i_k, d_r, i_r)
+
+
+@pytest.mark.cuda
+def test_kernel_f32_product_build_keeps_wgmma_async_and_spills_nothing(cuda):
+    """ptxas's report of csrc/scan_topk.cu (kept beside the library by
+    `_build`): no C7518 (wgmma serialized) for scan_split_kernel, and no
+    spill stores or loads in it at its setmaxnreg split (56 / 224
+    registers)."""
+    from vecgo_tpu_torch.kernels import _build
+
+    _build.library()
+    log = _build.BUILD_LOG["scan_topk.cu"]
+    lines = log.splitlines()
+    serialized = [ln for ln in lines if "C7518" in ln]
+    assert not [ln for ln in serialized if "scan_split_kernel" in ln or "_Z" not in ln]
+    at = [i for i, ln in enumerate(lines)
+          if "Compiling entry function" in ln and "scan_split_kernel" in ln]
+    assert len(at) == 1
+    props = next(ln for ln in lines[at[0] + 1:] if "spill stores" in ln)
+    assert "0 bytes spill stores, 0 bytes spill loads" in props, props
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,metric", [(128, "l2"), (96, "dot"), (256, "cos")])
 def test_kernel_short_product_on_row_slices(cuda, d, metric):

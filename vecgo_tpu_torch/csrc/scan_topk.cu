@@ -1571,18 +1571,23 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da
 // the large one, hi(q).x. The tensor cores truncate their f32 sums at each
 // step, so a chunk's sum starts from zero and joins the tile's total in
 // registers (rounded to nearest): the truncations stay on chunk-sized sums.
+// Each operand's descriptor is formed once; a k8 step 32 bytes on is the
+// same descriptor plus 2 (its address field counts 16 bytes), so the
+// wgmmas issue without address arithmetic between them.
 __device__ __forceinline__ void split_issue(float (&acc)[64], uint32_t qh, uint32_t ql,
                                             uint32_t raw, uint32_t lo) {
+  const uint64_t dql = sw128_desc(ql), dqh = sw128_desc(qh), dx = sw128_desc(raw),
+                 dlo = sw128_desc(lo);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < XK / 8; ++kk)
-    wgmma_m64n128k8_tf32(acc, sw128_desc(ql + kk * 32), sw128_desc(raw + kk * 32), kk > 0);
+    wgmma_m64n128k8_tf32(acc, dql + 2 * kk, dx + 2 * kk, kk > 0);
 #pragma unroll
   for (int kk = 0; kk < XK / 8; ++kk)
-    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(lo + kk * 32), 1);
+    wgmma_m64n128k8_tf32(acc, dqh + 2 * kk, dlo + 2 * kk, 1);
 #pragma unroll
   for (int kk = 0; kk < XK / 8; ++kk)
-    wgmma_m64n128k8_tf32(acc, sw128_desc(qh + kk * 32), sw128_desc(raw + kk * 32), 1);
+    wgmma_m64n128k8_tf32(acc, dqh + 2 * kk, dx + 2 * kk, 1);
   wgmma_commit();
 }
 

@@ -6,16 +6,18 @@ into one shared library with a plain C interface, which `ctypes` loads. The
 library lands in `build/vecgo_tpu_torch/` at the root of the checkout, named
 by a hash of the sources, the headers they share (`csrc/*.cuh`) and the
 flags, so an edited source or header rebuilds and an unchanged tree is
-reused. A failed build raises with nvcc's stderr; ptxas's
-register and shared-memory report of the last build is kept in `BUILD_LOG`. Nothing here runs at
-import time: the CPU tests import every module of the port on machines
-without nvcc.
+reused. A failed build raises with nvcc's stderr; ptxas's register, spill
+and shared-memory report of each source is kept in `BUILD_LOG` and beside
+the library (`<library>.ptxas.json`), where a process that reuses the
+library reads it. Nothing here runs at import time: the CPU tests import
+every module of the port on machines without nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -32,7 +34,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib = None  # the loaded library, shared by every wrapper in the process
-# ptxas's report (registers, shared memory, spills) per source of the last build.
+# ptxas's report (registers, shared memory, spills, warnings) per source of the library.
 BUILD_LOG: dict = {}
 
 
@@ -84,6 +86,7 @@ def library() -> ctypes.CDLL:
             h.update(src.name.encode())
             h.update(src.read_bytes())
         out = BUILD_DIR / f"libvecgo_kernels_{h.hexdigest()[:16]}.so"
+        log = out.with_suffix(".ptxas.json")
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
@@ -106,9 +109,14 @@ def library() -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+            tmp_log = log.with_suffix(f".{os.getpid()}.tmp")
+            tmp_log.write_text(json.dumps({src.name: BUILD_LOG[src.name] for src in sources}))
+            os.replace(tmp_log, log)
             os.replace(tmp, out)
             for obj in objs:
                 obj.unlink()
+        elif log.exists():
+            BUILD_LOG.update(json.loads(log.read_text()))
         _lib = _declare(ctypes.CDLL(str(out)))
         return _lib
 
