@@ -130,8 +130,7 @@ once on one CUDA card.
    the rows (inserts, 35% soft deletes, consolidate; recall floor 0.85);
    `python -m vecgo_tpu_torch.tools.compact DIR --all` in a subprocess over
    a Local directory of 40,000 rows; vecgo_tpu_torch.entry.entry() on the
-   card; and ingest rows/s with and without the native host path
-   (utils/hostops, which must be available).
+   card; and ingest rows/s (insert_batch's copy and finiteness check).
 
 8. BM25 and hybrid search (bench.py's phase_hybrid at the smoke's scale):
    the flat phase's 1,048,576 rows with 12 zipf(1.3) words each over a
@@ -192,7 +191,6 @@ Any failed check raises (exit code != 0). On success the last line is
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib.util
 import json
 import subprocess
@@ -2044,14 +2042,13 @@ FRESH_FIRST = 1024  # the first insert connects everything to everything
 FRESH_BATCH = 4096
 FRESH_RECALL_FLOOR = 0.85  # tests/test_fresh_vamana.py's streaming floor
 COMPACT_TOOL_ROWS = 40_000
-HOSTOPS_ROWS = 1 << 18
+INGEST_ROWS = 1 << 18
 
 
 def beam_phase(st, card):
     """Phase 7: the flat phase's rows compacted with graph_build_mode="beam"
     (build_graph, build_ivf_table) and served; then FreshVamana, the
-    compaction tool in a subprocess, entry(), and ingest with and without
-    the native host path. Returns both kernels' launches on the beam path
+    compaction tool in a subprocess, entry(), and ingest rows/s. Returns both kernels' launches on the beam path
     and kernel B's case on the beam table."""
     import gc
     import os
@@ -2063,7 +2060,6 @@ def beam_phase(st, card):
     from vecgo_tpu_torch.index.vamana import VamanaSegment
     from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
     from vecgo_tpu_torch.ops.scan_topk import scan_topk
-    from vecgo_tpu_torch.utils import hostops
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
@@ -2187,20 +2183,17 @@ def beam_phase(st, card):
     print(f"entry(): build + first step {entry_s:.3f} s, step {ms:.3f} ms, out "
           f"{tuple(res_i.shape)} on {res_i.device} [{card}]", flush=True)
 
-    # Ingest with and without the native host path (utils/hostops).
-    check(hostops.available(), "the native host path (utils/hostops) is available")
-    xi = st["x1"][:HOSTOPS_ROWS]
-    rates = {}
-    for name in ("hostops", "numpy", "hostops", "numpy"):
+    # Ingest: insert_batch's copy and finiteness check.
+    xi = st["x1"][:INGEST_ROWS]
+    rates = []
+    for _ in range(2):
         db = vg.Open(vg.Memory(), vg.Create(dim=DIM, flush_threshold=2**62), device="cuda")
-        with (hostops.disabled() if name == "numpy" else contextlib.nullcontext()):
-            t0 = time.perf_counter()
-            db.insert_batch(xi)
-            rates.setdefault(name, []).append(HOSTOPS_ROWS / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        db.insert_batch(xi)
+        rates.append(INGEST_ROWS / (time.perf_counter() - t0))
         db.close()
-    print(f"ingest (insert_batch of {HOSTOPS_ROWS} x {DIM} rows, no metadata; in turns): with "
-          f"hostops {', '.join(f'{r:.0f}' for r in rates['hostops'])} rows/s, numpy "
-          f"{', '.join(f'{r:.0f}' for r in rates['numpy'])} rows/s [{card}]", flush=True)
+    print(f"ingest (insert_batch of {INGEST_ROWS} x {DIM} rows, no metadata): "
+          f"{', '.join(f'{r:.0f}' for r in rates)} rows/s [{card}]", flush=True)
     return launches, case
 
 
@@ -2879,12 +2872,6 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
-    from vecgo_tpu_torch.utils import hostops
-
-    t0 = time.perf_counter()
-    native = hostops.available()
-    print(f"host library (utils/hostops.cpp, g++) "
-          f"{'built' if native else 'unavailable'} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(args.seed)
     # The engine's shapes: the segment's bf16 pool scan at k + 8 (clean) and

@@ -19,6 +19,7 @@ from vecgo_tpu.engine import Engine as JaxEngine
 from vecgo_tpu.engine import EngineOptions as JaxEngineOptions
 from vecgo_tpu_torch import metadata as pmd
 from vecgo_tpu_torch.engine import search as S
+from vecgo_tpu_torch.index.flat import FlatSegment
 
 torch.set_num_threads(1)
 
@@ -45,7 +46,7 @@ def corpus():
     ids = np.asarray(db.insert_batch(x, [{"u": int(v)} for v in u]))
     db.commit()
     seg = db.engine._segments[0].segment
-    assert isinstance(seg, S.FlatSegment)
+    assert isinstance(seg, FlatSegment)
     assert (np.diff(ids) > 0).all()
     # u of each id, by its row
     u_of = np.full(ids.max() + 1, -1)
@@ -57,8 +58,12 @@ def _reopen(backend, budget):
     return vg.Open(backend, vg.Create(dim=0, device="cpu", hbm_budget_bytes=budget))
 
 
-def _sub_bytes(u, lo, hi):
-    return S.compact_bytes(int(((u >= lo) & (u < hi)).sum()), D, "bf16")
+def _segment(db) -> FlatSegment:
+    return db.engine._segments[0].segment
+
+
+def _sub_bytes(db, u, lo, hi):
+    return _segment(db).gathered_bytes(int(((u >= lo) & (u < hi)).sum()), "bf16")
 
 
 def _rows(u):
@@ -81,7 +86,7 @@ def test_filter_rides_the_masked_scan_when_the_gather_does_not_fit(corpus):
     """With the budget just above the segment's device_bytes() the same
     filter plans the masked full scan, with the compact plan's ids."""
     backend, db0, x, u, q, seg_bytes = corpus
-    need = _sub_bytes(u, 0, 10)
+    need = _sub_bytes(db0, u, 0, 10)
     db = _reopen(backend, seg_bytes + need // 2)
     f = pmd.lt("u", 10)
     ids, d = db.search_arrays(q, k=10, filter=f)
@@ -101,7 +106,7 @@ def test_gathers_stay_within_the_budget_over_distinct_filters(corpus):
     gathered state stay within the budget, and every filter was served by
     the filter's own rows."""
     backend, db0, x, u, q, seg_bytes = corpus
-    budget = seg_bytes + int(2.5 * _sub_bytes(u, 0, 10))
+    budget = seg_bytes + int(2.5 * _sub_bytes(db0, u, 0, 10))
     db = _reopen(backend, budget)
     for i in range(10):
         f = pmd.isin("u", range(10 * i, 10 * i + 10))
@@ -119,9 +124,9 @@ def test_gathers_stay_within_the_budget_while_they_are_allocated(corpus, monkeyp
     resident bytes plus every gather held stay within the budget at their
     peak, not only after each search."""
     backend, db0, x, u, q, seg_bytes = corpus
-    budget = seg_bytes + int(2.5 * _sub_bytes(u, 0, 10))
+    budget = seg_bytes + int(2.5 * _sub_bytes(db0, u, 0, 10))
     db = _reopen(backend, budget)
-    gather, peaks = S._gather_compact, []
+    gather, peaks = FlatSegment.gather, []
 
     def watched(*a):
         cc = gather(*a)
@@ -129,7 +134,7 @@ def test_gathers_stay_within_the_budget_while_they_are_allocated(corpus, monkeyp
         peaks.append(db.stats()["hbm"]["used_bytes"] + _gathered(db) + new)
         return cc
 
-    monkeypatch.setattr(S, "_gather_compact", watched)
+    monkeypatch.setattr(FlatSegment, "gather", watched)
     for i in range(10):
         db.search_arrays(q, k=10, filter=pmd.isin("u", range(10 * i, 10 * i + 10)))
     assert len(peaks) >= 3
@@ -142,7 +147,7 @@ def _watch_gathers(monkeypatch, db):
     (dispatched, not yet drained), each plan once, whether or not the cache
     still has it. Returns the list the peaks go to."""
     inflight, peaks = {}, []
-    dispatch, drain, gather = S._dispatch_batch, S._drain_batch, S._gather_compact
+    dispatch, drain, gather = S._dispatch_batch, S._drain_batch, FlatSegment.gather
 
     def dispatched(*a, **kw):
         pending = dispatch(*a, **kw)
@@ -165,7 +170,7 @@ def _watch_gathers(monkeypatch, db):
 
     monkeypatch.setattr(S, "_dispatch_batch", dispatched)
     monkeypatch.setattr(S, "_drain_batch", drained)
-    monkeypatch.setattr(S, "_gather_compact", watched)
+    monkeypatch.setattr(FlatSegment, "gather", watched)
     return peaks
 
 
@@ -189,7 +194,7 @@ def test_gathers_of_batches_in_flight_stay_within_the_budget(corpus, monkeypatch
     batches in flight stay within the budget at every gather's allocation,
     and every batch returns what search_arrays returns for it."""
     backend, db0, x, u, q, seg_bytes = corpus
-    budget = seg_bytes + int(1.5 * _sub_bytes(u, 0, 10))
+    budget = seg_bytes + int(1.5 * _sub_bytes(db0, u, 0, 10))
     db = _reopen(backend, budget)
     peaks = _watch_gathers(monkeypatch, db)
     filters = [pmd.isin("u", range(10 * i, 10 * i + 10)) for i in range(6)]
@@ -221,7 +226,7 @@ def test_a_stream_drains_its_own_batches_before_it_gathers_again(corpus, monkeyp
     db.insert_batch(x, [{"u": int(v)} for v in _rows(u)])
     db.commit()
     db.close()
-    db = _reopen(store, seg_bytes + int(1.5 * _sub_bytes(u, 0, 10)))
+    db = _reopen(store, seg_bytes + int(1.5 * _sub_bytes(db0, u, 0, 10)))
     f = pmd.lt("u", 10)
     batches = [q[8 * j : 8 * j + 8] for j in range(8)]
     want = [db.search_arrays(b, k=10, filter=f) for b in batches]
@@ -240,14 +245,15 @@ def test_a_stream_drains_its_own_batches_before_it_gathers_again(corpus, monkeyp
 
 @pytest.mark.parametrize("scan_dtype", ["bf16", "f32"])
 def test_compact_bytes_is_what_the_gather_holds(corpus, scan_dtype):
-    """The budget charges a gather `compact_bytes`, which is what the
-    sub-corpus holds under each scan profile."""
+    """The budget charges a gather `FlatSegment.gathered_bytes`, which is
+    what the gathered copy holds under each scan profile."""
     backend, db0, x, u, q, seg_bytes = corpus
     db = vg.Open(backend, vg.Create(dim=0, device="cpu", hbm_budget_bytes=4 * seg_bytes,
                                     flat_scan_dtype=scan_dtype))
     db.search_arrays(q, k=10, filter=pmd.lt("u", 10))
     assert _kinds(db) == [["flat_compact"]]
-    assert _gathered(db) == S.compact_bytes(len(np.flatnonzero(_rows(u) < 10)), D, scan_dtype)
+    rows = len(np.flatnonzero(_rows(u) < 10))
+    assert _gathered(db) == _segment(db).gathered_bytes(rows, scan_dtype)
 
 
 @pytest.fixture(scope="module")

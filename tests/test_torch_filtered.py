@@ -23,6 +23,7 @@ from benchport import reference as R
 from vecgo_tpu_torch import metadata as vmeta
 from vecgo_tpu_torch.engine import memtable as vmemtable
 from vecgo_tpu_torch.engine import search as S
+from vecgo_tpu_torch.index.flat import FlatSegment
 from vecgo_tpu_torch.model import SearchOptions
 
 torch.set_num_threads(1)
@@ -140,13 +141,12 @@ def test_the_cells_small_run_is_correct():
 
 
 def _gather_every_row(monkeypatch):
-    real = S._gather_compact
+    real = FlatSegment.gather
 
-    def every_row(dev, rows_elig, scan_dtype):
-        n = dev["vectors"].shape[0]
-        return real(dev, torch.arange(n, device=rows_elig.device), scan_dtype)
+    def every_row(seg, rows_elig, scan_dtype):
+        return real(seg, torch.arange(seg.n, device=rows_elig.device), scan_dtype)
 
-    monkeypatch.setattr(S, "_gather_compact", every_row)
+    monkeypatch.setattr(FlatSegment, "gather", every_row)
 
 
 def _memtable_mask_dropped(monkeypatch):

@@ -2,8 +2,8 @@
 
 vecgo_tpu_torch carries its own copy of the host modules (metadata filters,
 the section container, manifests, the PK index, tombstones, the block
-caches and caching store, the metrics observers, the native ingest
-kernels of utils/hostops). Each test feeds
+caches and caching store, the metrics observers, the ingest copy and
+finiteness check). Each test feeds
 the same seeded inputs to both packages and requires the same results or
 the same bytes, so a database written by either package stays readable by
 the other. The static test checks that no port file and no line of
@@ -58,7 +58,7 @@ def test_port_never_imports_the_jax_package():
     for new in ("ops/hamming.py", "quantization/scalar.py", "quantization/pq.py",
                 "quantization/binary.py", "quantization/kmeans.py", "utils/tensors.py",
                 "ops/ivf_cache.py", "storage/cache.py", "engine/metrics.py", "index/fresh.py",
-                "tools/compact.py", "utils/hostops.py", "entry.py", "lexical/__init__.py",
+                "tools/compact.py", "entry.py", "lexical/__init__.py",
                 "lexical/bm25.py", "lexical/device_bm25.py", "parallel/mesh.py",
                 "parallel/engine_shard.py", "examples/basic.py", "examples/time_travel.py"):
         assert new in rel, new  # the quantizers, their ops, lexical, parallel and examples
@@ -266,46 +266,39 @@ def test_observers_match_jax_and_the_port_engine_calls_them():
 
 
 def test_hostops_copies_and_validates_as_numpy_and_the_jax_module():
-    """utils/hostops (the JAX package's hostops.cpp, the same code, built
-    with the host compiler): byte-equal copies, the same finiteness answers as numpy and
-    as the JAX module, and the memtable's ingest copy the same with the
-    native path and without it."""
-    import contextlib
-
+    """The port's ingest copy and finiteness check, numpy both
+    (`memtable.copy_validate`, `hostmem.all_finite`): byte-equal copies and
+    the same finiteness answers as numpy, as the JAX package's `all_finite`
+    and, where its native `hostops` builds, as that; on the threaded copy's
+    row counts too."""
+    from vecgo_tpu.utils import hostmem as jhostmem
     from vecgo_tpu.utils import hostops as jhostops
     from vecgo_tpu_torch.engine import memtable
     from vecgo_tpu_torch.errors import ErrInvalidVector
-    from vecgo_tpu_torch.utils import hostmem, hostops
+    from vecgo_tpu_torch.utils import hostmem
 
-    def code(*parts):  # the source without its comments
-        with open(os.path.join(REPO, *parts, "utils", "hostops.cpp")) as f:
-            return [ln.split("//")[0].rstrip() for ln in f if ln.split("//")[0].strip()]
-
-    assert code("vecgo_tpu_torch") == code("vecgo_tpu")
     r = np.random.default_rng(5)
     x = r.standard_normal((3000, 24)).astype(np.float32)
     bad = x.copy()
     bad[1234, 5] = np.nan
     inf = x.copy()
     inf[2999, 23] = -np.inf
-    if not hostops.available():
-        pytest.skip("no host compiler: the numpy path is the only one")
-    for arr in (x, bad, inf):
-        out = np.empty_like(arr)
-        ok = hostops.copy_validate_range(arr, out, 0, len(arr))
-        assert out.tobytes() == arr.tobytes()
-        assert ok == bool(np.isfinite(arr).all()) == hostmem.all_finite(arr)
-        assert hostops.validate_range(arr, 100, 2000) == bool(np.isfinite(arr[100:2000]).all())
+    big = r.standard_normal((70000, 16)).astype(np.float32)
+    big_inf = big.copy()
+    big_inf[69999, 0] = np.inf
+    big_nan = big.copy()
+    big_nan[35000, 7] = np.nan
+    for arr in (x, bad, inf, big, big_inf, big_nan):
+        ok = bool(np.isfinite(arr).all())
+        assert hostmem.all_finite(arr) == ok == jhostmem.all_finite(arr)
+        part = arr[100:2000]
+        assert hostmem.all_finite(part) == bool(np.isfinite(part).all())
         if jhostops.available():
             assert jhostops.validate_range(arr, 0, len(arr)) == ok
-        with hostops.disabled():
-            assert hostmem.all_finite(arr) == ok
-    big = r.standard_normal((70000, 16)).astype(np.float32)
-    native = memtable.copy_validate(big)
-    with hostops.disabled():
-        plain = memtable.copy_validate(big)
-    assert native.tobytes() == plain.tobytes() == big.tobytes()
-    big[69999, 0] = np.inf
-    for ctx in (hostops.disabled(), contextlib.nullcontext()):
-        with ctx, pytest.raises(ErrInvalidVector):
-            memtable.copy_validate(big)
+            out = np.empty_like(arr)
+            assert jhostops.copy_validate_range(arr, out, 0, len(arr)) == ok
+        if ok:
+            assert memtable.copy_validate(arr).tobytes() == arr.tobytes()
+        else:
+            with pytest.raises(ErrInvalidVector):
+                memtable.copy_validate(arr)

@@ -1,13 +1,13 @@
-"""The port's cluster cache (ops/ivf_cache.py, `graph_cached`) and persisted
-codes (`store_codes`) against the JAX package's.
+"""The port's cluster cache (ops/ivf_cache.py, `graph_cached`) against the
+JAX package's.
 
 The fixtures of tests/test_ivf_cache.py run through the port on the CPU, on
 the same seeded numpy inputs, beside the JAX functions:
 
-- the host encodes are numpy on both sides, so `_encode_host`'s arrays (the
-  `ivfq.*` sections of `store_codes="sq8"`) are byte for byte the JAX
-  package's; PQ codebooks differ after training (another k-means), so the PQ
-  cases carry the JAX host table across (`convert.host_table_from_jax`);
+- the host encodes are numpy on both sides, so `_encode_host`'s arrays are
+  byte for byte the JAX package's; PQ codebooks differ after training
+  (another k-means), so the PQ cases carry the JAX host table across
+  (`convert.host_table_from_jax`);
 - with every probed cluster cached, the cached scan equals `ivf_scan` over
   the full table: distances within 1e-4 of |q-c|^2 + |x^-c|^2 (the same
   f32 sums over bf16 products), ids equal up to ties;
@@ -20,39 +20,33 @@ the same seeded numpy inputs, beside the JAX functions:
   (`vecgo_tpu_torch.index.vamana.cached_scan_params`, `_at_port_params`),
   to the digit, and the port's recall is held to the JAX tests' floors, 0.9
   for SQ8 and 0.85 for PQ, on either writer's segments, and to at least the
-  JAX rule's recall over the same blob;
-- a database written with `store_codes` by either package opens and serves
-  through the cluster cache in the other.
-"""
+  JAX rule's recall over the same blob.
 
-import os
+The persisted codes (`store_codes`) are tests/test_torch_store_codes.py's.
+"""
 
 import numpy as np
 import pytest
 import torch
 
-import vecgo_tpu_torch as vg
-from vecgo_tpu.blobstore import MemoryStore as JaxMemoryStore
+from torch_ivf_cache_common import (D, _at_port_params, _blob, _CountingStore, _engine_recall,
+                                    _fixture, _jax_engine_at_port_params, _jax_kinds, _kinds,
+                                    _served_recall, _write_db)
 from vecgo_tpu.engine import Engine as JaxEngine
 from vecgo_tpu.engine import EngineOptions as JaxEngineOptions
 from vecgo_tpu.index.vamana import VamanaSegment as JaxVamanaSegment
-from vecgo_tpu.index.vamana import VamanaWriter as JaxVamanaWriter
 from vecgo_tpu.ops import ivf as jivf
 from vecgo_tpu.ops import ivf_cache as jic
 from vecgo_tpu.utils import testutil as tu
 from vecgo_tpu_torch import convert
-from vecgo_tpu_torch.blobstore import MemoryStore
 from vecgo_tpu_torch.engine import Engine, EngineOptions
-from vecgo_tpu_torch.engine import search as S
-from vecgo_tpu_torch.index.vamana import VamanaSegment, VamanaWriter, cached_scan_params
-from vecgo_tpu_torch.model import SearchOptions
+from vecgo_tpu_torch.index.vamana import VamanaSegment
 from vecgo_tpu_torch.ops import ivf as pivf
 from vecgo_tpu_torch.ops import ivf_cache as pic
 from vecgo_tpu_torch.ops.coded_group_scan import coded_group_scan
 
 torch.set_num_threads(1)
 
-D = 32
 CODED_REL_TOL = 1e-4
 
 
@@ -60,15 +54,6 @@ def _recall(got_rows, want_rows):
     hits = sum(len(set(map(int, g[g >= 0])) & set(map(int, w)))
                for g, w in zip(got_rows, want_rows))
     return hits / (len(want_rows) * len(want_rows[0]))
-
-
-def _fixture(n, clusters, seed, q_seed, n_q, members_seed):
-    x, _ = tu.clustered_vectors(n, D, n_clusters=clusters, seed=seed)
-    rng = np.random.default_rng(q_seed)
-    q = (x[rng.choice(len(x), n_q, replace=False)]
-         + 0.02 * rng.standard_normal((n_q, D))).astype(np.float32)
-    _, members = jivf.build_ivf_table(x, capacity=256, seed=members_seed)
-    return x, q, np.asarray(members)
 
 
 def _full_table(h) -> pivf.IVFCodedTable:
@@ -208,296 +193,6 @@ def test_pq_admission_decodes_the_jax_host_table(kind):
     assert same >= 0.97 * sum(len(set(b[b >= 0])) for b in r_j)
 
 
-def _blob(x, seed, kind, package="jax"):
-    """A segment of rows x written with `store_codes=kind` by one package."""
-    if package == "jax":
-        w = JaxVamanaWriter(x.shape[1], store_codes=kind, ivf_capacity=256, seed=seed)
-    else:
-        w = VamanaWriter(x.shape[1], store_codes=kind, ivf_capacity=256, seed=seed,
-                         device="cpu")
-    w.add_batch(x, np.arange(len(x)))
-    return w.finish()
-
-
-def _at_port_params(jseg):
-    """The JAX segment, its search_cached run at the port's scan parameters
-    (the JAX rule's probes and pool, the port's kk) through the JAX cache
-    and dedup, so that both packages answer at the same parameters."""
-    import jax.numpy as jnp
-    from vecgo_tpu.ops import beam as jbeam
-
-    def search_cached(q, k, mask=None, ef=0):
-        cc = jseg.cluster_cache()
-        ef = max(ef or max(jseg.DEFAULT_EF_SEARCH, k), k)
-        n_probe, kk, pool = cached_scan_params(k, ef, cc.k, cc.s, cc.host.kind == "pq")
-        sd, srows = cc.probe_and_scan(q, n_probe, kk, row_mask=mask)
-        cd, crows = jbeam._dedup_topk(sd, srows, pool)
-        cd, crows = cd[:, :k], crows[:, :k]
-        return cd, jnp.where(jnp.isfinite(cd), crows, -1)
-
-    jseg.search_cached = search_cached
-    return jseg
-
-
-def _jax_engine_at_port_params(je):
-    for h in je._segments:
-        if isinstance(h.segment, JaxVamanaSegment):
-            _at_port_params(h.segment)
-    return je
-
-
-def _served_recall(seg, q, ti, kk=10):
-    """Recall@10 of search_cached + the exact host rerank, for a segment of
-    either package."""
-    port = isinstance(seg, VamanaSegment)
-    qq = torch.from_numpy(q) if port else q
-    _, rows = seg.search_cached(qq, kk)
-    rows = rows.numpy() if port else np.asarray(rows)
-    d = seg.rerank_host(qq, torch.from_numpy(rows) if port else rows)
-    d = d.numpy() if port else np.asarray(d)
-    got = np.take_along_axis(rows, np.argsort(d, 1), 1)[:, :10]
-    return tu.recall_at_k(got, ti)
-
-
-def test_store_codes_sections_are_the_jax_writers_bytes():
-    """`ivfq.*` of store_codes=True (sq8): each writer's sections are
-    `_encode_host` over its own membership, so on the same membership they
-    are the JAX writer's bytes; either package opens the other's blob with
-    the same `codes_stored`, keeps its persisted table, and serves it with
-    the other package's recall at the same scan parameters, at least the JAX
-    rule's."""
-    from vecgo_tpu.storage import container as jcon
-
-    x, _ = tu.clustered_vectors(5000, D, n_clusters=12, seed=95)
-    jblob, pblob = _blob(x, 96, True), _blob(x, 96, True, "port")
-    jmeta, jsec = jcon.unpack_container(jblob)
-    pmeta, psec = jcon.unpack_container(pblob)
-    assert jmeta["ivf"]["codes_stored"] == pmeta["ivf"]["codes_stored"] == "sq8"
-    names = sorted(s for s in jsec if s.startswith("ivfq."))
-    assert names == sorted(s for s in psec if s.startswith("ivfq.")) == [
-        "ivfq.bn", "ivfq.cent", "ivfq.cnorm2", "ivfq.codes", "ivfq.scale"]
-    for sec in (jsec, psec):
-        want = jic._encode_host(np.asarray(sec["ivf.members"]), x)
-        for name in names:
-            assert np.asarray(sec[name]).tobytes() == np.asarray(want[name[5:]]).tobytes(), name
-    q = x[:8]
-    _, ti = tu.brute_force_knn(q, x, 10, "l2")
-    for blob in (jblob, pblob):
-        pseg, jseg = VamanaSegment.open(blob), JaxVamanaSegment.open(blob)
-        assert pseg._ivfq is not None and jseg._ivfq is not None
-        cc = pseg.cluster_cache(device="cpu")
-        assert isinstance(cc.host, pic.MemHostTable) and cc.host._codes is pseg._ivfq["codes"]
-        rec = _served_recall(pseg, q, ti)
-        assert rec == _served_recall(_at_port_params(jseg), q, ti)
-        assert rec >= _served_recall(JaxVamanaSegment.open(blob), q, ti) and rec >= 0.9
-
-
-@pytest.mark.parametrize("kind", ["pq", "opq"])
-def test_store_codes_pq_encode_matches_the_jax_layout(kind):
-    """PQ/OPQ host encodes on the same membership: the same keys, dtypes and
-    shapes as the JAX encode, the same centroids, norms and rows (the
-    codebooks differ after training, and with them bn and scale)."""
-    x, _, members = _fixture(4000, 16, 80, 81, 16, 82)
-    want = jic._encode_host_pq(members, x, kind=kind, m=8, seed=7)
-    got = pic._encode_host_pq(members, x, kind=kind, m=8, seed=7)
-    assert sorted(got) == sorted(want)
-    for name, b in want.items():
-        a = got[name]
-        assert (a is None) == (b is None) == (name == "rot" and kind == "pq"), name
-        if b is not None:
-            assert a.dtype == np.asarray(b).dtype and a.shape == np.asarray(b).shape, name
-    for name in ("cent", "cnorm2", "rows"):
-        assert got[name].tobytes() == np.asarray(want[name]).tobytes(), name
-
-
-def test_store_codes_pq_writer_sections_match_the_jax_writer():
-    """store_codes="pq" through both writers: the same section names,
-    dtypes and shapes, and the same `codes_stored`."""
-    from vecgo_tpu.storage import container as jcon
-
-    x, _ = tu.clustered_vectors(4200, D, n_clusters=12, seed=95)
-    jmeta, jsec = jcon.unpack_container(_blob(x, 96, "pq"))
-    pmeta, psec = jcon.unpack_container(_blob(x, 96, "pq", "port"))
-    assert jmeta["ivf"]["codes_stored"] == pmeta["ivf"]["codes_stored"] == "pq"
-    names = sorted(s for s in jsec if s.startswith("ivfq."))
-    assert names == sorted(s for s in psec if s.startswith("ivfq.")) == [
-        "ivfq.bn", "ivfq.cb", "ivfq.cent", "ivfq.cnorm2", "ivfq.pq", "ivfq.scale"]
-    for name in names:
-        a, b = np.asarray(psec[name]), np.asarray(jsec[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-
-
-class _CountingStore(MemoryStore):
-    """The port's MemoryStore (no zero-copy view, so opens are ranged
-    reads, as from a remote store), metering ranged reads (the cloud tier's
-    bytes) and whole-object reads from outside a ranged read."""
-
-    def __init__(self, root=None):
-        super().__init__()
-        self.range_bytes = 0
-        self.full_gets = 0
-        self._in_range = False
-        for base, _, names in os.walk(root) if root else ():
-            for n in names:
-                with open(os.path.join(base, n), "rb") as f:
-                    super().put(os.path.relpath(os.path.join(base, n), root), f.read())
-
-    def get_range(self, name, offset, length):
-        self.range_bytes += length
-        self._in_range = True
-        try:
-            return super().get_range(name, offset, length)
-        finally:
-            self._in_range = False
-
-    def get(self, name):
-        if not self._in_range:
-            self.full_gets += 1
-        return super().get(name)
-
-
-def test_store_codes_cloud_serving_is_block_granular():
-    """tests/test_ivf_cache.py:187 through the port, on the JAX writer's
-    blob: the lazy open skips the vectors and the code table, a batch reads
-    only the probed cluster blocks and the reranked rows, a warm batch reads
-    nothing, and recall is the JAX segment's over the same blob at the same
-    scan parameters, at least the JAX rule's."""
-    x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=91)
-    blob = _blob(x, 90, True)
-    st = _CountingStore()
-    st.put("seg.vgt", blob)
-    seg = VamanaSegment.open_lazy(st, "seg.vgt")
-    open_bytes = st.range_bytes
-    assert seg._vectors_arr is None
-    assert open_bytes < len(blob) - x.nbytes
-    q = x[5:21]
-    _, ti = tu.brute_force_knn(q, x, 10, "l2")
-    rec = _served_recall(seg, q, ti)
-    assert st.range_bytes - open_bytes < x.nbytes
-    assert st.full_gets == 0
-    assert isinstance(seg._ccache.host, pic.LazyHostTable)
-    assert seg._vectors_arr is None
-    assert rec >= 0.9 and rec == _served_recall(_at_port_params(JaxVamanaSegment.open(blob)), q, ti)
-    assert rec >= _served_recall(JaxVamanaSegment.open(blob), q, ti)
-    before = st.range_bytes
-    seg.search_cached(torch.from_numpy(q), 10)
-    assert st.range_bytes == before
-
-
-def test_store_codes_lazy_rerank_matches_memory():
-    """tests/test_ivf_cache.py:226, on the port's own blob."""
-    x, _ = tu.clustered_vectors(5000, D, n_clusters=12, seed=92)
-    blob = _blob(x, 93, True, "port")
-    st = MemoryStore()
-    st.put("seg.vgt", blob)
-    lazy_seg = VamanaSegment.open_lazy(st, "seg.vgt")
-    full_seg = VamanaSegment.open(blob)
-    rng = np.random.default_rng(94)
-    q = torch.from_numpy(x[rng.choice(len(x), 8, replace=False)])
-    rows = torch.from_numpy(rng.integers(0, len(x), (8, 12)))
-    rows[0, :3] = -1
-    d_lazy = lazy_seg.rerank_host(q, rows).numpy()
-    d_full = full_seg.rerank_host(q, rows).numpy()
-    assert lazy_seg._vectors_arr is None
-    np.testing.assert_array_equal(np.isinf(d_lazy), np.isinf(d_full))
-    np.testing.assert_allclose(d_lazy, d_full, rtol=1e-6, atol=1e-6)
-
-
-def test_store_codes_local_open_skips_reencode():
-    """tests/test_ivf_cache.py:249 through the port, on the JAX writer's
-    blob: the cache is built over the persisted sections, not re-encoded."""
-    x, _ = tu.clustered_vectors(5000, D, n_clusters=12, seed=95)
-    blob = _blob(x, 96, True)
-    seg = VamanaSegment.open(blob)
-    assert seg._ivfq is not None
-    cc = seg.cluster_cache(device="cpu")
-    assert isinstance(cc.host, pic.MemHostTable)
-    assert cc.host._codes is seg._ivfq["codes"]
-    q = x[:8]
-    _, ti = tu.brute_force_knn(q, x, 10, "l2")
-    assert _served_recall(seg, q, ti) >= 0.9
-
-
-def test_store_codes_pq_transport_economics():
-    """tests/test_ivf_cache.py:274 on the port's own blobs: PQ/OPQ
-    transports reach SQ8's recall (within 0.05) at a third of its store
-    bytes. The port's `h2d_bytes` counts every byte it copies, the blocks'
-    rows too (4 bytes a slot, which the JAX stat leaves out), so at d = 32
-    and m = 8 a PQ slot moves 8 + 8 bytes against SQ8's 32 + 8: 2.5 times
-    fewer, less the per-cluster centroid and scale."""
-    x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=91)
-    q = torch.from_numpy(x[5:21])
-    _, ti = tu.brute_force_knn(x[5:21], x, 10, "l2")
-
-    def serve(kind, kk):
-        st = MemoryStore()
-        st.put("s", _blob(x, 7, kind, "port"))
-        seg = VamanaSegment.open_lazy(st, "s")
-        _, rows = seg.search_cached(q, kk)
-        de = seg.rerank_host(q, rows).numpy()
-        got = np.take_along_axis(rows.numpy(), np.argsort(de, 1), 1)[:, :10]
-        assert seg._vectors_arr is None
-        cc = seg._ccache
-        return tu.recall_at_k(got, ti), cc.stats["h2d_bytes"], cc.host.store_bytes
-
-    rec8, h2d8, sb8 = serve("sq8", 40)
-    for kind in ("pq", "opq"):
-        rec, h2d, sb = serve(kind, 160)
-        assert rec >= rec8 - 0.05, (kind, rec, rec8)
-        assert h2d * 2.4 < h2d8, (kind, h2d, h2d8)
-        assert sb * 2.5 < sb8, (kind, sb, sb8)
-
-
-def _kinds(e, k=10):
-    snap = e.snapshot()
-    try:
-        plan = S._plan_snapshot(snap, SearchOptions(k=k), e.options, e._device_budget)
-    finally:
-        snap.release()
-    return [s.kind for s in plan.sources]
-
-
-def _jax_kinds(e, k=10):
-    from vecgo_tpu.engine import search as JS
-    from vecgo_tpu.model import SearchOptions as JaxSearchOptions
-
-    snap = e.snapshot()
-    try:
-        plan = JS._plan_snapshot(snap, JaxSearchOptions(k=k), e.options, e._device_budget)
-    finally:
-        snap.release()
-    return [s.kind for s in plan.sources]
-
-
-GRAPH_OPTS = dict(dim=D, flush_threshold=10_000_000, graph_threshold=2000,
-                  compaction_threshold=2)
-
-
-def _write_db(path, writer, x, **kw):
-    """Two commits of x's halves; the second compacts them into one Vamana
-    segment. Returns (ids, cache_bytes(), device_bytes())."""
-    opts = dict(GRAPH_OPTS, **kw)
-    if writer == "jax":
-        db = vg.DB(JaxEngine.open(path, JaxEngineOptions(**opts), create=True))
-    else:
-        db = vg.Open(vg.Local(path), vg.Create(device="cpu", **opts))
-    ids = list(db.insert_batch(x[:3000]))
-    db.commit()
-    ids += list(db.insert_batch(x[3000:]))
-    db.commit()
-    seg = db.engine._segments[0].segment
-    assert seg.ivf_members is not None and seg.meta["ivf"].get("codes_stored") == kw.get(
-        "store_codes")
-    sizes = seg.cache_bytes(), seg.device_bytes()
-    db.close()
-    return ids, sizes
-
-
-def _engine_recall(res, ids, ti):
-    got = np.asarray([[c.id for c in r] + [-1] * (10 - len(r)) for r in res])
-    return tu.recall_at_k(got, np.asarray([[ids[j] for j in row] for row in ti])), got
-
-
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_engine_beyond_budget_plans_graph_cached_as_jax_does(tmp_path, writer):
     """tests/test_ivf_cache.py:103: a budget between cache_bytes() and
@@ -530,59 +225,6 @@ def test_engine_beyond_budget_plans_graph_cached_as_jax_does(tmp_path, writer):
         assert rec >= 0.9
         pe.close()
         je.close()
-
-
-@pytest.mark.parametrize("kind", ["sq8", "pq"])
-def test_engine_store_codes_cloud_reopen(tmp_path, kind):
-    """tests/test_ivf_cache.py:311 through the port: the JAX engine's
-    compaction persists codes; the port's engine reopens the store under a
-    budget, defers the vectors and serves the over-budget graph segment
-    through store-fed cluster blocks at the JAX test's floor."""
-    x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=97)
-    path = str(tmp_path / "db")
-    ids, (cache, full) = _write_db(path, "jax", x, store_codes=kind)
-    st = _CountingStore(path)  # the JAX directory's blobs, as in a remote store
-    e2 = Engine.open(st, EngineOptions(dim=D, device="cpu", hbm_budget_bytes=(cache + full) // 2))
-    seg2 = e2._segments[0].segment
-    assert seg2._vectors_arr is None and _kinds(e2) == ["graph_cached"]
-    st.range_bytes = st.full_gets = 0
-    q = x[5:21]
-    _, ti = tu.brute_force_knn(q, x, 10, "l2")
-    rec, _ = _engine_recall(e2.search_batch(q, k=10), ids, ti)
-    assert seg2._ccache is not None and seg2._ccache.stats["batches"] > 0
-    assert isinstance(seg2._ccache.host, pic.LazyHostTable)
-    assert seg2._vectors_arr is None
-    blob_len = len(st.get(e2._segments[0].info.name))
-    assert st.range_bytes < blob_len - x.nbytes
-    assert rec >= (0.9 if kind == "sq8" else 0.85)
-    e2.close()
-
-
-@pytest.mark.parametrize("writer", ["jax", "port"])
-@pytest.mark.parametrize("kind", ["sq8", "pq"])
-def test_store_codes_db_directory_serves_in_the_other_package(tmp_path, writer, kind):
-    """A database written with store_codes by either package opens in both
-    under a budget that plans graph_cached; both serve it from the
-    persisted table with the same answers at the same scan parameters."""
-    x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=97)
-    path = str(tmp_path / "db")
-    ids, (cache, full) = _write_db(path, writer, x, store_codes=kind)
-    budget = (cache + full) // 2
-    pe = Engine.open(path, EngineOptions(device="cpu", hbm_budget_bytes=budget))
-    je = _jax_engine_at_port_params(JaxEngine.open(path, JaxEngineOptions(
-        hbm_budget_bytes=budget)))
-    assert _kinds(pe) == _jax_kinds(je) == ["graph_cached"]
-    q = x[5:21]
-    _, ti = tu.brute_force_knn(q, x, 10, "l2")
-    rec, got = _engine_recall(pe.search_batch(q, k=10), ids, ti)
-    jrec, jgot = _engine_recall(je.search_batch(q, k=10), ids, ti)
-    for e in (pe, je):
-        seg = e._segments[0].segment
-        assert seg._ccache is not None and seg._ccache.stats["batches"] == 1
-    assert abs(rec - jrec) <= 0.01 and np.mean(got == jgot) >= 0.97, (rec, jrec)
-    assert rec >= (0.9 if kind == "sq8" else 0.85)
-    pe.close()
-    je.close()
 
 
 @pytest.mark.parametrize("refine_factor", [1, 2, 10])

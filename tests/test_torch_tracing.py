@@ -20,6 +20,7 @@ from vecgo_tpu_torch import metadata as vmeta
 from vecgo_tpu_torch.engine import search as S
 from vecgo_tpu_torch.engine import tracing
 from vecgo_tpu_torch.engine.pk import DELETED
+from vecgo_tpu_torch.index.flat import FlatSegment
 
 torch.set_num_threads(1)
 
@@ -366,7 +367,8 @@ def test_filter_spans_and_counters(filtered):
     assert _counter(rec, "filter.rows_admitted", first) == 340
     assert _counter(rec, "filter.rows_total", first) == FN + FTAIL
     assert _counter(rec, "gather.rows", first) == 300
-    assert _counter(rec, "gather.bytes", first) == S.compact_bytes(300, D, "bf16")
+    seg = db.engine._segments[0].segment
+    assert _counter(rec, "gather.bytes", first) == seg.gathered_bytes(300, "bf16")
     for b in (first, *rest):
         assert _counter(rec, "memtable.rows_scanned", b) == FTAIL
         assert _counter(rec, "memtable.rows_admitted", b) == 40
@@ -379,13 +381,13 @@ def test_gather_bytes_are_what_the_gather_holds(filtered, monkeypatch):
     keeps: its row ids, bf16 rows and norms."""
     db, batches = filtered
     plans = []
-    real = S._gather_compact
+    real = FlatSegment.gather
 
-    def watched(dev, rows_elig, scan_dtype):
-        plans.append(real(dev, rows_elig, scan_dtype))
+    def watched(seg, rows_elig, scan_dtype):
+        plans.append(real(seg, rows_elig, scan_dtype))
         return plans[-1]
 
-    monkeypatch.setattr(S, "_gather_compact", watched)
+    monkeypatch.setattr(FlatSegment, "gather", watched)
     with tracing.recording() as rec:
         _filtered_stream(db, batches)
     assert len(plans) == 1

@@ -25,7 +25,6 @@ from vecgo_tpu_torch.errors import ErrDimensionMismatch, ErrInvalidVector
 from vecgo_tpu_torch.metadata.columnar import ColumnarMeta
 from vecgo_tpu_torch.model import Metric
 from vecgo_tpu_torch.ops import topk as T
-from vecgo_tpu_torch.utils import hostops
 from vecgo_tpu_torch.utils.hostmem import fill_arange, huge_empty, huge_empty_like
 
 CHUNK = 8192
@@ -71,14 +70,8 @@ def _fast_copy(x: np.ndarray) -> np.ndarray:
 
 def _copy_validate_range(x, out, a: int, b: int, rows_per: int) -> bool:
     """Copy rows [a, b) and finiteness-validate in the same pass; returns
-    False on any NaN/Inf.
-
-    Fast path: the native fused kernel (utils/hostops.cpp), an integer
-    exponent-bit test folded into the copy loop, so validation is free at
-    memcpy speed and the GIL is released for the whole range. Otherwise
-    chunked numpy copyto + min/max while the chunk is still cache-hot."""
-    if hostops.available():
-        return hostops.copy_validate_range(x, out, a, b)
+    False on any NaN/Inf. Chunked numpy copyto + min/max while the chunk is
+    still cache-hot (np.copyto and the reductions release the GIL)."""
     ok = True
     for i in range(a, b, rows_per):
         j = min(b, i + rows_per)

@@ -123,11 +123,9 @@ class _Source:
     mask: Optional[np.ndarray]
     rows_considered: int
     n: int  # row count of the source
-    # Low-selectivity compact gather (flat segments): eligible rows gathered
-    # ONCE per plan into a dense device sub-corpus — the scan then costs
-    # O(selectivity * N) instead of a full masked sweep. (x16, rnorm2, rows
-    # map, all device-resident; built lazily by _dispatch_chunk and retained
-    # by the plan cache.)
+    # The device state the plan keeps for this source (`_plan_state`): its
+    # uploaded mask, or a flat segment's gathered copy of its eligible rows
+    # (`FlatSegment.gather`), made at the first dispatch and kept with the plan.
     compact: Optional[dict] = None
 
 
@@ -142,6 +140,7 @@ class _Plan:
     rows_filtered_out: int = 0
     total_rows: int = 0
     filtered: bool = False
+    scan_dtype: str = "bf16"  # the options' flat_scan_dtype: its flat scans and gathers
 
 
 class PlanCache:
@@ -297,7 +296,7 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0, batch=None
     is a `planner.filter` span of `batch`; a filtered plan counts the rows
     its filter admits (`filter.rows_admitted`) of all it holds
     (`filter.rows_total`)."""
-    plan = _Plan()
+    plan = _Plan(scan_dtype=options.flat_scan_dtype)
     compact = []  # flat sources whose filter would gather, in plan order
     fs = as_filterset(opts.filter)
     plan.filtered = fs is not None
@@ -362,11 +361,7 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0, batch=None
                 resident
                 and mask is not None
                 and seg.quant.kind == "none"
-                and 0
-                < rows_c
-                <= int(
-                    getattr(options, "compact_gather_cutoff", 0.05) * seg.n
-                )
+                and 0 < rows_c <= int(options.compact_gather_cutoff * seg.n)
             ):
                 # Low-selectivity compact gather: eligible rows gather ONCE
                 # (per cached plan) into a dense device sub-corpus; the scan
@@ -415,10 +410,9 @@ def _plan_snapshot(snap, opts, options, device_budget, held: int = 0, batch=None
     left = device_left(device_budget)
     if left is not None:
         left = max(0, left - held)
-    scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     for i in compact:
         src = plan.sources[i]
-        need = compact_bytes(src.rows_considered, src.source.dim, scan_dtype)
+        need = src.source.gathered_bytes(src.rows_considered, plan.scan_dtype)
         if left is None or need <= left:
             src.kind = "flat_compact"
             if left is not None:
@@ -440,9 +434,9 @@ def _gather_room(device_budget, plan_cache) -> Optional[int]:
     return max(0, left - plan_cache.held_bytes())
 
 
-def _gather_need(plan, scan_dtype: str) -> int:
+def _gather_need(plan) -> int:
     """Bytes the plan's compact sources will gather at their first dispatch."""
-    return sum(compact_bytes(s.rows_considered, s.source.dim, scan_dtype)
+    return sum(s.source.gathered_bytes(s.rows_considered, plan.scan_dtype)
                for s in plan.sources
                if s.kind == "flat_compact" and "rows" not in (s.compact or {}))
 
@@ -457,15 +451,14 @@ def _dispatch_chunk(plan, qd, opts, options, exact_k: int = 0, batch=None):
     # (k + churn margin) already holds the global top-k. Graph sources keep
     # the JAX planner's refine_factor pool (fetch_k) and a device rerank.
     exact_k = max(exact_k or fetch_k, k)
-    scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     out = []
     dist_comps = 0
     for src in plan.sources:
         name = _SOURCE_NAME[src.kind]
         with tracing.span("source." + name, batch), \
                 tracing.device_timer("device_ms.source." + name, batch, qd.device):
-            d, rows, comps = _score_source(src, qd, opts, options, fetch_k, exact_k, scan_dtype,
-                                           batch)
+            d, rows, comps = _score_source(src, qd, opts, options, fetch_k, exact_k,
+                                           plan.scan_dtype, batch)
         dist_comps += comps + b * rows.shape[1]
         out.append((src.seg_id, d, rows))
     return out, dist_comps
@@ -495,8 +488,8 @@ def _score_source(src, qd, opts, options, fetch_k: int, exact_k: int, scan_dtype
         if quantized:
             d = seg.rerank(qd, rows)
     elif src.kind == "flat_compact":
-        d, rows = _compact_search(src, qd, min(exact_k, src.rows_considered),
-                                  options.metric, scan_dtype, batch)
+        d, rows = _gathered_source(src, qd, min(exact_k, src.rows_considered), scan_dtype,
+                                   batch)
     elif src.kind in ("flat_stream", "graph_stream"):
         d, rows = _stream_source(src, qd, min(max(fetch_k, exact_k), src.n), opts, options)
     else:  # graph_cached
@@ -581,7 +574,7 @@ def _graph_source(src, qd, kk: int, opts, options):
             # 1/selectivity, capped (lockstep cost grows with ef).
             sel = src.rows_considered / src.n
             ef = min(int(ef / max(sel, 1e-3)),
-                     max(ef, getattr(options, "ef_filtered_cap", 2048)))
+                     max(ef, options.ef_filtered_cap))
         bw = opts.beam_width or options.beam_width
         gkw = {}
         if opts.graph_refine >= 0:
@@ -618,55 +611,24 @@ def _source_mask(src, device):
     return st["mask"]
 
 
-def compact_bytes(rows: int, dim: int, scan_dtype: str) -> int:
-    """Device bytes of the sub-corpus `_gather_compact` makes of `rows` rows
-    (what the device budget charges it)."""
-    return rows * (2 * dim + 8 + 4 + (4 * dim if scan_dtype == "f32" else 0))
-
-
-def _gather_compact(dev, rows_elig, scan_dtype: str) -> dict:
-    """The compact-gather sub-corpus: the eligible rows' segment row ids
-    (int64), their bf16 rows and their norms (f32), and under the f32 scan
-    profile their f32 rows (`compact_bytes` counts each)."""
-    cc = dict(rows=rows_elig, x16=dev["vectors"][rows_elig].to(torch.bfloat16),
-              rn=dev["rnorm2"][rows_elig])
-    if scan_dtype == "f32":
-        cc["x32"] = dev["vectors"][rows_elig]
-    return cc
-
-
-def _compact_search(src, qd, kk: int, metric: Metric, scan_dtype: str, batch=None):
+def _gathered_source(src, qd, kk: int, scan_dtype: str, batch=None):
     """Low-selectivity filter on a flat segment: the eligible rows are
-    gathered once per plan into a dense sub-corpus (kept on the plan's source),
-    so the scan costs O(selectivity * N) and carries no mask. The gather is
-    the `planner.gather` span of the batch that makes it, which counts its
-    rows (`gather.rows`) and device bytes (`gather.bytes`)."""
+    gathered once per plan into a dense copy (`FlatSegment.gather`, kept on
+    the plan's source), so the scan costs O(selectivity * N) and carries no
+    mask. The gather is the `planner.gather` span of the batch that makes
+    it, which counts its rows (`gather.rows`) and device bytes
+    (`gather.bytes`)."""
     seg = src.source
-    cc = _plan_state(src)
-    if "rows" not in cc:
-        dev = seg.device_state(qd.device)
+    st = _plan_state(src)
+    if "rows" not in st:
+        seg.device_state(qd.device)  # made before the span, which times the gather alone
         with tracing.span("planner.gather", batch):
             rows_elig = torch.from_numpy(np.flatnonzero(src.mask)).to(qd.device)
-            cc.update(_gather_compact(dev, rows_elig, scan_dtype))
+            st.update(seg.gather(rows_elig, scan_dtype))
         n = int(rows_elig.shape[0])
         tracing.count("gather.rows", n, batch)
-        tracing.count("gather.bytes", compact_bytes(n, seg.dim, scan_dtype), batch)
-    if scan_dtype == "f32":
-        # The f32 sub-corpus scan (on the card the f32 product: split
-        # precision, fp32-class, on the tensor cores).
-        d, lrows = T.blockwise_topk_search(
-            qd, cc["x32"], kk, metric=metric, x_norms_sq=cc["rn"], x_normalized=True,
-        )
-        return d, torch.where(lrows >= 0, cc["rows"][lrows.clamp_min(0)], -1)
-    # bf16 pool (+24: the sub-corpus scan is cheap), remap to segment rows,
-    # exact fp32 rerank against the full table, final top-kk.
-    n_sub = cc["x16"].shape[0]
-    _, lrows = T.blockwise_topk_search(
-        qd, cc["x16"], min(kk + 24, n_sub), metric=metric, x_norms_sq=cc["rn"],
-        x_normalized=True,
-    )
-    rows = torch.where(lrows >= 0, cc["rows"][lrows.clamp_min(0)], -1)
-    return T.topk_smallest_with_ids(seg.rerank(qd, rows), rows, kk)
+        tracing.count("gather.bytes", seg.gathered_bytes(n, scan_dtype), batch)
+    return seg.search_gathered(qd, kk, st, scan_dtype)
 
 
 def _merge_device(parts, width: int):
@@ -839,12 +801,12 @@ def _dispatch_batch(snap, pk, q, opts: SearchOptions, options, device_budget=Non
         b = qd.shape[0]
         if plan is None:
             plan = _batch_plan(snap, opts, options, device_budget, plan_cache, batch=batch)
-        gather_budget = getattr(options, "plan_gather_budget_bytes", 2 << 30)
+        gather_budget = options.plan_gather_budget_bytes
         left = device_left(device_budget)
         if plan_cache is not None and left is not None:
             # Make room for this plan's gathers before they are allocated.
-            plan_cache.sweep_gathered(gather_budget, left, keep=plan, reserve=_gather_need(
-                plan, getattr(options, "flat_scan_dtype", "bf16")))
+            plan_cache.sweep_gathered(gather_budget, left, keep=plan,
+                                      reserve=_gather_need(plan))
 
         # Every dirty (multi-version) id can put one stale row per source into
         # the merge window, so the margin grows with the dirty count; a clean
@@ -954,13 +916,12 @@ def search_snapshot_stream(snap, pk, batches, opts: SearchOptions, options,
     its gathers do not fit beside this stream's own as well, the stream
     first drains its oldest batches, which frees theirs."""
     inflight: "deque[_PendingBatch]" = deque()
-    scan_dtype = getattr(options, "flat_scan_dtype", "bf16")
     try:
         for q in batches:
             batch = tracing.Batch(opts.with_stats)
             mine = Counter(id(pending.plan) for pending in inflight)
             plan = _batch_plan(snap, opts, options, device_budget, plan_cache, mine, batch)
-            need = _gather_need(plan, scan_dtype)
+            need = _gather_need(plan)
             while need and inflight and need > _gather_room(device_budget, plan_cache):
                 yield _drain_batch(inflight.popleft(), snap, pk, opts, need_locations)
             inflight.append(_dispatch_batch(snap, pk, q, opts, options, device_budget,

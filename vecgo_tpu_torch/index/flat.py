@@ -29,6 +29,13 @@ from vecgo_tpu_torch.ops import topk as T
 
 SEGMENT_KIND = "flat"
 
+# Candidates past k that an unquantized scan keeps for its exact f32 rerank:
+# over the bf16 copy, over the f32 table (tie-heavy data), and over the bf16
+# rows of a gathered copy (a short scan, so a wider pool costs little).
+POOL_MARGIN_BF16 = 8
+POOL_MARGIN_F32 = 16
+POOL_MARGIN_GATHERED = 24
+
 
 class FlatWriter:
     """Buffered writer: add rows, then finish() -> container bytes.
@@ -378,8 +385,8 @@ class FlatSegment(common.RowBlobAccess):
         upstream for cosine); mask bool [n] (filters and tombstones), host or
         device. Returns (dists [B, k] f32, rows [B, k] int64).
 
-        Unquantized: a pool scan over the bf16 copy (k+8 wide) or the f32
-        table (k+16 wide, for tie-heavy data), then an exact fp32 rerank of
+        Unquantized: a pool scan over the bf16 copy (POOL_MARGIN_BF16 past k)
+        or the f32 table (POOL_MARGIN_F32 past k), then an exact fp32 rerank of
         the pool: the distances are exact. Quantized: the quantizer's
         approximate distances over the codes; callers rerank (`rerank`)."""
         b = q.shape[0]
@@ -394,7 +401,7 @@ class FlatSegment(common.RowBlobAccess):
             return self._scan(q, k, lambda qq, rows: T.blockwise_topk_scored(
                 qq, dev, self.n, k, scanner, mask=dmask, block_rows=block_rows, rows=rows), probes)
         bf16 = scan_dtype == "bf16"
-        pool = min(self.n, k + (8 if bf16 else 16))
+        pool = min(self.n, k + (POOL_MARGIN_BF16 if bf16 else POOL_MARGIN_F32))
         if probes is None:
             return T.scored_pool_rerank(
                 q, dev["vectors16"] if bf16 else dev["vectors"], dev["vectors"], dev["rnorm2"],
@@ -424,6 +431,48 @@ class FlatSegment(common.RowBlobAccess):
         return self._scan(q, k, lambda qq, rows: T.streaming_topk_scored(
             qq, self.enc_host, self.n, k, scanner, mask=dmask, block_rows=block_rows, rows=rows),
             self._probes(q, nprobes))
+
+    # ---------------- gathered copies ----------------
+
+    def gathered_bytes(self, rows: int, scan_dtype: str) -> int:
+        """Device bytes of the copy `gather` makes of `rows` rows (what a
+        device budget charges it)."""
+        return rows * (2 * self.dim + 8 + 4 + (4 * self.dim if scan_dtype == "f32" else 0))
+
+    def gather(self, rows_elig, scan_dtype: str) -> dict:
+        """A dense device copy of an unquantized segment's rows `rows_elig`
+        (int64, on the device): their segment row ids, their bf16 rows and
+        their norms (f32), and under the f32 scan profile their f32 rows
+        (`gathered_bytes` counts each). A low-selectivity filter scans it
+        with `search_gathered` in O(rows) and without a mask."""
+        dev = self.device_state(rows_elig.device)
+        g = dict(rows=rows_elig, x16=dev["vectors"][rows_elig].to(torch.bfloat16),
+                 rn=dev["rnorm2"][rows_elig])
+        if scan_dtype == "f32":
+            g["x32"] = dev["vectors"][rows_elig]
+        return g
+
+    def search_gathered(self, q, k: int, gathered: dict, scan_dtype: str):
+        """Top-k over a copy that `gather` made with the same `scan_dtype`.
+        Returns (dists [B, k] f32, segment rows [B, k] int64, -1 where
+        empty). The f32 rows are scored exactly (on the card the split f32
+        product); the bf16 rows give a pool POOL_MARGIN_GATHERED past k,
+        reranked exactly against the segment's f32 table. Never reached
+        through `search`, so a trace does not count its scans as scans of the
+        whole segment."""
+        if scan_dtype == "f32":
+            d, lrows = T.blockwise_topk_search(
+                q, gathered["x32"], k, metric=self.metric, x_norms_sq=gathered["rn"],
+                x_normalized=True,
+            )
+            return d, torch.where(lrows >= 0, gathered["rows"][lrows.clamp_min(0)], -1)
+        n_sub = gathered["x16"].shape[0]
+        _, lrows = T.blockwise_topk_search(
+            q, gathered["x16"], min(k + POOL_MARGIN_GATHERED, n_sub), metric=self.metric,
+            x_norms_sq=gathered["rn"], x_normalized=True,
+        )
+        rows = torch.where(lrows >= 0, gathered["rows"][lrows.clamp_min(0)], -1)
+        return T.topk_smallest_with_ids(self.rerank(q, rows), rows, k)
 
     def rerank(self, q, rows):
         """Exact fp32 distances of candidate rows [B, C] (-1 -> +inf). An

@@ -42,8 +42,6 @@ import time
 
 import numpy as np
 
-from vecgo_tpu_torch.utils import hostops
-
 _MADV_HUGEPAGE = 14
 _HUGE_MIN_BYTES = 2 << 20  # below one hugepage, np.empty is fine
 _PROBE_BYTES = 8 << 20  # per-backend calibration probe
@@ -172,18 +170,13 @@ def huge_arange(start: int, n: int, dtype=np.int64) -> np.ndarray:
 def all_finite(x: np.ndarray) -> bool:
     """np.isfinite(x).all() without materializing a full-size bool array.
 
-    Fast path for contiguous 2-D f32: the native exponent-bit scan
-    (utils/hostops.cpp, one integer read pass, GIL released). Otherwise
-    min/max reductions, which propagate NaN and saturate at +/-Inf, so two
+    min/max reductions propagate NaN and saturate at +/-Inf, so two
     allocation-free passes decide finiteness exactly: NaN poisons both
     reductions, +Inf surfaces in max, -Inf in min. Measured ~4x the chunked
     isfinite scan (reductions run at raw read bandwidth; the ufunc+bool
     path writes one byte per element)."""
     if x.size == 0:
         return True
-    if (x.dtype == np.float32 and x.ndim == 2 and x.flags["C_CONTIGUOUS"]
-            and hostops.available()):
-        return hostops.validate_range(x, 0, x.shape[0])
     lo = np.min(x)
     hi = np.max(x)
     return bool(np.isfinite(lo)) and bool(np.isfinite(hi))
