@@ -18,8 +18,11 @@ product: the short product's alone run in these shapes). Variants:
 
 - built: the kernel as it is (plus the counters);
 - no-score: the score pass skipped (the TMA ring, the products and the
-  turns alone);
-- fast-only: the fast test and the vote run, the rare path never does;
+  turns alone); a compare that never holds reads the products' first sum,
+  since ptxas drops every `wgmma` whose sums nothing reads;
+- fast-only: the fast test and the vote run, the rare path never does (it
+  stays in the build behind a condition the compiler cannot fold: compiled
+  out, it took the fast test with it and then the products, PERF.md);
 - no-bound: each split keeps its own threshold, nothing shared;
 - two-wg: two consumer warpgroups at every depth and k (the plan gives
   three up to d = 192 and k = 64);
@@ -29,9 +32,10 @@ product: the short product's alone run in these shapes). Variants:
 With --f32 the split f32 product's variants (F32_VARIANTS):
 
 - built: as it is;
-- fast-only: the fast test and the vote run, the rare path never does (how
-  much of the score pass is the rare path);
-- no-score: the score pass skipped (the ring, the split, the three passes);
+- fast-only: the fast test and the vote run, the rare path never does (the
+  built time less this is what the rare passes cost);
+- no-score: the score pass skipped (the ring, the split, the three passes;
+  the products' first sum read as in the short product's);
 - no-split: the splitter warps write no low parts (they only wait and
   release), so the low-part pass multiplies whatever the buffer holds;
 - big-only: the two small passes skipped (one tf32 pass, the product of a
@@ -40,7 +44,15 @@ With --f32 the split f32 product's variants (F32_VARIANTS):
   releases each stage as it lands), so each staged chunk serves 64 queries,
   the reuse of a one-warpgroup design; half the queries come back empty;
 - ring-only: no products, no low parts, no score pass: the TMA ring and
-  the splitters' and the consumers' barriers alone (the feed's own rate).
+  the splitters' and the consumers' barriers alone (the feed's own rate);
+- timeline, timeline-fast-only, timeline-no-score: built, fast-only and
+  no-score with clock64 read by warp 0 of each consumer warpgroup at each
+  tile's start, before its score pass and after it, and around each
+  chunk's stage waits, issue and wait for the tensor cores: the mean
+  clocks of a warpgroup's tile in its products (the chunks issued, retired
+  and added, with every wait for a stage) and in its score pass, and the
+  products' share in stage waits (TMA landed; low parts written), issues
+  and tensor waits (the reads add 2-3% to the scan).
 
 With --columns the sparse product's variants (COLUMN_VARIANTS; its own
 counters: warp slots whose vote found a survivor, and compactions):
@@ -62,7 +74,8 @@ Shapes: 4096 clustered queries over clustered l2 rows (1,048,576 rows, or
 --seed) at (d, k) in SHAPES; with --f32 the f32 cases of chip_smoke.py
 (F32_SHAPES: the 1M x 128 scan ShardedFlat splits, cos rows at d 768, the
 memtable chunk at pools 82 and 308) and the flat segment's scan of
-benchport's exact cell (9,990,000 x 96 cos rows at a pool of 116); with
+benchport's exact cell (9,990,000 x 96 cos rows at a pool of 116) and one
+of its memtable chunks (8,192 such rows); with
 --columns the sweep of
 `scripts/torch_scan_ab.py`'s "bm25-columns" case (4096 queries of 3
 zipf-drawn columns over 1,049,576 BM25-like rows x 4096, 0.1% dead, k 36),
@@ -87,9 +100,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 4096
 SHAPES = ((128, 18), (128, 1), (128, 64), (128, 82), (128, 256), (128, 1000), (256, 18))
 
+# Rare passes, compactions, and a timeline variant's clocks and tiles.
+_DECLARE = ("__device__ unsigned long long g_rare = 0, g_comp = 0, g_mul = 0, g_score = 0, "
+            "g_tiles = 0, g_full = 0, g_split = 0, g_issue = 0, g_wait = 0;")
 _COUNT = [
-    ("namespace {\n\nconstexpr int THREADS",
-     "namespace {\n__device__ unsigned long long g_rare = 0, g_comp = 0;\nconstexpr int THREADS"),
+    ("namespace {\n\nconstexpr int THREADS", "namespace {\n" + _DECLARE + "\nconstexpr int THREADS"),
     ("    if (!(vote0 | vote1)) continue;\n",
      "    if (!(vote0 | vote1)) continue;\n    if (lane == 0) atomicAdd(&g_rare, 1ull);\n"),
     ("    const int m = m0 + __ffs(todo) - 1;\n      todo &= todo - 1;\n      float t;",
@@ -98,14 +113,20 @@ _COUNT = [
     ('extern "C" {\n',
      'extern "C" {\nunsigned long long vecgo_profile_count(int which) {\n'
      '  unsigned long long v = 0, z = 0;\n'
-     '  cudaMemcpyFromSymbol(&v, which ? g_comp : g_rare, 8);\n'
-     '  cudaMemcpyToSymbol(which ? g_comp : g_rare, &z, 8);\n  return v;\n}\n'),
+     '  unsigned long long* c[] = {&g_rare, &g_comp, &g_mul, &g_score, &g_tiles, &g_full,'
+     ' &g_split, &g_issue, &g_wait};\n'
+     '  cudaMemcpyFromSymbol(&v, *c[which], 8);\n'
+     '  cudaMemcpyToSymbol(*c[which], &z, 8);\n  return v;\n}\n'),
 ]
 VARIANTS = {
     "built": [],
-    "no-score": [("      if (scores) {", "      if (scores && pm < 0.f) {")],
+    # The products stay: a compare that never holds reads their first sum
+    # (with nothing reading them, ptxas drops every wgmma but a dummy).
+    "no-score": [("      if (scores) {",
+                  "      if (acc[0] == -1.f && L.cap < 0) L.thr[0] = acc[0];\n"
+                  "      if (scores && pm < 0.f) {")],
     "fast-only": [("    if (!(vote0 | vote1)) continue;\n",
-                   "    if (!(vote0 | vote1) || pm > 0.f) continue;\n")],
+                   "    if (!(vote0 | vote1) || L.cap > 0) continue;\n")],
     "no-bound": [("          th[h] = fminf(own[h], wsel::fval(key[h] + (key[h] < wsel::fkey(INFINITY))));\n"
                   "        short_score(L, acc, terms + (r.t % STERMS)",
                   "          th[h] = own[h];\n        short_score(L, acc, terms + (r.t % STERMS)")],
@@ -118,10 +139,43 @@ VARIANTS = {
 
 F32_SHAPES = {"f32-1M": (1 << 20, 128, 10, "l2"), "wide-d768": (65536, 768, 10, "cos"),
               "chunk-pool82": (8192, 128, 82, "l2"), "chunk-k308": (8192, 128, 308, "l2"),
-              "exact-d96": (9_990_000, 96, 116, "cos")}
+              "exact-d96": (9_990_000, 96, 116, "cos"), "chunk-d96-pool116": (8192, 96, 116, "cos")}
 _F32_NO_SCORE = ("short_score(L, tot, terms + (tiles % XSTERMS)",
-                 "if (pm < 0.f) short_score(L, tot, terms + (tiles % XSTERMS)")
-_F32_NO_SPLIT = ("          lo[e] = make_float4(", "          if (N < 0) lo[e] = make_float4(")
+                 "if (tot[0] == -1.f && L.cap < 0) L.thr[0] = tot[0];\n"
+                 "        if (pm < 0.f) short_score(L, tot, terms + (tiles % XSTERMS)")
+_F32_SCORE_CALL = ("        short_score(L, tot, terms + (tiles % XSTERMS) * XN, r_begin + t * XN, w, g, tg,"
+                   " lane, qa,\n                    live, qi, own, th, pm, bound);\n")
+# clock64 at a tile's start, before its score pass and after it, and
+# around each chunk's waits for its stage (TMA landed, low parts written),
+# its issue and its wait for the tensor cores, summed by warp 0 of each
+# consumer warpgroup over its units.
+_TIMELINE = [
+    ("    float acc[64], tot[64];\n",
+     "    float acc[64], tot[64];\n    unsigned long long s_mul = 0, s_score = 0, s_tiles = 0, "
+     "s_full = 0, s_split = 0, s_issue = 0, s_wait = 0;\n"),
+    ("        next_bounds(key, next_key, live, qi, bound);\n        chunk(0, tot);",
+     "        const long long c0 = clock64();\n"
+     "        next_bounds(key, next_key, live, qi, bound);\n        chunk(0, tot);"),
+    (_F32_SCORE_CALL,
+     "        const long long c1 = clock64();\n" + _F32_SCORE_CALL
+     + "        s_mul += c1 - c0;\n        s_score += clock64() - c1;\n        ++s_tiles;\n"),
+    ("        mbar_wait(smem_u32(full + r.s), r.ph);\n        mbar_wait(smem_u32(split + r.s), r.ph);\n",
+     "        const long long k0 = clock64();\n        mbar_wait(smem_u32(full + r.s), r.ph);\n"
+     "        const long long k1 = clock64();\n        mbar_wait(smem_u32(split + r.s), r.ph);\n"
+     "        const long long k2 = clock64();\n"),
+    ("        split_issue(dst, qh, ql, sb, sb + XCHUNK);\n        wgmma_wait<0>();\n",
+     "        split_issue(dst, qh, ql, sb, sb + XCHUNK);\n        const long long k3 = clock64();\n"
+     "        wgmma_wait<0>();\n        s_full += k1 - k0;\n        s_split += k2 - k1;\n"
+     "        s_issue += k3 - k2;\n        s_wait += clock64() - k3;\n"),
+    ("      if (lane < 16) L.pool_n[16 * w + lane] = L.cnt[16 * w + lane];\n",
+     "      if (lane < 16) L.pool_n[16 * w + lane] = L.cnt[16 * w + lane];\n"
+     "      if (lane == 0 && w == 0) {\n"
+     + "".join(f"        atomicAdd(&g_{c}, s_{c});\n"
+               for c in ("mul", "score", "tiles", "full", "split", "issue", "wait"))
+     + "      }\n      s_mul = s_score = s_tiles = s_full = s_split = s_issue = s_wait = 0;\n"),
+]
+_F32_NO_SPLIT = ("                lo[e0 + b * step] = make_float4(",
+                 "                if (N < 0) lo[e0 + b * step] = make_float4(")
 F32_VARIANTS = {
     "built": [],
     "fast-only": VARIANTS["fast-only"],
@@ -141,12 +195,14 @@ F32_VARIANTS = {
     "ring-only": [_F32_NO_SCORE, _F32_NO_SPLIT,
                   ("        split_issue(dst, qh, ql, sb, sb + XCHUNK);",
                    "        if (N < 0) split_issue(dst, qh, ql, sb, sb + XCHUNK);")],
+    "timeline": _TIMELINE,
+    "timeline-fast-only": _TIMELINE + VARIANTS["fast-only"],
+    "timeline-no-score": _TIMELINE + [_F32_NO_SCORE],
 }
 
 
 _COLUMN_COUNT = [
-    ("namespace {\n\nconstexpr unsigned FULL",
-     "namespace {\n__device__ unsigned long long g_rare = 0, g_comp = 0;\nconstexpr unsigned FULL"),
+    ("namespace {\n\nconstexpr unsigned FULL", "namespace {\n" + _DECLARE + "\nconstexpr unsigned FULL"),
     ("          if (!__any_sync(FULL, pass[i])) continue;\n",
      "          if (!__any_sync(FULL, pass[i])) continue;\n"
      "          if (lane == 0) atomicAdd(&g_rare, 1ull);\n"),
@@ -280,11 +336,12 @@ def worker(root: str, seed: int, reps: int, mode: str = "short") -> None:
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / reps
-        lib.vecgo_profile_count(0)
-        lib.vecgo_profile_count(1)
+        for which in range(9):
+            lib.vecgo_profile_count(which)
         run()
         torch.cuda.synchronize()
-        rare, comp = lib.vecgo_profile_count(0), lib.vecgo_profile_count(1)
+        rare, comp, mul, score, tiles, *waits = (lib.vecgo_profile_count(which)
+                                                 for which in range(9))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             run()
@@ -297,6 +354,9 @@ def worker(root: str, seed: int, reps: int, mode: str = "short") -> None:
         out[name] = {"n": n, "ms": ms, "product": st.scan_topk.last_product,
                      "rare_passes": rare, "rare_share": rare / passes,
                      "compactions": comp, "kernels_ms": kernels}
+        if tiles:  # a timeline variant: mean clocks of a warpgroup's tile
+            out[name].update(tiles=tiles, products_clocks=mul / tiles, score_clocks=score / tiles,
+                             chunk_clocks=[w / tiles for w in waits])
         del q, xb, xn
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -340,7 +400,12 @@ def main() -> int:
             kern = ", ".join(f"{a} {b:.3f}" for a, b in v["kernels_ms"].items())
             print(f"scan profile {name} {shape} N={v['n']}: {v['product']} {v['ms']:.3f} ms, "
                   f"rare passes {v['rare_passes']} ({v['rare_share']:.2%}), compactions "
-                  f"{v['compactions']}; device ms: {kern} [{card}]", flush=True)
+                  f"{v['compactions']}; device ms: {kern}"
+                  + (f"; a tile's products {v['products_clocks']:.0f} and score pass "
+                     f"{v['score_clocks']:.0f} clocks ({v['tiles']} tiles; a tile's stage waits, "
+                     "issues and tensor waits " + " / ".join(f"{c:.0f}" for c in v["chunk_clocks"])
+                     + ")" if "tiles" in v else "")
+                  + f" [{card}]", flush=True)
     print(json.dumps(result))
     return 0
 

@@ -213,6 +213,9 @@ constexpr int XK = 32;
 // splitter warps.
 constexpr int XTHREADS = 384;
 constexpr int XSPLITTERS = 3;
+// 16-byte groups of a stage a splitter thread loads before it writes their
+// low parts, so that their shared-memory reads overlap.
+constexpr int XSPLIT_BATCH = 4;
 constexpr int XQCHUNK = XQ * XK * 4;        // 16 KB: one part of 128 queries x 32
 constexpr int XCHUNK = XN * XK * 4;         // 16 KB: 128 rows x 32
 constexpr int XBUF = 208 * 1024;
@@ -1501,10 +1504,15 @@ __device__ __forceinline__ float tf32_round(float x) {
 
 // The low part of x. The tensor cores read an f32 operand as tf32 by
 // ignoring its low 13 bits, so a raw row is its own high part trunc(x); its
-// low part x - trunc(x) is exact in f32 and is rounded to tf32 here. A
-// non-finite x gives NaN (inf - inf), so its row never scores.
+// low part x - trunc(x) is exact in f32 and is rounded to tf32 here by an
+// integer add and mask: round to nearest, ties away, as cvt.rna.tf32 gives
+// for every finite value, on the integer pipes (the splitter warps waited
+// on the conversion: the d 96 scan ran ~5% faster without it, PERF.md). A
+// non-finite x makes its high part inf or NaN, so its row never scores
+// whatever its low part.
 __device__ __forceinline__ float tf32_low(float x) {
-  return tf32_round(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+  const float d = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float((__float_as_uint(d) + 0x1000u) & 0xffffe000u);
 }
 
 // |q|^2 of every query (f32), each query's bound shared by its splits (+inf's
@@ -1725,9 +1733,17 @@ scan_split_kernel(const __grid_constant__ CUtensorMap qhmap,
           mbar_wait(smem_u32(full + r.s), r.ph);
           float4* raw = reinterpret_cast<float4*>(smem + ring_off + r.s * stage_bytes);
           float4* lo = raw + XCHUNK / 16;
-          for (int e = sp; e < XCHUNK / 16; e += 32 * XSPLITTERS) {
-            const float4 v = raw[e];
-            lo[e] = make_float4(tf32_low(v.x), tf32_low(v.y), tf32_low(v.z), tf32_low(v.w));
+          constexpr int step = 32 * XSPLITTERS;
+          for (int e0 = sp; e0 < XCHUNK / 16; e0 += XSPLIT_BATCH * step) {
+            float4 v[XSPLIT_BATCH];
+#pragma unroll
+            for (int b = 0; b < XSPLIT_BATCH; ++b)
+              if (e0 + b * step < XCHUNK / 16) v[b] = raw[e0 + b * step];
+#pragma unroll
+            for (int b = 0; b < XSPLIT_BATCH; ++b)
+              if (e0 + b * step < XCHUNK / 16)
+                lo[e0 + b * step] = make_float4(tf32_low(v[b].x), tf32_low(v[b].y),
+                                                tf32_low(v[b].z), tf32_low(v[b].w));
           }
           // The low parts, written by threads, become visible to wgmma's reads.
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
